@@ -1,0 +1,94 @@
+"""Command-line entry point of the port: `generate`, with the flags of the
+JAX package's `generate_main` (ref: generate.py:137-148) plus `--device`
+and `--params`.
+
+Orbax checkpoints cannot be read without JAX, so weights come from a
+keystr-layout `.npz` (`--params`, params.py); without one the model starts
+from fresh weights drawn from a seeded torch.Generator.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from music_generator_tpu_torch.config import default_config
+from music_generator_tpu_torch.data.dataset import compute_genre
+from music_generator_tpu_torch.device import resolve_device
+from music_generator_tpu_torch.generation.sampler import Sampler, write_file
+from music_generator_tpu_torch.models.deepj import build_model
+from music_generator_tpu_torch.params import load_params_npz
+from music_generator_tpu_torch.utils import one_hot
+
+
+def generate_main(argv=None) -> list:
+    """Generate and write one .mid per style mixture; returns the paths."""
+    parser = argparse.ArgumentParser(description="Generates music.")
+    parser.add_argument("--bars", default=32, type=int,
+                        help="Number of bars to generate")
+    parser.add_argument("--styles", default=None, type=int, nargs="+",
+                        help="Styles to mix together")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--temperature", type=float, default=1.0)
+    parser.add_argument("--out", type=str, default="output",
+                        help="Output file name prefix")
+    parser.add_argument("--sweep", type=int, nargs=3, default=None,
+                        metavar=("STYLE_A", "STYLE_B", "N"),
+                        help="Generate N samples interpolating the style "
+                             "mixture from STYLE_A to STYLE_B in parallel")
+    parser.add_argument("--quantize-volume", action="store_true",
+                        help="Snap sampled volumes to the 1/127 MIDI "
+                             "velocity grid (opt-in deviation #9; changes "
+                             "the sampled bytes)")
+    parser.add_argument("--keras2-gates", action="store_true",
+                        help="Run LSTM gates with Keras 2's hard_sigmoid "
+                             "(clip(0.2x+0.5,0,1)) instead of sigmoid "
+                             "(deviation #12)")
+    parser.add_argument("--params", type=str, default=None, metavar="NPZ",
+                        help="Weights as a keystr-layout .npz (e.g. "
+                             "artifacts/trained_model_r4/params.npz).  "
+                             "Without it the model starts from fresh "
+                             "Keras-default weights drawn from a "
+                             "torch.Generator seeded with --seed: the same "
+                             "distributions as the JAX package's "
+                             "init_params, not its bits")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Device to generate on (default: cuda; a "
+                             "missing card is an error, pass cpu to run "
+                             "on the CPU)")
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = default_config()
+    if args.quantize_volume:
+        cfg = cfg.replace(gen_volume_quantize=True)
+    if args.keras2_gates:
+        cfg = cfg.replace(lstm_recurrent_activation="hard_sigmoid")
+    if args.params:
+        model = build_model(cfg, device, state=load_params_npz(args.params))
+        print(f"Loaded weights from {args.params}")
+    else:
+        model = build_model(cfg, device, seed=args.seed)
+        print(f"Fresh weights from torch seed {args.seed}")
+
+    # Default: one generation per genre's uniform composer mixture;
+    # --styles: a single mean-of-one-hots mixture (ref: generate.py:144-148);
+    # --sweep: N parallel generations interpolating two styles' weights.
+    styles = [compute_genre(i, cfg) for i in range(len(cfg.genres))]
+    if args.styles:
+        styles = [np.mean([one_hot(i, cfg.num_styles) for i in args.styles],
+                          axis=0)]
+    elif args.sweep:
+        a, b, n = args.sweep
+        sa, sb = one_hot(a, cfg.num_styles), one_hot(b, cfg.num_styles)
+        ws = np.linspace(0.0, 1.0, max(2, n))
+        styles = [(1 - w) * sa + w * sb for w in ws]
+
+    print("Generating with styles:", [int(np.argmax(s)) for s in styles],
+          "on", torch.cuda.get_device_name(device)
+          if device.type == "cuda" else "cpu")
+    sampler = Sampler(model, default_temp=args.temperature)
+    result = sampler.generate(styles, num_bars=args.bars, seed=args.seed)
+    return write_file(args.out, result, cfg)

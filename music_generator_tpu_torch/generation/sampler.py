@@ -1,0 +1,261 @@
+"""Streaming autoregressive generation on the card (the JAX package's
+`generation/sampler.py`).
+
+Per timestep: the time-axis step (octave conv, note features, the two
+time-axis LSTM cells over G*N rows; plain PyTorch ops), then the whole
+48-pitch loop as ONE launch of the notegen kernel (ops/notegen.py), then
+the adaptive-temperature update (ref: generate.py:60-71).  The recurrent
+state is O(1) per step and crosses chunk boundaries exactly.
+
+Sampling semantics and RNG discipline are the JAX package's: stream g's
+step-t uniforms are `uniform(fold_in(fold_in(key(seed), offset + g), t),
+(N, 2))` (deviation #10), reproduced bit for bit by generation/prng.py and
+drawn for a whole chunk in one batched call.  The same seed therefore
+gives the same notes as the JAX `Sampler`, up to float32 knife edges.
+
+Not in this slice: priming, `begin`/`ActiveGeneration`, and mesh or
+multi-process sharding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from music_generator_tpu_torch.config import Config
+from music_generator_tpu_torch.data.dataset import unclamp_midi
+from music_generator_tpu_torch.device import full_f32
+from music_generator_tpu_torch.generation import prng
+from music_generator_tpu_torch.midi.codec import midi_encode
+from music_generator_tpu_torch.midi.io import write_midifile
+from music_generator_tpu_torch.models.deepj import DeepJ
+from music_generator_tpu_torch.ops.notegen import note_sample
+
+
+@functools.lru_cache(maxsize=None)
+def _velocity_grid(max_velocity: int) -> np.ndarray:
+    """Exact f32(k/max_velocity) grid for gen_volume_quantize, by IEEE true
+    division on the host: a device-side x/127 may become a multiply by the
+    reciprocal, whose 1-ULP-low results truncate to the wrong velocity
+    through the encoder's int(v*max_velocity)."""
+    return (np.arange(max_velocity + 1, dtype=np.float32)
+            / np.float32(max_velocity))
+
+
+class StepState(NamedTuple):
+    time_state: Tuple            # per-layer (h, c) of the time axis
+    prev_note: torch.Tensor      # [G, N, 3] the notes chosen last step
+    temperature: torch.Tensor    # [G] current (adaptive) temperature
+    base_temp: torch.Tensor      # [G] reset value
+    silent_time: torch.Tensor    # [G] int32
+    stream_keys: torch.Tensor    # [G, 2] fold_in(key(seed), stream index)
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    notes: np.ndarray            # [G, T, N, 3]
+    styles: np.ndarray           # [G, num_styles]
+
+
+class Sampler:
+    """Generates from a DeepJ on its device, in float32 with TF32 off."""
+
+    def __init__(self, model: DeepJ, default_temp: float = 1.0):
+        if model.cfg.note_axis_layers != 2:
+            raise NotImplementedError(
+                "the notegen kernel runs the two-layer note axis; "
+                f"note_axis_layers={model.cfg.note_axis_layers}")
+        full_f32()
+        self.model = model
+        self.cfg = model.cfg
+        self.default_temp = default_temp
+        self.device = model.device
+        cfg = self.cfg
+        # Row r of _beats is the one-hot of beat r; the last row, all
+        # zeros, is the beat row of step 0 (see _beat_row).
+        self._beats = torch.cat([
+            torch.eye(cfg.notes_per_bar),
+            torch.zeros(1, cfg.notes_per_bar)]).to(self.device)
+        self._vgrid = (torch.from_numpy(_velocity_grid(cfg.max_velocity))
+                       .to(self.device) if cfg.gen_volume_quantize else None)
+
+    # -- one timestep ------------------------------------------------------
+
+    def _note_scan(self, feats: torch.Tensor, style_emb: torch.Tensor,
+                   temperature: torch.Tensor,
+                   us: torch.Tensor) -> torch.Tensor:
+        """Sample all pitches of one timestep: feats [G, N, time_units],
+        us [G, N, 2] -> [G, N, 3].  One kernel launch on the card."""
+        m = self.model
+        return note_sample(feats, us, temperature, m.note_axis[0],
+                           m.note_axis[1], m.note_dense, m.volume_dense,
+                           style_emb, self.cfg.lstm_recurrent_activation,
+                           self._vgrid)
+
+    def _beat_row(self, t: int, G: int) -> torch.Tensor:
+        """The beat of step t-1 (the note consumed at step t was chosen at
+        t-1; ref: generate.py:73-79); all zeros at t = 0."""
+        row = (t - 1) % self.cfg.notes_per_bar if t > 0 else -1
+        return self._beats[row].expand(G, -1)
+
+    def _temperature_update(self, state: StepState, note_t: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Adaptive temperature (ref: generate.py:60-71): +0.1 per silent
+        step once a full bar has been silent; reset on any note."""
+        silent = note_t.sum(dim=(1, 2)) == 0
+        silent_time = torch.where(silent, state.silent_time + 1,
+                                  torch.zeros_like(state.silent_time))
+        bump = silent & (silent_time >= self.cfg.notes_per_bar)
+        temperature = torch.where(
+            bump, state.temperature + 0.1,
+            torch.where(silent, state.temperature, state.base_temp))
+        return temperature, silent_time
+
+    def _step(self, style_emb: torch.Tensor, state: StepState, t: int,
+              us: torch.Tensor) -> Tuple[StepState, torch.Tensor]:
+        G = style_emb.shape[0]
+        feats, time_state = self.model.time_axis_step(
+            state.prev_note, self._beat_row(t, G), style_emb,
+            state.time_state)
+        next_note = self._note_scan(feats, style_emb, state.temperature, us)
+        temperature, silent_time = self._temperature_update(state, next_note)
+        return StepState(time_state, next_note, temperature, state.base_temp,
+                         silent_time, state.stream_keys), next_note
+
+    # -- whole piece -------------------------------------------------------
+
+    def _init_state(self, G: int, seed: int, temperature,
+                    stream_offset: int = 0) -> StepState:
+        cfg = self.cfg
+        dev = self.device
+        idx = torch.arange(stream_offset, stream_offset + G,
+                           dtype=torch.int64, device=dev)
+        stream_keys = prng.fold_in(prng.key(seed, dev), idx)
+        temp = torch.as_tensor(np.broadcast_to(
+            np.asarray(temperature, np.float32), (G,)).copy(), device=dev)
+        return StepState(
+            time_state=self.model.init_time_state(G),
+            prev_note=torch.zeros(G, cfg.num_notes, cfg.note_units,
+                                  device=dev),
+            temperature=temp,
+            base_temp=temp,
+            # A fresh generation counts as already silent for a bar
+            # (ref: generate.py:24 inits silent_time = NOTES_PER_BAR).
+            silent_time=torch.full((G,), cfg.notes_per_bar,
+                                   dtype=torch.int32, device=dev),
+            stream_keys=stream_keys)
+
+    def _chunk_uniforms(self, stream_keys: torch.Tensor, t0: int,
+                        num_steps: int) -> torch.Tensor:
+        """Deviation #10: stream g's step-t uniforms are
+        uniform(fold_in(stream_keys[g], t), (N, 2)), a pure function of
+        (seed, stream index, t), so a stream's bytes do not depend on the
+        batch it rides in.  Returns [num_steps, G, N, 2] for t0, t0+1, ..."""
+        ts = torch.arange(t0, t0 + num_steps, dtype=torch.int64,
+                          device=stream_keys.device)
+        step_keys = prng.fold_in(stream_keys[None], ts[:, None])
+        return prng.uniform(step_keys, (self.cfg.num_notes, 2))
+
+    def _chunk(self, style_emb: torch.Tensor, state: StepState,
+               num_steps: int, t0: int
+               ) -> Tuple[StepState, Tuple[torch.Tensor, torch.Tensor]]:
+        """`num_steps` timesteps from t0.  All of the chunk's uniforms come
+        from one batched threefry call [C, G, N, 2], the same bits as a
+        per-step draw.  Returns the notes packed for the transfer: play +
+        2*replay as uint8 [G, C, N] and the volume [G, C, N] (float32, or
+        the velocity byte under gen_compact_transfer)."""
+        cfg = self.cfg
+        us_all = self._chunk_uniforms(state.stream_keys, t0, num_steps)
+        notes = []
+        for i in range(num_steps):
+            state, note = self._step(style_emb, state, t0 + i, us_all[i])
+            notes.append(note)
+        notes = torch.stack(notes, dim=1)                 # [G, C, N, 3]
+        playreplay = (notes[..., 0] + 2.0 * notes[..., 1]).to(torch.uint8)
+        vol = notes[..., 2]
+        if cfg.gen_compact_transfer:
+            vol = torch.floor(vol * float(cfg.max_velocity)).to(torch.uint8)
+        return state, (playreplay, vol)
+
+    def _assemble(self, pulled_pr: np.ndarray,
+                  pulled_vol: np.ndarray) -> np.ndarray:
+        """Host-side inverse of the packed transfer, bit-exact for play and
+        replay; volumes are raw float32, or the exact grid float of the
+        velocity byte under gen_compact_transfer."""
+        play = (pulled_pr & 1).astype(np.float32)
+        replay = ((pulled_pr >> 1) & 1).astype(np.float32)
+        if pulled_vol.dtype == np.uint8:
+            pulled_vol = _velocity_grid(self.cfg.max_velocity)[pulled_vol]
+        return np.stack([play, replay, np.asarray(pulled_vol, np.float32)],
+                        axis=-1)
+
+    @torch.no_grad()
+    def generate(self, styles: Sequence[np.ndarray], num_bars: int = 32,
+                 seed: int = 0, chunk_bars: int = 8, temperature=None,
+                 stream_offset: int = 0) -> GenerationResult:
+        """Generate `num_bars` bars for each style mixture.
+
+        The piece runs in chunks of `chunk_bars` bars; chunking does not
+        change the output.  Stream g draws its uniforms from (seed,
+        stream_offset + g, t), so stream g of a batch equals a solo run at
+        stream_offset=g.  `temperature` is a scalar or one value per
+        stream; None takes the sampler's default."""
+        cfg = self.cfg
+        if num_bars < 0:
+            raise ValueError(f"num_bars must be >= 0, got {num_bars}")
+        if not styles:
+            raise ValueError("at least one style mixture is required")
+        if not 0 <= int(seed) < 2 ** 32:
+            raise ValueError(f"seed must be in [0, 2**32), got {seed}")
+        styles_np = np.stack([np.asarray(s) for s in styles]).astype(
+            np.float32)
+        G = styles_np.shape[0]
+        if temperature is None:
+            temperature = self.default_temp
+        if np.ndim(temperature) and len(temperature) != G:
+            raise ValueError(f"temperature must have one entry per style "
+                             f"mixture ({G}), got {len(temperature)}")
+        num_steps = cfg.notes_per_bar * num_bars
+        if num_steps == 0:
+            return GenerationResult(
+                np.zeros((G, 0, cfg.num_notes, cfg.note_units), np.float32),
+                styles_np)
+        style_emb = self.model.style_embedding(
+            torch.from_numpy(styles_np).to(self.device))
+        state = self._init_state(G, int(seed), temperature, stream_offset)
+        chunk = min(num_steps, cfg.notes_per_bar * chunk_bars)
+        # Enqueue chunk k+1 before copying chunk k to the host, so the copy
+        # overlaps the next chunk's work.  The output is that of the
+        # serial loop.
+        pieces, pending, t = [], None, 0
+        while t < num_steps:
+            n = min(chunk, num_steps - t)
+            state, out = self._chunk(style_emb, state, n, t)
+            if pending is not None:
+                pieces.append(self._assemble(*(x.cpu().numpy()
+                                               for x in pending)))
+            pending = out
+            t += n
+        pieces.append(self._assemble(*(x.cpu().numpy() for x in pending)))
+        return GenerationResult(np.concatenate(pieces, axis=1), styles_np)
+
+
+def write_file(name: str, result: GenerationResult,
+               config: Optional[Config] = None) -> list:
+    """Write one .mid per generation to cfg.samples_dir
+    (ref: generate.py:123-134)."""
+    cfg = config or Config()
+    paths = []
+    for i in range(result.notes.shape[0]):
+        fpath = os.path.join(cfg.samples_dir, f"{name}_{i}.mid")
+        os.makedirs(os.path.dirname(fpath), exist_ok=True)
+        print("Writing file", fpath)
+        mf = midi_encode(unclamp_midi(result.notes[i], cfg), config=cfg)
+        write_midifile(fpath, mf)
+        paths.append(fpath)
+    return paths

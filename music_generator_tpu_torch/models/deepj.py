@@ -1,0 +1,250 @@
+"""The DeepJ biaxial model (ref: model.py:51-169) as a PyTorch module — the
+streaming generation paths of the JAX package's `models/deepj.py`.
+
+Parameters keep the JAX layouts so the same `.npz` (keystr paths, see
+params.py) loads into either package: Dense kernels `[in, out]`, LSTM
+kernels `[in, 4H]` with gates (i, f, g, o), the octave conv kernel
+`[width, in, out]`.  Only the conv converts, inside `Conv1D.forward`, to
+PyTorch's `[out, in, width]`.
+
+Deliberate fix kept from the JAX package (deviation #1): the chromagram is
+the per-pitch-class played-note count over octaves, tiled per octave — the
+documented intent of ref: model.py:43-49, whose raw reshape scrambles
+batch, time and pitch.
+
+This slice ports what generation runs: `style_embedding`, `octave_conv`,
+`note_features`, `init_time_state`/`time_axis_step`,
+`init_note_state`/`note_axis_cell` and `heads`.  The training forward and
+loss are a later slice.  Dropout is off at inference, like Keras `predict`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from music_generator_tpu_torch.config import Config
+from music_generator_tpu_torch.device import DeviceLike, resolve_device
+from music_generator_tpu_torch.ops import notegen
+from music_generator_tpu_torch.ops.lstm import (check_recurrent_activation,
+                                                lstm_step)
+
+
+def feature_dim(cfg: Config) -> int:
+    """pitch_pos(1) + pitch_class(12) + chroma(1) + conv + beat."""
+    return 1 + cfg.octave + 1 + cfg.octave_units + cfg.notes_per_bar
+
+
+class Dense(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class Conv1D(nn.Module):
+    """'same' 1-D conv over the second-to-last axis of [B, L, C], with
+    Keras's asymmetric padding for even widths: left (w-1)//2, right w//2
+    (11 and 12 for the octave conv's width 24)."""
+
+    def __init__(self, width: int, in_ch: int, out_ch: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(width, in_ch, out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.shape[0]
+        xt = F.pad(x.transpose(1, 2), ((w - 1) // 2, w // 2))
+        out = F.conv1d(xt, self.kernel.permute(2, 1, 0))
+        return out.transpose(1, 2) + self.bias
+
+
+class LSTMParams(nn.Module):
+    def __init__(self, input_dim: int, hidden: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(input_dim, 4 * hidden))
+        self.recurrent = nn.Parameter(torch.zeros(hidden, 4 * hidden))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+
+
+class AxisLayer(nn.Module):
+    def __init__(self, style_units: int, input_dim: int, hidden: int):
+        super().__init__()
+        self.style_proj = Dense(style_units, input_dim)
+        self.lstm = LSTMParams(input_dim, hidden)
+
+
+class DeepJ(nn.Module):
+    """The model, bound to a config and a device (CUDA unless asked)."""
+
+    def __init__(self, cfg: Config, device: DeviceLike = None):
+        super().__init__()
+        check_recurrent_activation(cfg.lstm_recurrent_activation)
+        if cfg.time_axis_kind != "lstm":
+            raise NotImplementedError(
+                f"time_axis_kind={cfg.time_axis_kind!r} is not ported yet")
+        self.cfg = cfg
+        f = feature_dim(cfg)
+        self.style_embed = Dense(cfg.num_styles, cfg.style_units)
+        self.conv = Conv1D(2 * cfg.octave, cfg.note_units, cfg.octave_units)
+        dims = [f] + [cfg.time_axis_units] * cfg.time_axis_layers
+        self.time_axis = nn.ModuleList(
+            AxisLayer(cfg.style_units, dims[i], cfg.time_axis_units)
+            for i in range(cfg.time_axis_layers))
+        dims = ([cfg.time_axis_units + cfg.note_units]
+                + [cfg.note_axis_units] * cfg.note_axis_layers)
+        self.note_axis = nn.ModuleList(
+            AxisLayer(cfg.style_units, dims[i], cfg.note_axis_units)
+            for i in range(cfg.note_axis_layers))
+        self.note_dense = Dense(cfg.note_axis_units, 2)
+        self.volume_dense = Dense(cfg.note_axis_units, 1)
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.style_embed.kernel.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fresh Keras-default weights drawn from a seeded CPU generator:
+        glorot-uniform kernels, orthogonal recurrent matrices, zero biases
+        with a unit forget-gate bias.  The same distributions as the JAX
+        package's `init_params`, NOT its bits (jax.random keys and
+        torch.Generator streams differ)."""
+        def glorot(p: torch.Tensor, fan_in: int, fan_out: int) -> None:
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            p.copy_(torch.empty(p.shape).uniform_(-lim, lim,
+                                                  generator=generator))
+
+        for name, p in self.named_parameters():
+            if name.endswith("recurrent"):
+                q = torch.empty(p.shape)
+                nn.init.orthogonal_(q, generator=generator)
+                p.copy_(q)
+            elif name.endswith("kernel"):
+                if p.dim() == 3:          # conv [width, in, out]
+                    w, i, o = p.shape
+                    glorot(p, w * i, w * o)
+                else:
+                    glorot(p, p.shape[0], p.shape[1])
+            else:
+                p.zero_()
+        for layer in list(self.time_axis) + list(self.note_axis):
+            h = layer.lstm.recurrent.shape[0]
+            layer.lstm.bias[h:2 * h] = 1.0
+
+    # -- features (ref: model.py:22-49) ------------------------------------
+
+    def note_features(self, notes: torch.Tensor, beat: torch.Tensor,
+                      conv_out: torch.Tensor) -> torch.Tensor:
+        """Concat per-(time, note) features -> [B, T, N, F].
+
+        notes: [B, T, N, 3], beat: [B, T, notes_per_bar],
+        conv_out: [B, T, N, octave_units]."""
+        cfg = self.cfg
+        B, T, N, _ = notes.shape
+        dt, dev = conv_out.dtype, conv_out.device
+        pitch_pos = (torch.arange(N, dtype=dt, device=dev) / N)
+        pitch_pos = pitch_pos[None, None, :, None].expand(B, T, N, 1)
+        classes = F.one_hot(torch.arange(N, device=dev) % cfg.octave,
+                            cfg.octave).to(dt)
+        pitch_class = classes[None, None].expand(B, T, N, cfg.octave)
+        # Chromagram (deviation #1): per pitch class, the play mass summed
+        # over octaves, seen by every note of that class.
+        play = notes[..., 0]
+        bins = play.reshape(B, T, cfg.num_octaves, cfg.octave).sum(dim=2)
+        chroma = bins.repeat(1, 1, cfg.num_octaves)[..., None].to(dt)
+        beat_rep = beat[:, :, None, :].to(dt).expand(B, T, N, beat.shape[-1])
+        return torch.cat([pitch_pos, pitch_class, chroma, conv_out,
+                          beat_rep], dim=-1)
+
+    def octave_conv(self, notes: torch.Tensor) -> torch.Tensor:
+        """tanh(Conv1D over the note axis) (ref: model.py:56-58); no
+        dropout at inference."""
+        B, T, N, C = notes.shape
+        out = torch.tanh(self.conv(notes.reshape(B * T, N, C)))
+        return out.reshape(B, T, N, -1)
+
+    # -- style ------------------------------------------------------------
+
+    def style_embedding(self, style: torch.Tensor) -> torch.Tensor:
+        """The shared 'style' Dense layer (ref: model.py:141-142)."""
+        return self.style_embed(style)
+
+    # -- streaming single-step paths (generation) --------------------------
+
+    def init_time_state(self, batch: int) -> Tuple:
+        """Per-layer (h, c) of the time-axis LSTMs over G·N rows."""
+        cfg = self.cfg
+        shape = (batch * cfg.num_notes, cfg.time_axis_units)
+        return tuple(
+            (torch.zeros(shape, device=self.device),
+             torch.zeros(shape, device=self.device))
+            for _ in range(cfg.time_axis_layers))
+
+    def time_axis_step(self, note_row: torch.Tensor, beat_row: torch.Tensor,
+                       style_emb: torch.Tensor,
+                       state: Tuple) -> Tuple[torch.Tensor, Tuple]:
+        """One streaming timestep of the time axis.
+
+        note_row: [G, N, 3] (the notes chosen at the previous step),
+        beat_row: [G, notes_per_bar], style_emb: [G, style_units].
+        Returns ([G, N, time_units], new_state): O(1) recurrent state per
+        step instead of the reference's 128-step window recompute
+        (ref: generate.py:106-109)."""
+        G, N, _ = note_row.shape
+        notes = note_row[:, None]
+        beat = beat_row[:, None]
+        x = self.note_features(notes, beat, self.octave_conv(notes))[:, 0]
+        new_state = []
+        for layer, (h, c) in zip(self.time_axis, state):
+            proj = torch.tanh(layer.style_proj(style_emb))
+            x = x + proj[:, None, :]
+            h, c = lstm_step(layer.lstm, x.reshape(G * N, x.shape[-1]), h, c,
+                             self.cfg.lstm_recurrent_activation)
+            new_state.append((h, c))
+            x = h.reshape(G, N, -1)
+        return x, tuple(new_state)
+
+    def init_note_state(self, batch: int) -> Tuple:
+        cfg = self.cfg
+        shape = (batch, cfg.note_axis_units)
+        return tuple(
+            (torch.zeros(shape, device=self.device),
+             torch.zeros(shape, device=self.device))
+            for _ in range(cfg.note_axis_layers))
+
+    def note_axis_cell(self, feat_n: torch.Tensor, prev_chosen: torch.Tensor,
+                       style_emb: torch.Tensor, state: Tuple,
+                       ) -> Tuple[torch.Tensor, Tuple]:
+        """One note of the pitch recurrence during generation.
+
+        feat_n: [G, time_units], prev_chosen: [G, 3] (the sampled note
+        n-1; zeros for n=0).  Returns ([G, 3] prediction, new state)."""
+        x = torch.cat([feat_n, prev_chosen.to(feat_n.dtype)], dim=-1)
+        return notegen.note_cell(x, self.note_axis, style_emb, state,
+                                 self.note_dense, self.volume_dense,
+                                 self.cfg.lstm_recurrent_activation)
+
+    def heads(self, x: torch.Tensor) -> torch.Tensor:
+        """sigmoid(play, replay) ++ linear volume (ref: model.py:94-95,125)."""
+        return notegen.heads(x, self.note_dense, self.volume_dense)
+
+
+def build_model(cfg: Config, device: DeviceLike = None,
+                state: Optional[dict] = None, seed: int = 0) -> DeepJ:
+    """A DeepJ on `device` holding `state` (a params.py state dict), or
+    fresh weights from `seed` when no state is given."""
+    model = DeepJ(cfg, device)
+    if state is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state)
+    return model.requires_grad_(False).eval()

@@ -1,0 +1,89 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles with `nvcc` into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas=-v -o build/torch_kernels/lib<name>-<hash>.so
+
+into `build/torch_kernels/` at the root of the checkout (git-ignored).
+The file name carries a hash of the source and the flags, so an edited
+source rebuilds and a stale library is never loaded.  No `--use_fast_math`:
+the kernels' float32 math must track the plain PyTorch versions.  The
+compiler's register and shared-memory report (`-Xptxas=-v`) is kept beside
+the library as `<lib>.log`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else /usr/local/cuda's, else
+    the one on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str]) -> List[Path]:
+    """Compile every named kernel whose library is missing, all nvcc
+    processes started together; returns the library paths.  Raises with
+    the compiler's output when a build fails."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            continue
+        Path(str(lib) + ".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return [library_path(n) for n in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use and loaded once."""
+    lib = _loaded.get(name)
+    if lib is None:
+        (path,) = build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib

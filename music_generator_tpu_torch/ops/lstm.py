@@ -1,0 +1,53 @@
+"""LSTM cell (ref: model.py:84,122 — Keras LSTM), written out rather than
+`nn.LSTM`: the gate order is (i, f, g, o) over a `[in, 4H]` kernel, the
+layout of the JAX package's `ops/lstm.py`, and the recurrent activation is
+either sigmoid or Keras 2's hard_sigmoid (deviation #12)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def keras2_hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Keras 2's hard_sigmoid: clip(0.2x + 0.5, 0, 1) — NOT
+    `F.hardsigmoid`, which is Keras 3's x/6 + 0.5."""
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+RECURRENT_ACTIVATIONS = {
+    "sigmoid": torch.sigmoid,
+    "hard_sigmoid": keras2_hard_sigmoid,
+}
+
+
+def check_recurrent_activation(name: str) -> None:
+    if name not in RECURRENT_ACTIVATIONS:
+        raise ValueError(
+            f"unknown lstm_recurrent_activation={name!r}; expected one of "
+            f"{sorted(RECURRENT_ACTIVATIONS)}")
+
+
+def gates(z: torch.Tensor, c: torch.Tensor, hidden: int,
+          recurrent_activation: str = "sigmoid",
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four-gate nonlinearity on z = x@W + h@U + b, shape [B, 4H]."""
+    act = RECURRENT_ACTIVATIONS[recurrent_activation]
+    i = act(z[:, :hidden])
+    f = act(z[:, hidden:2 * hidden])
+    g = torch.tanh(z[:, 2 * hidden:3 * hidden])
+    o = act(z[:, 3 * hidden:])
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def lstm_step(params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              recurrent_activation: str = "sigmoid",
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cell step: x [B, D], h/c [B, H] -> (h', c').  `params` carries
+    `kernel` [D, 4H], `recurrent` [H, 4H] and `bias` [4H]; c stays f32."""
+    hidden = params.recurrent.shape[0]
+    z = x @ params.kernel + h @ params.recurrent + params.bias
+    return gates(z.float(), c.float(), hidden, recurrent_activation)
