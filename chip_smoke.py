@@ -3,19 +3,32 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result line):
-  1. build every CUDA kernel of the main path from csrc/ (nvcc, all sources
-     at once) and print the card's name and power limit;
+  1. build every CUDA kernel from csrc/ (nvcc, one process per source, all
+     started together) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's widths;
-  3. drive the main path through the CLI's code (generate_main): the
-     trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and check
-     the written .mid files against artifacts/short_samples_r4 (event
+     main paths' widths: the generation pitch loop, and the four biaxial
+     training kernels (time and note stack, forward and backward) in
+     float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
+     output and every input and weight gradient, also at small odd widths;
+  3. drive the generation main path through the CLI's code (generate_main):
+     the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
+     check the written .mid files against artifacts/short_samples_r4 (event
      identity required, byte identity reported) and that every timestep
-     went through the kernel;
-     then regenerate more committed samples (real_corpus_r3, the 64-bar
-     long_samples_r4) the same way;
+     went through the kernel; then regenerate more committed samples
+     (real_corpus_r3, the 64-bar long_samples_r4) the same way;
+  3c. drive the training main path through the CLI's code (train_main at
+     default_config(), 2 epochs on a synthetic corpus of all 23 styles),
+     and check that every step launched each training kernel once and no
+     plain version ran, that the losses are finite, and that
+     generate_main picks up the checkpoint and writes 3 files;
+  3d. one dropout-0 training step on a seeded batch: kernels against the
+     plain stacks in float32 (loss, every gradient, the parameters after
+     one Nadam step), and the bfloat16 kernels against the float32 plain
+     path (loss, worst-leaf gradient cosine, post-update loss gap), held
+     to a stated bar on fresh weights and read on the trained weights;
   4. time the generation step (and, from a profiled bar, the device's
-     share of it), each kernel and its plain version.
+     share of it), the training step (and its busy share), each kernel and
+     its plain version.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -23,8 +36,10 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -38,10 +53,56 @@ PARAMS = os.path.join(ROOT, "artifacts", "trained_model_r4", "params.npz")
 SHORT = os.path.join(ROOT, "artifacts", "short_samples_r4")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s on the
-# CUDA cores (the kernels run float32 outside the tensor cores).
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s on the
+# CUDA cores, dense bfloat16 FLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+TRAIN_WORK = os.path.join(WORK, "train")
+
+# The biaxial training kernels: (name, TPU kernel it replaces, source).
+BIAX_KERNELS = [
+    ("biax_time_fwd", "music_generator_tpu/ops/pallas_biax.py:166",
+     "music_generator_tpu_torch/csrc/biax_time.cu"),
+    ("biax_time_bwd", "music_generator_tpu/ops/pallas_biax.py:244",
+     "music_generator_tpu_torch/csrc/biax_time.cu"),
+    ("biax_note_fwd", "music_generator_tpu/ops/pallas_biax.py:610",
+     "music_generator_tpu_torch/csrc/biax_note.cu"),
+    ("biax_note_bwd", "music_generator_tpu/ops/pallas_biax.py:715",
+     "music_generator_tpu_torch/csrc/biax_note.cu"),
+]
+CHECK_T = 32        # timesteps of the kernel checks (the plain loop's sake)
+# Kernel against plain version: float32 forward within F32_ATOL and every
+# gradient within F32_GRAD_REL of the plain one (||a - b|| / ||b||, worst
+# leaf); bfloat16 forward within BF16_ATOL, gradients within BF16_GRAD_REL
+# and a cosine of at least BF16_COS.  In bfloat16 a float32 sum taken in
+# another order (tensor cores against the plain version's matmul) can move
+# a rounding to bfloat16 by one ulp, which the recurrence carries on:
+# BF16_ATOL is 4 ulps at 1 (outputs are h in (-1, 1) and probabilities).
+# The plain version's autograd rounds each intermediate gradient to
+# bfloat16 where the kernel keeps float32, so the gradients differ by
+# bfloat16 rounding.
+F32_ATOL, F32_GRAD_REL = 1e-4, 1e-3
+BF16_ATOL, BF16_GRAD_REL, BF16_COS = 2.0 ** -5, 0.1, 0.995
+# One dropout-0 training step on random_batch(seed=0, rolled_targets=True).
+# float32 kernels against the float32 plain path: loss within 1e-5
+# relative, gradients within F32_GRAD_REL, parameters after one Nadam step
+# within STEP_ATOL (the first Keras-2 Nadam step moves a weight by about
+# the learning rate, 2e-3, whatever its gradient's size, so only a gradient
+# element near zero whose sign differs could exceed it).  bfloat16 kernels
+# against the float32 plain path: the bar of PARITY_BAR (loss relative
+# difference, worst-leaf gradient cosine, post-update loss gap against a
+# bfloat16 plain step), beside the TPU's readings in
+# artifacts/kernel_validation_r5.  Both are held on fresh weights from a
+# seed, as the TPU's validation tool (tools/tpu_validate_biax.py) drew
+# them.  The trained r4 weights are read too, without a bar: near their
+# minimum the loss gradient is small and bfloat16 rounding, in the plain
+# path as much as in the kernels, moves the loss by about 20% and turns the
+# gradient's direction, so no bfloat16 path can meet a bar there.
+STEP_ATOL = 1e-4
+PARITY_BAR = (5e-4, 0.999, 5e-4)
+TPU_R5 = {"sigmoid": (2.102e-4, 0.99944, 1.48e-4),
+          "hard_sigmoid": (2.959e-4, 0.99941, 2.39e-4)}
 
 # More TPU-generated samples the card must reproduce, as each one's
 # PROVENANCE/report records it: (weights, style one-hots or None for the 3
@@ -134,6 +195,403 @@ def notegen_bound_ms(G: int, N: int, F: int, H: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def stack_inputs(kind: str, cfg, T: int, seed: int):
+    """Random float32 inputs of one biaxial stack at the model's widths, on
+    the card: features and style terms of unit scale, weights of Glorot
+    scale, a sparse 0/1 chosen-note stream."""
+    from music_generator_tpu_torch.models.deepj import feature_dim
+    gen = torch.Generator().manual_seed(seed)
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen) * sc
+    B, N = cfg.batch_size, cfg.num_notes
+    if kind == "time":
+        F, H = feature_dim(cfg), cfg.time_axis_units
+        xs = [n(T, N, B, F), n(T, B, F, sc=0.3), n(T, B, H, sc=0.3),
+              n(F, 4 * H, sc=0.1), n(4 * H, sc=0.1), n(4 * H, sc=0.1),
+              n(H, 4 * H, sc=0.06), n(H, 4 * H, sc=0.06),
+              n(H, 4 * H, sc=0.06)]
+    else:
+        Ht, H = cfg.time_axis_units, cfg.note_axis_units
+        D = Ht + cfg.note_units
+        chosen = (torch.rand(N, T, B, cfg.note_units, generator=gen)
+                  < 0.2).float()
+        xs = [n(T, N, B, Ht, sc=0.5), chosen, n(T, B, D, sc=0.3),
+              n(T, B, H, sc=0.3), n(D, 4 * H, sc=0.06), n(4 * H, sc=0.1),
+              n(4 * H, sc=0.1), n(H, 4 * H, sc=0.08), n(H, 4 * H, sc=0.08),
+              n(H, 4 * H, sc=0.08), n(H, 3, sc=0.2), n(3, sc=0.1)]
+    return [x.cuda() for x in xs]
+
+
+def stack_grads(fn, args, cot, **kw):
+    """Forward of one stack and the gradients of <out, cot> with respect to
+    every input (float32 copies), synchronised."""
+    ts = [a.clone().requires_grad_(True) for a in args]
+    out = fn(*ts, **kw)
+    grads = torch.autograd.grad(out.float(), ts, cot)
+    torch.cuda.synchronize()
+    return out.detach().float(), [g.float() for g in grads]
+
+
+def leaf_stats(got, want):
+    """(max |a - b|, worst ||a - b|| / ||b||, worst cosine) over leaves."""
+    err, rel, cos = 0.0, 0.0, 1.0
+    for a, b in zip(got, want):
+        a, b = a.double().flatten(), b.double().flatten()
+        err = max(err, float((a - b).abs().max()))
+        nb, na = float(b.norm()), float(a.norm())
+        rel = max(rel, float((a - b).norm()) / nb if nb else
+                  (0.0 if na == 0 else float("inf")))
+        if na and nb:
+            cos = min(cos, float(a @ b) / (na * nb))
+        elif na or nb:
+            cos = 0.0
+    return err, rel, cos
+
+
+def check_biax_kernels(cfg):
+    """Each biaxial kernel against its plain version at the main path's
+    widths (T cut to CHECK_T), and at small odd widths (T = 6, B = 8,
+    H = 12), where the bfloat16 weight-gradient reduction takes its
+    CUDA-core path; returns the float32 max |error| of each kernel at the
+    main path's widths: the forward output for the forward kernels, the
+    gradients for the backward kernels."""
+    from music_generator_tpu_torch.ops import biax
+    errs = {name: 0.0 for name, _, _ in BIAX_KERNELS}
+    small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
+                        time_axis_units=12, note_axis_units=12)
+    cases = 0
+    for c, T, label in ((cfg, CHECK_T, "main widths"),
+                        (small, 6, "small widths")):
+        for kind in ("time", "note"):
+            kernel = getattr(biax, f"biax_{kind}_stack")
+            plain = getattr(biax, f"biax_{kind}_stack_reference")
+            args = stack_inputs(kind, c, T, 10 if kind == "time" else 11)
+            shape = ((T, c.num_notes, c.batch_size, c.time_axis_units)
+                     if kind == "time" else
+                     (c.num_notes, T, c.batch_size, 3))
+            for cdt in (torch.float32, torch.bfloat16):
+                for p in (0.0, 0.5):
+                    for act in ("sigmoid", "hard_sigmoid"):
+                        kw = dict(dropout_p=p, seed=1234, compute_dtype=cdt,
+                                  recurrent_activation=act)
+                        gen = torch.Generator("cuda").manual_seed(cases)
+                        cot = torch.randn(shape, device="cuda", generator=gen)
+                        o1, g1 = stack_grads(kernel, args, cot, **kw)
+                        o2, g2 = stack_grads(plain, args, cot, **kw)
+                        cases += 1
+                        fe = float((o1 - o2).abs().max())
+                        ge, rel, cos = leaf_stats(g1, g2)
+                        finite = bool(torch.isfinite(o1).all()) and all(
+                            bool(torch.isfinite(g).all()) for g in g1)
+                        dt = "f32" if cdt == torch.float32 else "bf16"
+                        log(f"biax_{kind} {label} {dt} p={p} {act}: forward "
+                            f"max|d|={fe:.3g}; gradients max|d|={ge:.3g}, "
+                            f"worst rel={rel:.3g}, worst cos={cos:.6f}")
+                        if cdt == torch.float32:
+                            if c is cfg:
+                                errs[f"biax_{kind}_fwd"] = max(
+                                    errs[f"biax_{kind}_fwd"], fe)
+                                errs[f"biax_{kind}_bwd"] = max(
+                                    errs[f"biax_{kind}_bwd"], ge)
+                            ok = fe <= F32_ATOL and rel <= F32_GRAD_REL
+                        else:
+                            ok = (fe <= BF16_ATOL and rel <= BF16_GRAD_REL
+                                  and cos >= BF16_COS)
+                        if not ok or not finite:
+                            fail(f"biax_{kind} {label} {dt} p={p} {act} "
+                                 f"disagrees with its plain version")
+    log(f"biax: {cases} cases agree with the plain versions (float32 "
+        f"forward atol {F32_ATOL}, gradients rel {F32_GRAD_REL}; bfloat16 "
+        f"forward atol {BF16_ATOL}, gradients rel {BF16_GRAD_REL}, cosine "
+        f">= {BF16_COS})")
+    return errs
+
+
+def reset_biax_counts():
+    from music_generator_tpu_torch.ops import biax
+    for fn in (biax.biax_time_stack, biax.biax_note_stack):
+        fn.fwd_launches = fn.bwd_launches = 0
+    biax.biax_time_stack_reference.calls = 0
+    biax.biax_note_stack_reference.calls = 0
+
+
+def read_biax_counts():
+    from music_generator_tpu_torch.ops import biax
+    launches = {
+        "biax_time_fwd": biax.biax_time_stack.fwd_launches,
+        "biax_time_bwd": biax.biax_time_stack.bwd_launches,
+        "biax_note_fwd": biax.biax_note_stack.fwd_launches,
+        "biax_note_bwd": biax.biax_note_stack.bwd_launches,
+    }
+    plain = (biax.biax_time_stack_reference.calls
+             + biax.biax_note_stack_reference.calls)
+    return launches, plain
+
+
+def train_main_path(cfg):
+    """train_main for 2 epochs at default_config() on a synthetic corpus of
+    every style, then generate_main from its checkpoint.  Returns the
+    kernel launch counts of the training run."""
+    from music_generator_tpu_torch.cli import generate_main, train_main
+    from music_generator_tpu_torch.data.synth import write_synth_corpus
+    from music_generator_tpu_torch.midi import midi_decode, read_midifile
+    from music_generator_tpu_torch.training.checkpoint import build_or_load
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    os.makedirs(TRAIN_WORK)
+    write_synth_corpus(TRAIN_WORK, files_per_style=1, bars=16, config=cfg)
+    cwd = os.getcwd()
+    os.chdir(TRAIN_WORK)
+    try:
+        t = time.perf_counter()
+        reset_biax_counts()
+        hist = train_main(["--epochs", "2"])
+        launches, plain = read_biax_counts()
+        train_s = time.perf_counter() - t
+        paths = generate_main(["--bars", "2"])
+        model, loaded = build_or_load(cfg, "cuda")
+    finally:
+        os.chdir(cwd)
+    steps = sum(hist["steps_per_epoch"])
+    log(f"train main path: {steps} steps in 2 epochs, losses {hist['loss']}, "
+        f"{train_s:.1f} s; kernel launches {launches}, plain version calls "
+        f"{plain}")
+    if not np.isfinite(hist["loss"]).all():
+        fail("non-finite training loss")
+    if any(v != steps for v in launches.values()) or plain != 0:
+        fail("the training main path did not run every step through each "
+             "kernel")
+    if not loaded or not os.path.isfile(os.path.join(TRAIN_WORK, "out",
+                                                     "model.pt")):
+        fail("the training checkpoint was not written and reloaded")
+    for p in paths:
+        roll = midi_decode(read_midifile(os.path.join(TRAIN_WORK, p)))
+        if roll.ndim != 3 or roll.shape[1:] != (128, 3):
+            fail(f"{p}: not a piano roll")
+    if len(paths) != 3:
+        fail(f"generate_main wrote {len(paths)} files, not 3")
+    log(f"train main path: checkpoint reloaded, generate_main wrote "
+        f"{len(paths)} .mid files from it")
+    return launches
+
+
+@contextlib.contextmanager
+def plain_stacks():
+    """Run DeepJ.forward through the plain stacks, even on the card."""
+    from music_generator_tpu_torch.models import deepj
+    from music_generator_tpu_torch.ops import biax
+    saved = deepj.biax_time_stack, deepj.biax_note_stack
+    deepj.biax_time_stack = biax.biax_time_stack_reference
+    deepj.biax_note_stack = biax.biax_note_stack_reference
+    try:
+        yield
+    finally:
+        deepj.biax_time_stack, deepj.biax_note_stack = saved
+
+
+def one_step(cfg, state, batch, plain: bool):
+    """One dropout-0 train step from `state`: (loss, gradients by name,
+    parameters after one Nadam step, the loss after it)."""
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.ops.nadam import Nadam
+    model = build_model(cfg, "cuda", state=state, trainable=True)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    with plain_stacks() if plain else contextlib.nullcontext():
+        loss, _ = model.loss(batch, generator=None, train=True)
+        grads = torch.autograd.grad(loss, params)
+        opt = Nadam(params, cfg.learning_rate, cfg.beta1, cfg.beta2, cfg.eps,
+                    cfg.schedule_decay)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        with torch.no_grad():
+            after = model.loss(batch, generator=None, train=False)[0]
+    torch.cuda.synchronize()
+    return (float(loss.detach()), dict(zip(names, grads)),
+            {n: p.detach().clone() for n, p in zip(names, params)},
+            float(after))
+
+
+def step_readings(cfg, state, batch, act):
+    """The float32 and bfloat16 steps of one gate flavor, kernels and plain
+    stacks: (float32 loss rel diff, gradient worst rel, parameter max|d|,
+    bfloat16 loss rel diff to the float32 plain path, worst-leaf cosine,
+    post-update loss gap), logged."""
+    base = cfg.replace(dropout=0.0, input_dropout=0.0,
+                       lstm_recurrent_activation=act)
+    c32 = base.replace(compute_dtype="float32")
+    c16 = base.replace(compute_dtype="bfloat16")
+    k32 = one_step(c32, state, batch, plain=False)
+    p32 = one_step(c32, state, batch, plain=True)
+    k16 = one_step(c16, state, batch, plain=False)
+    p16 = one_step(c16, state, batch, plain=True)
+    names = list(p32[1])
+    d_loss = abs(k32[0] - p32[0]) / abs(p32[0])
+    _, g_rel, _ = leaf_stats([k32[1][n] for n in names],
+                             [p32[1][n] for n in names])
+    p_err, _, _ = leaf_stats([k32[2][n] for n in names],
+                             [p32[2][n] for n in names])
+    b_loss = abs(k16[0] - p32[0]) / abs(p32[0])
+    _, _, b_cos = leaf_stats([k16[1][n] for n in names],
+                             [p32[1][n] for n in names])
+    gap = abs(k16[3] - p16[3])
+    tpu = TPU_R5[act]
+    log(f"  {act} float32, kernels vs plain: loss {k32[0]:.7f} vs "
+        f"{p32[0]:.7f} (rel {d_loss:.3g}), gradients worst rel {g_rel:.3g}, "
+        f"parameters after one Nadam step max|d| {p_err:.3g}")
+    log(f"  {act} bfloat16 kernels vs float32 plain: loss rel diff "
+        f"{b_loss:.4g} (TPU r5 {tpu[0]:.4g}), worst-leaf gradient cosine "
+        f"{b_cos:.6f} (TPU r5 {tpu[1]:.5f}); post-update loss {k16[3]:.6f} "
+        f"vs bfloat16 plain {p16[3]:.6f}, gap {gap:.3g} (TPU r5 "
+        f"{tpu[2]:.3g})")
+    return d_loss, g_rel, p_err, b_loss, b_cos, gap
+
+
+def parity_step(cfg, r4, batch):
+    """Phase 3d: the dropout-0 step, kernels against the plain stacks, held
+    to the bar on fresh weights and read on the trained r4 weights."""
+    from music_generator_tpu_torch.models.deepj import build_model
+    fresh = build_model(cfg, "cpu", seed=0).state_dict()
+    log(f"step on fresh weights (seed 0), bar {PARITY_BAR}:")
+    for act in ("sigmoid", "hard_sigmoid"):
+        d_loss, g_rel, p_err, b_loss, b_cos, gap = step_readings(
+            cfg, fresh, batch, act)
+        if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
+            fail(f"float32 step with {act} gates: kernels and plain "
+                 f"stacks disagree")
+        if (b_loss > PARITY_BAR[0] or b_cos < PARITY_BAR[1]
+                or gap > PARITY_BAR[2]):
+            fail(f"bfloat16 step with {act} gates misses the bar")
+    log("step on the trained r4 weights (read, no bar):")
+    step_readings(cfg, r4, batch, "sigmoid")
+
+
+def biax_bound_ms(name: str, cfg, T: int, bf16: bool):
+    """Least time of one launch at these shapes: every input read once and
+    every output written once at HBM rate, or its operations (the Pallas
+    kernels' CostEstimate counts) at the peak of the compute dtype.
+    Returns (ms, "bytes" or "operations")."""
+    from music_generator_tpu_torch.models.deepj import feature_dim
+    it = 2 if bf16 else 4
+    N, B, C = cfg.num_notes, cfg.batch_size, cfg.note_units
+    if name.startswith("biax_time"):
+        Fin, H = feature_dim(cfg), cfg.time_axis_units
+        ins = T * N * B * Fin * it + T * B * (Fin + H) * it
+        ws = (Fin + 3 * H) * 4 * H * it + 2 * 4 * H * it
+        ew = 20
+    else:
+        Ht, H = cfg.time_axis_units, cfg.note_axis_units
+        Fin = Ht + C
+        ins = (T * N * B * Fin * it + T * B * (Fin + H) * it)
+        ws = (Fin + 3 * H) * 4 * H * it + 2 * 4 * H * it + H * 3 * it + 12
+        ew = 0
+    R, H4 = T * N * B, 4 * H
+    tapes = 4 * R * H * it
+    grads = ((Fin + 3 * H) * H4 + 2 * H4) * 4 + T * B * (Fin + H) * 4
+    if name.endswith("fwd"):
+        flops = 2 * R * (Fin + 3 * H) * H4 + ew * R * H4
+        out = R * H * it if name.startswith("biax_time") else R * 3 * 4
+        nbytes = ins + ws + out + tapes
+    else:
+        flops = 6 * R * (Fin + 3 * H) * H4 + 2 * ew * R * H4
+        dout = R * H * it if name.startswith("biax_time") else R * 3 * 4
+        nbytes = 2 * ins + ws + tapes + dout + grads
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_biax(cfg, card):
+    """ms per launch of each biaxial kernel and of its plain version, at
+    the training main path's shapes (bfloat16, sigmoid gates, dropout as
+    configured); cuDNN's two-layer LSTM at the time stack's shapes is
+    logged for orientation only (it computes another function)."""
+    from music_generator_tpu_torch.ops import biax
+    T = cfg.seq_len
+    times = {}
+    kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
+              recurrent_activation="sigmoid")
+    for kind in ("time", "note"):
+        args = [a.requires_grad_(True) for a in stack_inputs(kind, cfg, T, 5)]
+        for label, fn, reps in (("kernel", getattr(biax, f"biax_{kind}_stack"),
+                                 10),
+                                ("plain", getattr(
+                                    biax, f"biax_{kind}_stack_reference"), 2)):
+            out = fn(*args, **kw)
+            cot = torch.ones_like(out)
+            fwd = cuda_ms(lambda: fn(*args, **kw), reps)
+            bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, args, cot, retain_graph=True), reps)
+            times[(kind, label)] = (fwd, bwd)
+            del out
+        for d in ("fwd", "bwd"):
+            name = f"biax_{kind}_{d}"
+            i = 0 if d == "fwd" else 1
+            bound, by = biax_bound_ms(name, cfg, T, True)
+            log(f"{name}: kernel {times[(kind, 'kernel')][i]:.4f} ms/launch, "
+                f"plain version {times[(kind, 'plain')][i]:.4f} ms, bound "
+                f"{bound:.6f} ms by {by} (T={T}, B={cfg.batch_size}, "
+                f"bfloat16; {card})")
+    H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
+    from music_generator_tpu_torch.models.deepj import feature_dim
+    lstm = torch.nn.LSTM(feature_dim(cfg), H, num_layers=2).cuda().to(
+        torch.bfloat16)
+    x = torch.randn(T, N * B, feature_dim(cfg), device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    y, _ = lstm(x)
+    fwd = cuda_ms(lambda: lstm(x), 10)
+    bwd = cuda_ms(lambda: torch.autograd.grad(
+        y, [x] + list(lstm.parameters()), torch.ones_like(y),
+        retain_graph=True), 10)
+    log(f"for orientation only: cuDNN nn.LSTM(num_layers=2) at the time "
+        f"stack's shapes (T={T}, batch {N * B}, {feature_dim(cfg)}->{H}, "
+        f"bfloat16; no style terms, masks or hard gates): forward {fwd:.4f} "
+        f"ms, backward {bwd:.4f} ms ({card})")
+    return {f"biax_{k}_{d}": (times[(k, "kernel")][i], times[(k, "plain")][i])
+            for k in ("time", "note") for i, d in enumerate(("fwd", "bwd"))}
+
+
+def time_train_step(cfg, state, batch, card):
+    """ms per training step at the flagship (bfloat16, dropout on): median
+    of 12 steps after 3 warm-up steps, host clock around synchronised
+    steps; the device's busy share from one profiled step."""
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.parallel.train_step import (
+        create_train_state, train_step)
+    model = build_model(cfg, "cuda")
+    st = create_train_state(model, 0)
+    model.load_state_dict(state)
+    for _ in range(3):
+        train_step(st, batch)
+    reps = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(st, batch)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t) * 1e3)
+        if not torch.isfinite(m["loss"]):
+            fail("non-finite training loss while timing")
+    step = float(np.median(reps))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_step(st, batch)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = e.self_device_time_total / 1e3
+    device = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    rate = cfg.batch_size * cfg.seq_len / (step / 1e3)
+    log(f"train step: B={cfg.batch_size}, T={cfg.seq_len}, bfloat16: "
+        f"{step:.4f} ms (median of {', '.join(f'{r:.4f}' for r in reps)}), "
+        f"{rate:.1f} timesteps/s; device {device:.4f} ms/step, busy share "
+        f"{device / step:.3f} ({card})")
+    log("train step device time by kernel (ms): " + "; ".join(
+        f"{k[:60]} {v:.4f}" for k, v in top))
+    return step, rate
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a machine with a GPU")
@@ -142,6 +600,7 @@ def main() -> None:
     from music_generator_tpu_torch.cli import generate_main
     from music_generator_tpu_torch.config import default_config
     from music_generator_tpu_torch.data.dataset import compute_genre
+    from music_generator_tpu_torch.data.synth import random_batch
     from music_generator_tpu_torch.device import full_f32
     from music_generator_tpu_torch.generation.sampler import (
         Sampler, _velocity_grid, write_file)
@@ -157,9 +616,11 @@ def main() -> None:
 
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
-    (lib,) = _build.build(["notegen"])
-    log(f"build: notegen in {time.perf_counter() - t:.1f} s")
-    log(open(str(lib) + ".log").read().strip())
+    libs = _build.build(["notegen", "biax_time", "biax_note"])
+    log(f"build: notegen, biax_time, biax_note in "
+        f"{time.perf_counter() - t:.1f} s")
+    for lib in libs:
+        log(open(str(lib) + ".log").read().strip())
 
     # -- 2. kernel against its plain version --------------------------------
     full_f32()
@@ -192,6 +653,7 @@ def main() -> None:
                              f"{report}")
     log(f"notegen: {case} cases agree with the plain version "
         f"(|u-p| edge {EDGE}, volume atol {VOLUME_ATOL})")
+    biax_errs = check_biax_kernels(cfg)
 
     # -- 3. main path --------------------------------------------------------
     os.makedirs(WORK, exist_ok=True)
@@ -234,7 +696,18 @@ def main() -> None:
             check_sample(p, os.path.join(ROOT, "artifacts",
                                          pattern.format(i)))
 
+    # -- 3c. training main path ----------------------------------------------
+    train_launches = train_main_path(cfg)
+
+    # -- 3d. one dropout-0 training step, kernels against plain stacks -------
+    r4 = load_params_npz(PARAMS)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in random_batch(cfg, seed=0, rolled_targets=True))
+    parity_step(cfg, r4, batch)
+
     # -- 4. times ------------------------------------------------------------
+    time_train_step(cfg, r4, batch, card)
+    biax_times = time_biax(cfg, card)
     sampler = Sampler(model)
     for G in (3, 64):
         styles = [compute_genre(i % 3, cfg) for i in range(G)]
@@ -298,6 +771,15 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
     }]
+    for name, replaces, source in BIAX_KERNELS:
+        ms, plain = biax_times[name]
+        bound, bound_by = biax_bound_ms(name, cfg, cfg.seq_len, True)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": biax_errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        })
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

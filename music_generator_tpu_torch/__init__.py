@@ -7,17 +7,22 @@ Entry points run on CUDA unless the caller asks for the CPU
 (`device="cpu"`, `--device cpu`); with no card and no such request they
 raise rather than fall back.
 
-Layer map (this slice: streaming generation):
+Layer map (generation and training):
   config     — the Config dataclass, every field of the JAX package's
   midi       — MIDI event model, binary IO and piano-roll codec
-  data       — compute_genre / unclamp_midi
+  data       — the dataset pipeline (load_all, epoch_permutation, ...) and
+               the seeded synthetic corpus (data/synth.py)
   params     — keystr-layout .npz weights <-> the model's state dict
-  models     — the DeepJ module: style embedding, octave conv, features,
-               streaming time-axis step, note-axis cell, heads
-  ops        — LSTM cell, temperature, the pitch-loop kernel wrapper and
-               its build helper (csrc/notegen.cu)
+  models     — the DeepJ module: streaming generation paths, and the
+               training forward (both axes through the biaxial stacks) and
+               its masked loss
+  ops        — LSTM cell, temperature, Keras-2 Nadam, the kernel wrappers
+               (ops/notegen.py, ops/biax.py) and their build helper
+               (csrc/*.cu)
+  parallel   — the train step (dropout generator per step, Nadam update)
+  training   — resident-dataset Trainer, best-only checkpoint, metrics
   generation — threefry-exact uniforms and the streaming Sampler
-  cli        — `python -m music_generator_tpu_torch.generate`
+  cli        — `python -m music_generator_tpu_torch.train` and `.generate`
 """
 
 from music_generator_tpu_torch.config import Config, default_config

@@ -1,26 +1,70 @@
-"""Command-line entry point of the port: `generate`, with the flags of the
-JAX package's `generate_main` (ref: generate.py:137-148) plus `--device`
-and `--params`.
+"""Command-line entry points of the port: `train` and `generate`.
+
+`train` takes the flags of the JAX package's `train_main` that apply
+(--epochs, --seed, --no-resume) plus `--device`; it trains on the corpus
+under the config's style directories and keeps the best checkpoint in
+`out/model.pt`.  `generate` has the flags of the JAX package's
+`generate_main` (ref: generate.py:137-148) plus `--device` and `--params`.
 
 Orbax checkpoints cannot be read without JAX, so weights come from a
-keystr-layout `.npz` (`--params`, params.py); without one the model starts
-from fresh weights drawn from a seeded torch.Generator.
+keystr-layout `.npz` (`--params`, params.py), else from `out/model.pt`
+when a training run left one (printing "Loaded model from file.", as the
+JAX package's `build_or_load` does), else fresh weights drawn from a
+seeded torch.Generator.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
 
 from music_generator_tpu_torch.config import default_config
-from music_generator_tpu_torch.data.dataset import compute_genre
+from music_generator_tpu_torch.data.dataset import compute_genre, load_all
 from music_generator_tpu_torch.device import resolve_device
 from music_generator_tpu_torch.generation.sampler import Sampler, write_file
-from music_generator_tpu_torch.models.deepj import build_model
+from music_generator_tpu_torch.models.deepj import DeepJ, build_model
 from music_generator_tpu_torch.params import load_params_npz
+from music_generator_tpu_torch.training.checkpoint import (build_or_load,
+                                                           model_path)
+from music_generator_tpu_torch.training.trainer import TrainConfig, Trainer
 from music_generator_tpu_torch.utils import one_hot
+
+
+def _device_flag(parser: argparse.ArgumentParser, what: str) -> None:
+    parser.add_argument("--device", type=str, default="cuda",
+                        help=f"Device to {what} on (default: cuda; a "
+                             f"missing card is an error, pass cpu to run "
+                             f"on the CPU)")
+
+
+def train_main(argv=None) -> dict:
+    """Train on the corpus under the config's style directories; returns
+    the fit history."""
+    parser = argparse.ArgumentParser(description="Trains the model.")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="Max epochs (default: config value, 1000)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no-resume", action="store_true",
+                        help="Skip loading an existing checkpoint")
+    _device_flag(parser, "train")
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = default_config()
+    model = DeepJ(cfg, device)
+
+    print("Loading data")
+    ds = load_all(cfg.styles, cfg.seq_len, cfg)
+    print(f"{len(ds)} training windows")
+    trainer = Trainer(model, TrainConfig(seed=args.seed))
+    if not args.no_resume:
+        trainer.maybe_restore()
+    print("Training on", torch.cuda.get_device_name(device)
+          if device.type == "cuda" else "cpu")
+    return trainer.fit(ds, epochs=args.epochs)
 
 
 def generate_main(argv=None) -> list:
@@ -49,15 +93,13 @@ def generate_main(argv=None) -> list:
     parser.add_argument("--params", type=str, default=None, metavar="NPZ",
                         help="Weights as a keystr-layout .npz (e.g. "
                              "artifacts/trained_model_r4/params.npz).  "
-                             "Without it the model starts from fresh "
-                             "Keras-default weights drawn from a "
+                             "Without it the model loads out/model.pt "
+                             "when a training run left one, else starts "
+                             "from fresh Keras-default weights drawn from a "
                              "torch.Generator seeded with --seed: the same "
                              "distributions as the JAX package's "
                              "init_params, not its bits")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="Device to generate on (default: cuda; a "
-                             "missing card is an error, pass cpu to run "
-                             "on the CPU)")
+    _device_flag(parser, "generate")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -69,6 +111,8 @@ def generate_main(argv=None) -> list:
     if args.params:
         model = build_model(cfg, device, state=load_params_npz(args.params))
         print(f"Loaded weights from {args.params}")
+    elif os.path.isfile(model_path(cfg)):
+        model, _ = build_or_load(cfg, device, seed=args.seed)
     else:
         model = build_model(cfg, device, seed=args.seed)
         print(f"Fresh weights from torch seed {args.seed}")

@@ -16,8 +16,14 @@ What the port reads differently:
   * Generation always runs in float32 with TF32 off for both matmuls and
     cuDNN convolutions (device.full_f32), the counterpart of the JAX
     package's `gen_dtype="float32"` / `gen_matmul_precision="highest"`.
-    `compute_dtype`, `lstm_kernel` and the training-kernel flags are kept
-    for parity and read by no code of this slice.
+  * Training runs in `compute_dtype` and always through the biaxial stack
+    kernels (ops/biax.py, csrc/biax_*.cu) on CUDA, their plain versions on
+    the CPU.  `lstm_kernel`, `fused_biax_v3` and `fused_axis_kernel` pick
+    TPU kernels in the JAX package; the port does not read them (so
+    `test_config()`'s `lstm_kernel="xla"` trains the same way).  Only the
+    DeepJ shape, two equal-width LSTM layers per axis, trains; other
+    depths raise NotImplementedError.  `fast_dropout_rng` is not read
+    either: dropout draws come from a torch.Generator.
 """
 
 from __future__ import annotations

@@ -1,7 +1,16 @@
 from music_generator_tpu_torch.data.dataset import (
+    Dataset,
+    batches,
     clamp_midi,
+    compute_beat,
     compute_genre,
+    epoch_permutation,
+    load_all,
+    stagger,
+    transpose_augment,
     unclamp_midi,
 )
 
-__all__ = ["clamp_midi", "compute_genre", "unclamp_midi"]
+__all__ = ["Dataset", "batches", "clamp_midi", "compute_beat",
+           "compute_genre", "epoch_permutation", "load_all", "stagger",
+           "transpose_augment", "unclamp_midi"]

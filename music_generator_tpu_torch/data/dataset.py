@@ -1,14 +1,30 @@
-"""The dataset helpers generation needs (ref: dataset.py:20-26, 78-88):
-own copies of the JAX package's `compute_genre`, `clamp_midi` and
-`unclamp_midi`.  The training pipeline is a later slice."""
+"""Dataset pipeline (ref: dataset.py): own copies of the JAX package's
+`data/dataset.py` helpers.  Walk style directories -> decode (cached,
+parallel) -> clamp to the modeled pitch range -> window into (X, Y-shifted)
+training sequences with beat and style conditioning.
+
+As in the JAX package: windowing is vectorized, file decode fans out over a
+thread pool, file order is deterministic, batches have fixed shapes, and
+octave-transpose augmentation is optional (off by default).  Only the
+single-process pieces are here: no `Dataset.shard` or block permutations
+(multi-device training is queued)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from music_generator_tpu_torch.config import Config, default_config
+from music_generator_tpu_torch.midi.codec import load_midi
+from music_generator_tpu_torch.utils import get_all_files, one_hot
+
+
+def compute_beat(beat: int, notes_in_bar: int) -> np.ndarray:
+    """One-hot position within the bar (ref: dataset.py:14-15)."""
+    return one_hot(beat % notes_in_bar, notes_in_bar)
 
 
 def compute_genre(genre_id: int, config: Optional[Config] = None) -> np.ndarray:
@@ -19,6 +35,22 @@ def compute_genre(genre_id: int, config: Optional[Config] = None) -> np.ndarray:
     styles_in_genre = len(cfg.styles[genre_id])
     genre_hot[start_index:start_index + styles_in_genre] = 1 / styles_in_genre
     return genre_hot
+
+
+def stagger(data: np.ndarray, time_steps: int,
+            hop: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Window a [L, ...] sequence into X=[N, time_steps, ...] and the one-step
+    shifted Y, after prepending `time_steps` zero-frames (ref:
+    dataset.py:28-37, vectorized).  N = ceil(L / hop) windows at starts
+    0, hop, 2*hop, ... < L."""
+    data = np.asarray(data)
+    L = len(data)
+    padded = np.concatenate(
+        [np.zeros((time_steps,) + data.shape[1:], dtype=data.dtype), data])
+    starts = np.arange(0, L, hop)
+    idx = starts[:, None] + np.arange(time_steps + 1)[None, :]
+    windows = padded[idx]
+    return windows[:, :-1], windows[:, 1:]
 
 
 def clamp_midi(sequence: np.ndarray, config: Optional[Config] = None) -> np.ndarray:
@@ -33,3 +65,127 @@ def unclamp_midi(sequence: np.ndarray, config: Optional[Config] = None) -> np.nd
     (ref: dataset.py:84-88)."""
     cfg = config or default_config()
     return np.pad(sequence, ((0, 0), (cfg.min_note, 0), (0, 0)), "constant")
+
+
+def transpose_augment(seq: np.ndarray, shift: int) -> np.ndarray:
+    """Transpose a clamped [T, num_notes, 3] roll by `shift` semitones,
+    zero-filling the vacated edge."""
+    if shift == 0:
+        return seq
+    out = np.zeros_like(seq)
+    if shift > 0:
+        out[:, shift:] = seq[:, :-shift]
+    else:
+        out[:, :shift] = seq[:, -shift:]
+    return out
+
+
+@dataclasses.dataclass
+class Dataset:
+    """Fully materialized training arrays (the corpus is small — the
+    reference also materializes everything, ref: dataset.py:72-76)."""
+
+    notes: np.ndarray        # [N, T, num_notes, 3] float32
+    targets: np.ndarray      # [N, T, num_notes, 3] float32 (one-step shift)
+    beats: np.ndarray        # [N, T, notes_per_bar] float32
+    styles: np.ndarray       # [N, T, num_styles] float32
+
+    def __len__(self) -> int:
+        return len(self.notes)
+
+
+def _load_style_files(files: Sequence[str], cfg: Config) -> List[np.ndarray]:
+    if not files:
+        return []
+
+    def safe_load(f):
+        # Real-world corpora contain malformed files: skip with a warning
+        # instead of aborting the whole run (the reference would crash).
+        try:
+            return load_midi(f, cfg)
+        except Exception as e:
+            print(f"skipping unreadable MIDI {f}: {type(e).__name__}: {e}")
+            return None
+
+    with ThreadPoolExecutor() as pool:
+        return [r for r in pool.map(safe_load, files) if r is not None]
+
+
+def load_all(styles: Optional[Sequence[Sequence[str]]] = None,
+             time_steps: Optional[int] = None,
+             config: Optional[Config] = None) -> Dataset:
+    """Load every style directory into windowed training arrays
+    (ref: dataset.py:39-76)."""
+    cfg = config or default_config()
+    if styles is None:
+        styles = cfg.styles
+    if time_steps is None:
+        time_steps = cfg.seq_len
+    hop = cfg.notes_per_bar
+
+    note_data, note_target, beat_data, style_data = [], [], [], []
+
+    flat_styles = [y for x in styles for y in x]
+    for style_id, style in enumerate(flat_styles):
+        style_hot = one_hot(style_id, cfg.num_styles).astype(np.float32)
+        seqs = _load_style_files(get_all_files([style]), cfg)
+
+        for seq in seqs:
+            if len(seq) < time_steps:
+                # Too short to fill one window (ref: dataset.py:59).
+                continue
+            clamped = clamp_midi(seq, cfg).astype(np.float32)
+            shifts = [0]
+            if cfg.transpose_augment > 0:
+                k = cfg.transpose_augment
+                shifts = list(range(-k, k + 1))
+            # Beat and style windows depend only on the piece length: built
+            # once per piece and reused for every shift.
+            beats = np.eye(cfg.notes_per_bar, dtype=np.float32)[
+                np.arange(len(clamped)) % cfg.notes_per_bar]
+            beat_windows = stagger(beats, time_steps, hop)[0]
+            style_rows = np.tile(style_hot, (len(clamped), 1))
+            style_windows = stagger(style_rows, time_steps, hop)[0]
+            for shift in shifts:
+                s = transpose_augment(clamped, shift)
+                x, y = stagger(s, time_steps, hop)
+                note_data.append(x)
+                note_target.append(y)
+                beat_data.append(beat_windows)
+                style_data.append(style_windows)
+
+    if not note_data:
+        T, N = time_steps, cfg.num_notes
+        return Dataset(
+            np.zeros((0, T, N, 3), np.float32),
+            np.zeros((0, T, N, 3), np.float32),
+            np.zeros((0, T, cfg.notes_per_bar), np.float32),
+            np.zeros((0, T, cfg.num_styles), np.float32))
+
+    return Dataset(
+        np.concatenate(note_data).astype(np.float32),
+        np.concatenate(note_target).astype(np.float32),
+        np.concatenate(beat_data).astype(np.float32),
+        np.concatenate(style_data).astype(np.float32))
+
+
+def epoch_permutation(n: int, batch_size: int, rng: np.random.Generator,
+                      drop_remainder: bool = True) -> np.ndarray:
+    """The epoch's shuffled sample indices as an [S, batch_size] matrix.
+    With drop_remainder=False the final short batch wraps around
+    (np.resize cycles, so datasets smaller than a batch still fill one)."""
+    perm = rng.permutation(n)
+    if not drop_remainder and n % batch_size:
+        pad = batch_size - n % batch_size
+        perm = np.concatenate([perm, np.resize(perm, pad)])
+    S = len(perm) // batch_size
+    return perm[:S * batch_size].reshape(S, batch_size)
+
+
+def batches(ds: Dataset, batch_size: int, *, rng: np.random.Generator,
+            drop_remainder: bool = True) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Shuffled fixed-shape batches for one epoch."""
+    if len(ds) == 0:
+        return
+    for sel in epoch_permutation(len(ds), batch_size, rng, drop_remainder):
+        yield (ds.notes[sel], ds.targets[sel], ds.beats[sel], ds.styles[sel])

@@ -12,16 +12,19 @@ the per-pitch-class played-note count over octaves, tiled per octave — the
 documented intent of ref: model.py:43-49, whose raw reshape scrambles
 batch, time and pitch.
 
-This slice ports what generation runs: `style_embedding`, `octave_conv`,
-`note_features`, `init_time_state`/`time_axis_step`,
-`init_note_state`/`note_axis_cell` and `heads`.  The training forward and
-loss are a later slice.  Dropout is off at inference, like Keras `predict`.
+Generation runs `style_embedding`, `octave_conv`, `note_features`,
+`init_time_state`/`time_axis_step`, `init_note_state`/`note_axis_cell` and
+`heads` in float32.  Training runs `forward` (the JAX package's
+`_forward_biax_v3`: both axes as the fused biaxial stacks of ops/biax.py)
+in the config's compute dtype, and `loss` / `primary_loss`.  Dropout draws
+come from an explicit `torch.Generator`; without one (or with
+train=False) there is no dropout, like Keras `predict`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +33,13 @@ from torch import nn
 from music_generator_tpu_torch.config import Config
 from music_generator_tpu_torch.device import DeviceLike, resolve_device
 from music_generator_tpu_torch.ops import notegen
+from music_generator_tpu_torch.ops.biax import (biax_note_stack,
+                                                biax_time_stack)
 from music_generator_tpu_torch.ops.lstm import (check_recurrent_activation,
                                                 lstm_step)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def feature_dim(cfg: Config) -> int:
@@ -49,6 +57,24 @@ class Dense(nn.Module):
         return x @ self.kernel + self.bias
 
 
+def dense_apply(p: Dense, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """x @ kernel + bias with every operand cast to `dt` (deepj.py:56-57)."""
+    return x.to(dt) @ p.kernel.to(dt) + p.bias.to(dt)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Inverted dropout (deepj.py:83-89): keep with probability 1 - rate
+    and scale by 1/keep.  No-op unless training with a generator."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Conv1D(nn.Module):
     """'same' 1-D conv over the second-to-last axis of [B, L, C], with
     Keras's asymmetric padding for even widths: left (w-1)//2, right w//2
@@ -59,11 +85,12 @@ class Conv1D(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(width, in_ch, out_ch))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dt: torch.dtype = torch.float32) -> torch.Tensor:
         w = self.kernel.shape[0]
-        xt = F.pad(x.transpose(1, 2), ((w - 1) // 2, w // 2))
-        out = F.conv1d(xt, self.kernel.permute(2, 1, 0))
-        return out.transpose(1, 2) + self.bias
+        xt = F.pad(x.to(dt).transpose(1, 2), ((w - 1) // 2, w // 2))
+        out = F.conv1d(xt, self.kernel.to(dt).permute(2, 1, 0))
+        return out.transpose(1, 2) + self.bias.to(dt)
 
 
 class LSTMParams(nn.Module):
@@ -165,12 +192,16 @@ class DeepJ(nn.Module):
         return torch.cat([pitch_pos, pitch_class, chroma, conv_out,
                           beat_rep], dim=-1)
 
-    def octave_conv(self, notes: torch.Tensor) -> torch.Tensor:
-        """tanh(Conv1D over the note axis) (ref: model.py:56-58); no
-        dropout at inference."""
+    def octave_conv(self, notes: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False,
+                    dt: torch.dtype = torch.float32) -> torch.Tensor:
+        """tanh(Conv1D over the note axis) + dropout (ref: model.py:56-58),
+        in `dt`."""
         B, T, N, C = notes.shape
-        out = torch.tanh(self.conv(notes.reshape(B * T, N, C)))
-        return out.reshape(B, T, N, -1)
+        out = torch.tanh(self.conv(notes.reshape(B * T, N, C), dt))
+        return dropout(out.reshape(B, T, N, -1), self.cfg.dropout,
+                       generator, train)
 
     # -- style ------------------------------------------------------------
 
@@ -237,14 +268,145 @@ class DeepJ(nn.Module):
         """sigmoid(play, replay) ++ linear volume (ref: model.py:94-95,125)."""
         return notegen.heads(x, self.note_dense, self.volume_dense)
 
+    # -- training forward (ref: model.py:128-152) -------------------------
+
+    def _dt(self) -> torch.dtype:
+        return _DTYPES[self.cfg.compute_dtype]
+
+    def _check_biax_shape(self) -> None:
+        """The fused biaxial stacks take two equal-width LSTM layers per
+        axis (the DeepJ shape, deepj.py:446-457); other depths are not
+        ported yet."""
+        for name, layers in (("time", self.time_axis),
+                             ("note", self.note_axis)):
+            if (len(layers) != 2 or layers[0].lstm.recurrent.shape
+                    != layers[1].lstm.recurrent.shape):
+                raise NotImplementedError(
+                    f"the training forward takes two equal-width LSTM "
+                    f"layers on the {name} axis; got {len(layers)}")
+
+    def forward(self, notes: torch.Tensor, chosen: torch.Tensor,
+                beat: torch.Tensor, style: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+        """[B, T, N, 3] notes, teacher-forced `chosen` targets, beat
+        [B, T, notes_per_bar] and style [B, T, num_styles] -> predictions
+        [B, T, N, 3] float32 (the JAX `_forward_biax_v3`, deepj.py:482-541).
+
+        Input dropouts, the style embedding, the octave conv and the note
+        features run as PyTorch operations in the compute dtype; both axes
+        run as the biaxial stacks, each seeded once from `generator`.
+        train=True without a generator means no dropout."""
+        self._check_biax_shape()
+        cfg = self.cfg
+        dt = self._dt()
+        act = cfg.lstm_recurrent_activation
+        notes = dropout(notes, cfg.input_dropout, generator, train)
+        beat = dropout(beat, cfg.input_dropout, generator, train)
+        chosen = dropout(chosen, cfg.input_dropout, generator, train)
+
+        style_emb = dense_apply(self.style_embed, style, dt)    # [B, T, S]
+        conv_out = self.octave_conv(notes, generator, train, dt)
+        feats = self.note_features(notes, beat, conv_out)       # [B, T, N, F]
+
+        p = cfg.dropout if (train and generator is not None) else 0.0
+        seed_t = seed_n = 0
+        if p > 0.0:
+            seeds = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                                  device=generator.device).tolist()
+            seed_t, seed_n = seeds
+
+        emb_tb = style_emb.transpose(0, 1)                      # [T, B, S]
+        tl0, tl1 = self.time_axis
+        s0_t = torch.tanh(dense_apply(tl0.style_proj, emb_tb, dt))
+        s1_t = torch.tanh(dense_apply(tl1.style_proj, emb_tb, dt))
+        ht = biax_time_stack(
+            feats.permute(1, 2, 0, 3), s0_t, s1_t,              # [T, N, B, F]
+            tl0.lstm.kernel, tl0.lstm.bias, tl1.lstm.bias,
+            tl0.lstm.recurrent, tl1.lstm.kernel, tl1.lstm.recurrent,
+            dropout_p=p, seed=seed_t, compute_dtype=dt,
+            recurrent_activation=act)
+
+        nl0, nl1 = self.note_axis
+        chosen_ntb = chosen.permute(2, 1, 0, 3)                 # [N, T, B, 3]
+        shift_chosen = torch.cat(
+            [torch.zeros_like(chosen_ntb[:1]), chosen_ntb[:-1]], dim=0)
+        s0_n = torch.tanh(dense_apply(nl0.style_proj, emb_tb, dt))
+        s1_n = torch.tanh(dense_apply(nl1.style_proj, emb_tb, dt))
+        whead = torch.cat([self.note_dense.kernel, self.volume_dense.kernel],
+                          dim=-1)
+        bhead = torch.cat([self.note_dense.bias, self.volume_dense.bias])
+        out = biax_note_stack(
+            ht, shift_chosen, s0_n, s1_n,
+            nl0.lstm.kernel, nl0.lstm.bias, nl1.lstm.bias,
+            nl0.lstm.recurrent, nl1.lstm.kernel, nl1.lstm.recurrent,
+            whead, bhead, dropout_p=p, seed=seed_n, compute_dtype=dt,
+            recurrent_activation=act)
+        return out.permute(2, 1, 0, 3)                          # [B, T, N, 3]
+
+    def loss(self, batch, generator: Optional[torch.Generator] = None,
+             train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """primary_loss of the forward on batch = (notes, targets, beats,
+        styles) (deepj.py:545-549)."""
+        notes, targets, beats, styles = batch
+        preds = self.forward(notes, targets, beats, styles, generator, train)
+        return primary_loss(targets, preds)
+
+
+
+def primary_loss(y_true: torch.Tensor, y_pred: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BCE(play) + masked BCE(replay) + masked MSE(volume) (ref:
+    model.py:14-20; deepj.py:634-652).  The mask replaces the prediction by
+    the target where the play target is 0, zeroing the gradient there; BCE
+    clips probabilities at 1e-7 like keras.backend.binary_crossentropy."""
+    bce_note, bce_replay, mse = _loss_terms(y_true, y_pred)
+    total = torch.mean(bce_note + bce_replay + mse)
+    return total, {"loss": total, "bce_play": torch.mean(bce_note),
+                   "bce_replay": torch.mean(bce_replay),
+                   "mse_volume": torch.mean(mse)}
+
+
+def _loss_terms(y_true: torch.Tensor, y_pred: torch.Tensor):
+    """Elementwise [..., T, N] loss terms shared by the scalar training loss
+    and the per-sample evaluation metrics."""
+    played = y_true[..., 0]
+
+    def bce(t, p):
+        p = torch.clamp(p, 1e-7, 1 - 1e-7)
+        return -(t * torch.log(p) + (1 - t) * torch.log1p(-p))
+
+    bce_note = bce(y_true[..., 0], y_pred[..., 0])
+    replay_masked = played * y_pred[..., 1] + (1 - played) * y_true[..., 1]
+    bce_replay = bce(y_true[..., 1], replay_masked)
+    vol_masked = played * y_pred[..., 2] + (1 - played) * y_true[..., 2]
+    mse = torch.square(y_true[..., 2] - vol_masked)
+    return bce_note, bce_replay, mse
+
+
+def per_sample_loss(y_true: torch.Tensor,
+                    y_pred: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """primary_loss's metrics reduced per batch row ([B] vectors), so
+    evaluation can weight out padded rows."""
+    bce_note, bce_replay, mse = _loss_terms(y_true, y_pred)
+    dims = tuple(range(1, bce_note.dim()))
+    return {"loss": torch.mean(bce_note + bce_replay + mse, dim=dims),
+            "bce_play": torch.mean(bce_note, dim=dims),
+            "bce_replay": torch.mean(bce_replay, dim=dims),
+            "mse_volume": torch.mean(mse, dim=dims)}
+
 
 def build_model(cfg: Config, device: DeviceLike = None,
-                state: Optional[dict] = None, seed: int = 0) -> DeepJ:
+                state: Optional[dict] = None, seed: int = 0,
+                trainable: bool = False) -> DeepJ:
     """A DeepJ on `device` holding `state` (a params.py state dict), or
-    fresh weights from `seed` when no state is given."""
+    fresh weights from `seed` when no state is given.  Frozen for inference
+    unless `trainable`."""
     model = DeepJ(cfg, device)
     if state is None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state)
+    if trainable:
+        return model.requires_grad_(True).train()
     return model.requires_grad_(False).eval()

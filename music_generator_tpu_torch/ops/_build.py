@@ -7,8 +7,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas=-v -o build/torch_kernels/lib<name>-<hash>.so
 
 into `build/torch_kernels/` at the root of the checkout (git-ignored).
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded.  No `--use_fast_math`:
+The file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and a stale
+library is never loaded.  No `--use_fast_math`:
 the kernels' float32 math must track the plain PyTorch versions.  The
 compiler's register and shared-memory report (`-Xptxas=-v`) is kept beside
 the library as `<lib>.log`.
@@ -47,7 +48,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,593 @@
+"""The biaxial training stacks: the time-axis and note-axis two-layer LSTM
+stacks of the JAX package's `ops/pallas_biax.py` (v3), as hand-written CUDA
+kernels (`csrc/biax_time.cu`, `csrc/biax_note.cu`) inside
+`torch.autograd.Function`s, beside their plain PyTorch versions.
+
+    biax_time_stack(x [T,N,B,F], s0 [T,B,F], s1 [T,B,H], w0, b0, b1, u0,
+                    w1, u1) -> hs1 [T,N,B,H]          (compute dtype)
+    biax_note_stack(ht [T,N,B,Ht], chosen [N,T,B,C], s0 [T,B,Ht+C],
+                    s1 [T,B,H], w0, b0, b1, u0, w1, u1, whead [H,3],
+                    bhead [3]) -> [N,T,B,3]           (float32)
+
+The time stack scans T with rows (n, b); the note stack scans N with rows
+(t, b) and reads the time stack's output through its output-dropout mask
+(`S_IN`), adds the split style-0 terms (`S_STYLE0` over the Ht columns,
+`S_STYLE0C` over the chosen columns), and ends in the fused heads
+sigmoid(play, replay) ++ linear volume.
+
+The arithmetic is the Pallas kernels' (`_cell_fwd`, pallas_biax.py:133-141):
+products accumulate in float32 and are cast to the compute dtype, gates run
+in the compute dtype with the sigmoid as 0.5*tanh(0.5x)+0.5 (or Keras 2's
+hard_sigmoid, clip(0.2x+0.5, 0, 1)), c stays float32 and
+h = o * tanh(c cast to the compute dtype).
+
+Dropout masks are the Pallas kernels' Murmur3 keep-masks (`_mask`,
+pallas_biax.py:102-130), bit for bit, under the TPU kernels' row tiling
+(`_row_tiling`): for the time stack an element (t, n, b, col) of a site of
+width W sits in tile j = n // k at scan step t, row r = (n % k) * B + b, at
+index r * W + col; the note stack swaps the roles of t and n.  The CUDA
+kernels tile rows their own way and compute these coordinates per element.
+
+On a CPU tensor the wrappers run the plain versions
+(`biax_time_stack_reference`, `biax_note_stack_reference`: loops over the
+scan whose autograd gives the reference gradient).  On a CUDA tensor they
+launch the kernels or raise.  The wrappers take the float32 parameters and
+cast them inside, and return float32 weight gradients, as the custom VJPs
+do (pallas_biax.py:536-559, 1053-1081).  Launch counters:
+`biax_time_stack.fwd_launches` / `.bwd_launches`, the same on
+`biax_note_stack`; the plain versions count `.calls`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from music_generator_tpu_torch.ops import _build
+from music_generator_tpu_torch.ops.lstm import check_recurrent_activation
+
+# Dropout-site salts (pallas_biax.py:52-56, 607).
+S_IN = 0        # the time stack's output dropout, applied by the note stack
+S_STYLE0 = 1
+S_STYLE1 = 2
+S_MID = 3       # inter-layer dropout
+S_OUT = 4       # output dropout (note stack only)
+S_STYLE0C = 5   # style-0 mask over the chosen-feature columns
+
+MAX_TILE_ROWS = 256
+_U32 = 0xFFFFFFFF
+
+
+def _row_tiling(A: int, B: int, max_rows: int = 0) -> Tuple[int, int]:
+    """The TPU kernels' tiling of the (across, batch) row space into (k, B)
+    blocks: the largest k dividing A with k * B <= max_rows (256).
+    Returns (k, A // k).  The masks are defined on it."""
+    max_rows = max_rows or MAX_TILE_ROWS
+    if B >= max_rows:
+        return 1, A
+    best = 1
+    for k in range(1, A + 1):
+        if A % k == 0 and k * B <= max_rows:
+            best = k
+    return best, A // best
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), without overflowing
+    int64: the constant is split into 16-bit halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _threshold(keep_prob: float) -> int:
+    """The keep threshold as the Pallas kernel computes it on the host."""
+    return int((1.0 - keep_prob) * 0xFFFFFFFF) & _U32
+
+
+def _keep_scale(keep_prob: float, dtype: torch.dtype) -> float:
+    """1/keep in the compute dtype, the value a kept element is scaled by."""
+    return float(torch.tensor(1.0 / keep_prob, dtype=dtype))
+
+
+def _keep_bits(seed: int, site: int, j, s, idx: torch.Tensor,
+               keep_prob: float) -> torch.Tensor:
+    """The Murmur3-finalizer keep decision of each element index `idx`
+    (int64 tensors broadcastable together) of tile j at scan step s."""
+    j = torch.as_tensor(j, dtype=torch.int64, device=idx.device)
+    s = torch.as_tensor(s, dtype=torch.int64, device=idx.device)
+    base = (_mul32(torch.tensor(seed & _U32, dtype=torch.int64,
+                                device=idx.device), 0x9E3779B1)
+            ^ ((site * 0x85EBCA77) & _U32)
+            ^ _mul32(j, 0xC2B2AE3D) ^ _mul32(s, 0x27D4EB2F))
+    x = (idx + base) & _U32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x >= _threshold(keep_prob)
+
+
+def _mask(seed: int, site: int, j: int, s: int, shape: Tuple[int, int],
+          keep_prob: float, dtype: torch.dtype,
+          device=None) -> Optional[torch.Tensor]:
+    """The keep-mask of one (site, tile j, scan step s), shape (R, W),
+    scaled by 1/keep: `_mask` of pallas_biax.py:102-130.  None when
+    dropout is off."""
+    if keep_prob >= 1.0:
+        return None
+    R, W = shape
+    rows = torch.arange(R, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(W, dtype=torch.int64, device=device)[None, :]
+    keep = _keep_bits(seed, site, j, s, rows * W + cols, keep_prob)
+    return keep.to(dtype) * _keep_scale(keep_prob, dtype)
+
+
+def stack_mask(seed: int, site: int, S: int, A: int, B: int, W: int,
+               keep_prob: float, dtype: torch.dtype,
+               device=None) -> Optional[torch.Tensor]:
+    """The masks of one site over a whole stack, [S, A, B, W] (scan step,
+    across, batch, column), under the TPU tiling k = _row_tiling(A, B)."""
+    if keep_prob >= 1.0:
+        return None
+    k, _ = _row_tiling(A, B)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    s = ar(S)[:, None, None, None]
+    a = ar(A)[None, :, None, None]
+    b = ar(B)[None, None, :, None]
+    col = ar(W)[None, None, None, :]
+    idx = ((a % k) * B + b) * W + col
+    keep = _keep_bits(seed, site, a // k, s, idx, keep_prob)
+    return keep.to(dtype) * _keep_scale(keep_prob, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with float32 accumulation (exact products of compute-dtype
+    operands, summed in float32)."""
+    return a.float() @ b.float()
+
+
+def _gate(x: torch.Tensor, hard: bool) -> torch.Tensor:
+    """The recurrent gate in x's dtype: 0.5*tanh(0.5x)+0.5, or Keras 2's
+    hard_sigmoid with the constant 0.2 in x's dtype."""
+    if hard:
+        c = torch.tensor(0.2, dtype=x.dtype, device=x.device)
+        return torch.clamp(x * c + 0.5, 0.0, 1.0)
+    return 0.5 * torch.tanh(0.5 * x) + 0.5
+
+
+def _cell(z_in: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+          u: torch.Tensor, hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_cell_fwd`: z = z_in + (h_cdt @ U -> cdt), gates in the compute
+    dtype, c float32, h = o * tanh(c_cdt) in float32."""
+    cdt = z_in.dtype
+    H = u.shape[0]
+    z = z_in + _dot(h.to(cdt), u).to(cdt)
+    i = _gate(z[:, :H], hard)
+    f = _gate(z[:, H:2 * H], hard)
+    g = torch.tanh(z[:, 2 * H:3 * H])
+    o = _gate(z[:, 3 * H:], hard)
+    c_new = f.float() * c + (i * g).float()
+    h_new = o.float() * torch.tanh(c_new.to(cdt)).float()
+    return h_new, c_new
+
+
+def _apply(x: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if m is None else x * m
+
+
+def biax_time_stack_reference(x, s0, s1, w0, b0, b1, u0, w1, u1,
+                              dropout_p: float = 0.0, seed: int = 0,
+                              compute_dtype=torch.float32,
+                              recurrent_activation: str = "sigmoid"):
+    """The time stack as a plain loop over T (rows (n, b)); see the module
+    docstring.  Returns hs1 [T, N, B, H] in the compute dtype."""
+    biax_time_stack_reference.calls += 1
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    R, dev = N * B, x.device
+    keep = 1.0 - dropout_p
+    x, s0, s1 = x.to(cdt), s0.to(cdt), s1.to(cdt)
+    W0, U0, W1, U1 = (w.to(cdt) for w in (w0, u0, w1, u1))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    m0 = stack_mask(seed, S_STYLE0, T, N, B, F, keep, cdt, dev)
+    m1 = stack_mask(seed, S_STYLE1, T, N, B, H, keep, cdt, dev)
+    mmid = stack_mask(seed, S_MID, T, N, B, H, keep, cdt, dev)
+    h0 = c0 = h1 = c1 = torch.zeros(R, H, device=dev)
+    out = []
+    for t in range(T):
+        xt = x[t] + _apply(s0[t][None].expand(N, B, F),
+                           None if m0 is None else m0[t])
+        xw0 = _dot(xt.reshape(R, F), W0).to(cdt) + B0
+        h0, c0 = _cell(xw0, h0, c0, U0, hard)
+        x1 = _apply(h0.to(cdt), None if mmid is None else mmid[t].reshape(R, H))
+        s1t = s1[t][None].expand(N, B, H).reshape(R, H)
+        x1 = x1 + _apply(s1t, None if m1 is None else m1[t].reshape(R, H))
+        xw1 = _dot(x1, W1).to(cdt) + B1
+        h1, c1 = _cell(xw1, h1, c1, U1, hard)
+        out.append(h1.to(cdt).reshape(N, B, H))
+    return torch.stack(out)
+
+
+biax_time_stack_reference.calls = 0
+
+
+def biax_note_stack_reference(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1,
+                              whead, bhead, dropout_p: float = 0.0,
+                              seed: int = 0, compute_dtype=torch.float32,
+                              recurrent_activation: str = "sigmoid"):
+    """The note stack as a plain loop over N (rows (t, b)); see the module
+    docstring.  Returns [N, T, B, 3] float32."""
+    biax_note_stack_reference.calls += 1
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, Ht = ht.shape
+    C = chosen.shape[-1]
+    H = u0.shape[0]
+    R, dev = T * B, ht.device
+    keep = 1.0 - dropout_p
+    ht, chosen = ht.to(cdt), chosen.to(cdt)
+    s0t = s0[..., :Ht].to(cdt).reshape(R, Ht)
+    s0c = s0[..., Ht:].to(cdt).reshape(R, C)
+    s1 = s1.to(cdt).reshape(R, H)
+    W0t, W0c = w0[:Ht].to(cdt), w0[Ht:].to(cdt)
+    U0, W1, U1, Wh = (w.to(cdt) for w in (u0, w1, u1, whead))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    bh = bhead.reshape(-1).float()
+
+    def masks(site, width):
+        m = stack_mask(seed, site, N, T, B, width, keep, cdt, dev)
+        return [None] * N if m is None else m.reshape(N, R, width)
+
+    m_in, m0t, m0c = masks(S_IN, Ht), masks(S_STYLE0, Ht), masks(S_STYLE0C, C)
+    m1, mmid, m_out = masks(S_STYLE1, H), masks(S_MID, H), masks(S_OUT, H)
+    h0 = c0 = h1 = c1 = torch.zeros(R, H, device=dev)
+    out = []
+    for n in range(N):
+        xt = _apply(ht[:, n].reshape(R, Ht), m_in[n])
+        xt_tot = xt + _apply(s0t, m0t[n])
+        ch_tot = chosen[n].reshape(R, C) + _apply(s0c, m0c[n])
+        xw0 = (_dot(xt_tot, W0t) + _dot(ch_tot, W0c)).to(cdt) + B0
+        h0, c0 = _cell(xw0, h0, c0, U0, hard)
+        x1 = _apply(h0.to(cdt), mmid[n]) + _apply(s1, m1[n])
+        xw1 = _dot(x1, W1).to(cdt) + B1
+        h1, c1 = _cell(xw1, h1, c1, U1, hard)
+        h1d = _apply(h1.to(cdt), m_out[n])
+        z = _dot(h1d, Wh) + bh
+        zs = _gate(z[:, :2].to(cdt), False).float()
+        out.append(torch.cat([zs, z[:, 2:]], dim=-1).reshape(T, B, 3))
+    return torch.stack(out)
+
+
+biax_note_stack_reference.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float)
+_SIGNATURES = {
+    "biax_time": {
+        "biax_time_fwd": [_I] + [_P] * 13 + [_I] * 6 + [_U, _U, _F, _I, _I,
+                                                       _P],
+        "biax_time_bwd": [_I] + [_P] * 25 + [_I] * 6 + [_U, _U, _F, _I, _I,
+                                                       _P],
+        "biax_time_ds": [_I, _P, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "biax_note": {
+        "biax_note_fwd": [_I] + [_P] * 17 + [_I] * 7 + [_U, _U, _F, _I, _I,
+                                                       _P],
+        "biax_note_bwd": [_I] + [_P] * 31 + [_I] * 7 + [_U, _U, _F, _I, _I,
+                                                       _P],
+    },
+}
+_WGRAD = [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+WGRAD_CHUNKS = 32           # row chunks of the weight-gradient reduction
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    if lib.biax_wgrad.argtypes is None:
+        for fn, args in list(_SIGNATURES[name].items()) + [
+                ("biax_wgrad", _WGRAD)]:
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _is_bf16(cdt: torch.dtype) -> int:
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, "
+                         f"got {cdt}")
+    return int(cdt == torch.bfloat16)
+
+
+def _kind(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else (2 if t.dtype == torch.bfloat16 else 1)
+
+
+def _wgrad(lib, a: Optional[torch.Tensor], shift: int, b: torch.Tensor,
+           K: int, ws: torch.Tensor) -> torch.Tensor:
+    """sum over rows r of a[r - shift, :K]^T b[r] (a rows before `shift`
+    read as zero; a None gives the column sums of b) ->
+    float32 [K, M], by the kernel `biax_wgrad` in the library: row chunks
+    summed in a fixed order, no atomics."""
+    M = b.shape[-1]
+    rows = b.numel() // M
+    out = torch.empty(K, M, dtype=torch.float32, device=b.device)
+    _check(lib.biax_wgrad(
+        _kind(a), _ptr(a), 0 if a is None else a.shape[-1], shift, _kind(b),
+        b.data_ptr(), M, rows, K, M, WGRAD_CHUNKS, ws.data_ptr(),
+        out.data_ptr(), _stream(b.device)), "biax_wgrad")
+    return out
+
+
+def _layout(m: torch.Tensor) -> torch.Tensor:
+    """A product's matrix m [K, N] (in the compute dtype) as the kernels
+    take it: [K, N] for float32 (CUDA-core FMAs over rows of m); for
+    bfloat16 the transpose [N, K rounded up to 32], zero-padded, so the
+    tensor-core operands read K-contiguous runs."""
+    if m.dtype == torch.float32:
+        return m.contiguous()
+    K, N = m.shape
+    out = m.new_zeros(N, -(-K // 32) * 32)
+    out[:, :K] = m.t()
+    return out
+
+
+def _mask_args(dropout_p: float, seed: int, cdt: torch.dtype):
+    keep = 1.0 - dropout_p
+    if keep >= 1.0:
+        return 0, 0, 1.0, 0
+    return (seed & _U32, _threshold(keep), _keep_scale(keep, cdt), 1)
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                             f"one on {t.device}")
+    return dev
+
+
+class _TimeStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p, seed,
+                cdt, hard):
+        dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1)
+        T, N, B, F = x.shape
+        H = u0.shape[0]
+        k, _ = _row_tiling(N, B)
+        xs = [t.to(cdt).contiguous() for t in (x, s0, s1)]
+        ws = [t.to(cdt).contiguous() for t in (w0, b0, b1, u0, w1, u1)]
+        tapes = any(ctx.needs_input_grad)
+        new = lambda: torch.empty(T, N, B, H, dtype=cdt, device=dev)
+        hs1 = new()
+        hs0, cs0, cs1 = (new(), new(), new()) if tapes else (None,) * 3
+        mats = [_layout(ws[0]), ws[1], ws[2], _layout(ws[3]),
+                _layout(ws[4]), _layout(ws[5])]
+        lib = _library("biax_time")
+        with torch.cuda.device(dev):
+            _check(lib.biax_time_fwd(
+                _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
+                _ptr(hs0), _ptr(cs0), hs1.data_ptr(), _ptr(cs1),
+                T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
+                int(hard), _stream(dev)), "biax_time_fwd")
+        biax_time_stack.fwd_launches += 1
+        if tapes:
+            ctx.save_for_backward(*xs, *ws, hs0, cs0, hs1, cs1)
+            ctx.cfg = (dropout_p, seed, cdt, hard, k)
+            ctx.dtypes = tuple(t.dtype for t in (x, s0, s1, w0, b0, b1, u0,
+                                                 w1, u1))
+        return hs1
+
+    @staticmethod
+    def backward(ctx, dhs1):
+        (x, s0, s1, w0, b0, b1, u0, w1, u1,
+         hs0, cs0, hs1, cs1) = ctx.saved_tensors
+        dropout_p, seed, cdt, hard, k = ctx.cfg
+        dev = x.device
+        T, N, B, F = x.shape
+        H = u0.shape[0]
+        H4 = 4 * H
+        dhs1 = dhs1.to(cdt).contiguous()
+        e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
+        # xtot rows padded to 8 values: 16-byte rows for the reduction.
+        dx, xtot = e(T, N, B, F), e(T, N, B, -(-F // 8) * 8)
+        x1t, dz0, dz1 = e(T, N, B, H), e(T, N, B, H4), e(T, N, B, H4)
+        ds0r, ds1r = e(T, N, B, F, dt=torch.float32), e(
+            T, N, B, H, dt=torch.float32)
+        fwd = [_layout(w) for w in (w0, u0, w1, u1)]
+        trans = [_layout(w.t()) for w in (w0, u0, w1, u1)]
+        lib = _library("biax_time")
+        with torch.cuda.device(dev):
+            _check(lib.biax_time_bwd(
+                _is_bf16(cdt), *(t.data_ptr() for t in (
+                    x, s0, s1, fwd[0], b0, b1, fwd[1], fwd[2], fwd[3],
+                    *trans,
+                    hs0, cs0, hs1, cs1, dhs1, dx, ds0r, ds1r, xtot, x1t,
+                    dz0, dz1)),
+                T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
+                int(hard), _stream(dev)), "biax_time_bwd")
+            ws = e(WGRAD_CHUNKS * max(F, H) * H4, dt=torch.float32)
+            R = N * B
+            dw0 = _wgrad(lib, xtot, 0, dz0, F, ws)
+            du0 = _wgrad(lib, hs0, R, dz0, H, ws)
+            dw1 = _wgrad(lib, x1t, 0, dz1, H, ws)
+            du1 = _wgrad(lib, hs1, R, dz1, H, ws)
+            db0 = _wgrad(lib, None, 0, dz0, 1, ws).reshape(H4)
+            db1 = _wgrad(lib, None, 0, dz1, 1, ws).reshape(H4)
+            ds = []
+            for rows, W in ((ds0r, F), (ds1r, H)):
+                out = e(T, B, W, dt=torch.float32)
+                _check(lib.biax_time_ds(_is_bf16(cdt), rows.data_ptr(), T,
+                                        N, B, W, k, out.data_ptr(),
+                                        _stream(dev)), "biax_time_ds")
+                ds.append(out)
+        biax_time_stack.bwd_launches += 1
+        grads = (dx, ds[0], ds[1], dw0, db0, db1, du0, dw1, du1)
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (
+            None,) * 4
+
+
+class _NoteStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
+                bhead, dropout_p, seed, cdt, hard):
+        dev = _on_cuda("biax_note_stack", ht, chosen, s0, s1, w0, b0, b1,
+                       u0, w1, u1, whead, bhead)
+        T, N, B, Ht = ht.shape
+        C = chosen.shape[-1]
+        H = u0.shape[0]
+        k, _ = _row_tiling(T, B)
+        xs = [t.to(cdt).contiguous() for t in (ht, chosen, s0, s1)]
+        ws = [t.to(cdt).contiguous() for t in (w0, b0, b1, u0, w1, u1,
+                                               whead)]
+        bh = bhead.float().contiguous()
+        tapes = any(ctx.needs_input_grad)
+        new = lambda: torch.empty(N, T, B, H, dtype=cdt, device=dev)
+        out = torch.empty(N, T, B, 3, dtype=torch.float32, device=dev)
+        tp = [new() for _ in range(4)] if tapes else [None] * 4
+        mats = [_layout(ws[0]), ws[1], ws[2], _layout(ws[3]),
+                _layout(ws[4]), _layout(ws[5]), ws[6]]
+        lib = _library("biax_note")
+        with torch.cuda.device(dev):
+            _check(lib.biax_note_fwd(
+                _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
+                bh.data_ptr(), out.data_ptr(), *(_ptr(t) for t in tp),
+                T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
+                int(hard), _stream(dev)), "biax_note_fwd")
+        biax_note_stack.fwd_launches += 1
+        if tapes:
+            ctx.save_for_backward(*xs, *ws, bh, *tp)
+            ctx.cfg = (dropout_p, seed, cdt, hard, k)
+            ctx.dtypes = tuple(t.dtype for t in (
+                ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (ht, ch, s0, s1, w0, b0, b1, u0, w1, u1, wh, bh,
+         hs0, cs0, hs1, cs1) = ctx.saved_tensors
+        dropout_p, seed, cdt, hard, k = ctx.cfg
+        dev = ht.device
+        T, N, B, Ht = ht.shape
+        C = ch.shape[-1]
+        H = u0.shape[0]
+        H4, D = 4 * H, Ht + C
+        dout = dout.float().contiguous()
+        e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
+        z = lambda *shape: torch.zeros(*shape, dtype=torch.float32,
+                                       device=dev)
+        dht, dch = e(T, N, B, Ht), e(N, T, B, C)
+        ds0, ds1 = z(T, B, D), z(T, B, H)
+        # xtot rows padded to 8 values: 16-byte rows for the reduction.
+        xtot = e(N, T, B, -(-D // 8) * 8)
+        x1t, h1d = e(N, T, B, H), e(N, T, B, H)
+        dzh = e(N, T, B, 3, dt=torch.float32)
+        dz0, dz1 = e(N, T, B, H4), e(N, T, B, H4)
+        fwd = [_layout(w) for w in (w0, u0, w1, u1)]
+        trans = [_layout(w.t()) for w in (w0, u0, w1, u1)]
+        lib = _library("biax_note")
+        with torch.cuda.device(dev):
+            _check(lib.biax_note_bwd(
+                _is_bf16(cdt), *(t.data_ptr() for t in (
+                    ht, ch, s0, s1, fwd[0], b0, b1, fwd[1], fwd[2], fwd[3],
+                    wh, bh, *trans,
+                    hs0, cs0, hs1, cs1, dout, dht, dch, ds0, ds1, xtot, x1t,
+                    h1d, dzh, dz0, dz1)),
+                T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
+                int(hard), _stream(dev)), "biax_note_bwd")
+            ws = e(WGRAD_CHUNKS * max(D, H) * H4, dt=torch.float32)
+            R = T * B
+            dw0 = _wgrad(lib, xtot, 0, dz0, D, ws)
+            du0 = _wgrad(lib, hs0, R, dz0, H, ws)
+            dw1 = _wgrad(lib, x1t, 0, dz1, H, ws)
+            du1 = _wgrad(lib, hs1, R, dz1, H, ws)
+            db0 = _wgrad(lib, None, 0, dz0, 1, ws).reshape(H4)
+            db1 = _wgrad(lib, None, 0, dz1, 1, ws).reshape(H4)
+            dwh = _wgrad(lib, h1d, 0, dzh, H, ws)
+            dbh = _wgrad(lib, None, 0, dzh, 1, ws).reshape(3)
+        biax_note_stack.bwd_launches += 1
+        grads = (dht, dch, ds0, ds1, dw0, db0, db1, du0, dw1, du1, dwh, dbh)
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (
+            None,) * 4
+
+
+def biax_time_stack(x, s0, s1, w0, b0, b1, u0, w1, u1,
+                    dropout_p: float = 0.0, seed: int = 0,
+                    compute_dtype=torch.float32,
+                    recurrent_activation: str = "sigmoid") -> torch.Tensor:
+    """The time-axis stack (pallas_biax.py:565).  x [T, N, B, F] raw
+    per-note features, s0 [T, B, F] and s1 [T, B, H] the unmasked,
+    unbroadcast tanh style projections; returns hs1 [T, N, B, H] in the
+    compute dtype.  CPU tensors take the plain version; CUDA tensors the
+    kernels."""
+    check_recurrent_activation(recurrent_activation)
+    args = (x.to(compute_dtype), s0, s1, w0, b0.reshape(-1), b1.reshape(-1),
+            u0, w1, u1)
+    if x.device.type == "cpu":
+        return biax_time_stack_reference(*args, dropout_p, seed,
+                                         compute_dtype, recurrent_activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"biax_time_stack runs on CPU or CUDA tensors, "
+                         f"got {x.device}")
+    return _TimeStack.apply(*args, float(dropout_p), int(seed),
+                            compute_dtype,
+                            recurrent_activation == "hard_sigmoid")
+
+
+biax_time_stack.fwd_launches = 0
+biax_time_stack.bwd_launches = 0
+
+
+def biax_note_stack(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
+                    bhead, dropout_p: float = 0.0, seed: int = 0,
+                    compute_dtype=torch.float32,
+                    recurrent_activation: str = "sigmoid") -> torch.Tensor:
+    """The note-axis stack with fused heads (pallas_biax.py:1087).
+    ht [T, N, B, Ht] the time stack's output (its output dropout applied
+    on read), chosen [N, T, B, C] the pre-shifted conditioning, s0
+    [T, B, Ht+C] and s1 [T, B, H] the style projections, w0 [Ht+C, 4H],
+    whead [H, 3], bhead [3]; returns [N, T, B, 3] float32.  CPU tensors
+    take the plain version; CUDA tensors the kernels."""
+    check_recurrent_activation(recurrent_activation)
+    args = (ht.to(compute_dtype), chosen.to(compute_dtype), s0, s1, w0,
+            b0.reshape(-1), b1.reshape(-1), u0, w1, u1, whead,
+            bhead.reshape(-1))
+    if ht.device.type == "cpu":
+        return biax_note_stack_reference(*args, dropout_p, seed,
+                                         compute_dtype, recurrent_activation)
+    if ht.device.type != "cuda":
+        raise ValueError(f"biax_note_stack runs on CPU or CUDA tensors, "
+                         f"got {ht.device}")
+    return _NoteStack.apply(*args, float(dropout_p), int(seed),
+                            compute_dtype,
+                            recurrent_activation == "hard_sigmoid")
+
+
+biax_note_stack.fwd_launches = 0
+biax_note_stack.bwd_launches = 0

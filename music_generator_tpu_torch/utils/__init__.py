@@ -1,3 +1,4 @@
-from music_generator_tpu_torch.utils.util import one_hot
+from music_generator_tpu_torch.utils.util import (get_all_files, one_hot,
+                                                   param_summary)
 
-__all__ = ["one_hot"]
+__all__ = ["one_hot", "get_all_files", "param_summary"]
