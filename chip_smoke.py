@@ -6,10 +6,13 @@ Phases (any failure exits non-zero, before the result line):
   1. build every CUDA kernel from csrc/ (nvcc, one process per source, all
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' widths: the generation pitch loop, and the four biaxial
-     training kernels (time and note stack, forward and backward) in
-     float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
-     output and every input and weight gradient, also at small odd widths;
+     main paths' widths: the generation pitch loop, the four biaxial
+     training kernels (time and note stack, forward and backward) and the
+     four per-axis kernels (the fused two-layer stack and the single-layer
+     recurrence, forward and backward, at the time and note axes' shapes)
+     in float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
+     outputs, terminal states and every input, weight and initial-state
+     gradient, also at small odd widths;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -26,9 +29,18 @@ Phases (any failure exits non-zero, before the result line):
      one Nadam step), and the bfloat16 kernels against the float32 plain
      path (loss, worst-leaf gradient cosine, post-update loss gap), held
      to a stated bar on fresh weights and read on the trained weights;
+  3e. drive the per-axis training routes through the trainer the CLI uses
+     (Trainer.fit, 1 epoch of the 3c corpus at default_config() widths):
+     fused_biax_v3=False (the fused two-layer stack per axis),
+     fused_axis_kernel=False as well (one recurrence per layer) and a
+     3 + 3 layer stack, checking the exact launch counts of each step, no
+     plain version and no biaxial launch, finite losses, evaluate() and the
+     checkpoint;
+  3f. the dropout-0 step of 3d on the two per-axis routes;
   4. time the generation step (and, from a profiled bar, the device's
-     share of it), the training step (and its busy share), each kernel and
-     its plain version.
+     share of it), the training step of each route (and its busy share),
+     each kernel and its plain version, and cuDNN's LSTM beside the
+     recurrence.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -43,6 +55,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -71,6 +84,27 @@ BIAX_KERNELS = [
     ("biax_note_bwd", "music_generator_tpu/ops/pallas_biax.py:715",
      "music_generator_tpu_torch/csrc/biax_note.cu"),
 ]
+# The per-axis training kernels: (name, TPU kernel it replaces, source).
+LSTM_KERNELS = [
+    ("lstm2_fwd", "music_generator_tpu/ops/pallas_lstm2.py:109",
+     "music_generator_tpu_torch/csrc/lstm2.cu"),
+    ("lstm2_bwd", "music_generator_tpu/ops/pallas_lstm2.py:180",
+     "music_generator_tpu_torch/csrc/lstm2.cu"),
+    ("lstm_rec_fwd", "music_generator_tpu/ops/pallas_lstm.py:95",
+     "music_generator_tpu_torch/csrc/lstm_recurrence.cu"),
+    ("lstm_rec_bwd", "music_generator_tpu/ops/pallas_lstm.py:139",
+     "music_generator_tpu_torch/csrc/lstm_recurrence.cu"),
+]
+# The per-axis routes of phases 3e, 3f and 4: config overrides, and the
+# launches of each kernel in one training step.
+ROUTES = {
+    "axis_fused": (dict(fused_biax_v3=False),
+                   {"lstm2_fwd": 2, "lstm2_bwd": 2}),
+    "per_layer": (dict(fused_biax_v3=False, fused_axis_kernel=False),
+                  {"lstm_rec_fwd": 4, "lstm_rec_bwd": 4}),
+    "depth_3_3": (dict(time_axis_layers=3, note_axis_layers=3),
+                  {"lstm_rec_fwd": 6, "lstm_rec_bwd": 6}),
+}
 CHECK_T = 32        # timesteps of the kernel checks (the plain loop's sake)
 # Kernel against plain version: float32 forward within F32_ATOL and every
 # gradient within F32_GRAD_REL of the plain one (||a - b|| / ||b||, worst
@@ -306,24 +340,140 @@ def check_biax_kernels(cfg):
     return errs
 
 
-def reset_biax_counts():
-    from music_generator_tpu_torch.ops import biax
-    for fn in (biax.biax_time_stack, biax.biax_note_stack):
+def axis_shapes(cfg, T: int):
+    """(axis, S, R, F, H) of the time and note axes' scans at cfg's widths
+    with T timesteps: the time axis scans T over rows (b, n), the note axis
+    the notes over rows (b, t)."""
+    from music_generator_tpu_torch.models.deepj import feature_dim
+    B, N = cfg.batch_size, cfg.num_notes
+    return [("time", T, N * B, feature_dim(cfg), cfg.time_axis_units),
+            ("note", N, T * B, cfg.time_axis_units + cfg.note_units,
+             cfg.note_axis_units)]
+
+
+def lstm_inputs(kind: str, S: int, R: int, F: int, H: int, seed: int):
+    """Random float32 inputs on the card: for "lstm2" x0, s1m, w0, b0, b1,
+    u0, w1, u1 and four initial states; for "lstm_rec" xw, u, h0, c0.  Features
+    of unit scale, weights of 1/sqrt(fan-in) scale, initial states of 0.3."""
+    gen = torch.Generator().manual_seed(seed)
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen) * sc
+    wh = H ** -0.5
+    states = [n(R, H, sc=0.3) for _ in range(4 if kind == "lstm2" else 2)]
+    if kind == "lstm2":
+        xs = [n(S, R, F), n(S, R, H, sc=0.3), n(F, 4 * H, sc=F ** -0.5),
+              n(4 * H, sc=0.1), n(4 * H, sc=0.1), n(H, 4 * H, sc=wh),
+              n(H, 4 * H, sc=wh), n(H, 4 * H, sc=wh)]
+    else:
+        xs = [n(S, R, 4 * H), n(H, 4 * H, sc=wh)]
+    return [x.cuda() for x in xs + states]
+
+
+def outputs_and_grads(fn, args, cots, **kw):
+    """The outputs of one kernel wrapper (flattened: the sequence, then the
+    terminal states) and the gradients of sum <output, cot> with respect
+    to every input, as float32, synchronised."""
+    ts = [a.clone().requires_grad_(True) for a in args]
+    seq, fin = fn(*ts, **kw)
+    outs = [seq, *fin]
+    loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+    grads = torch.autograd.grad(loss, ts)
+    torch.cuda.synchronize()
+    return ([o.detach().float() for o in outs], [g.float() for g in grads])
+
+
+def check_lstm_kernels(cfg):
+    """The per-axis kernels against their plain versions at the time and
+    note axes' shapes (T cut to CHECK_T) and at small odd widths (T = 6,
+    B = 8, H = 12): outputs and terminal states (max |d| relative to the
+    output's largest magnitude where that exceeds 1: c grows past 1), and
+    every gradient, with nonzero initial states and cotangents on every
+    output (the h0T cotangent of lstm2 is ignored by both versions).
+    Returns the float32 max |error| of each kernel at the main widths."""
+    from music_generator_tpu_torch.ops import lstm2, recurrence
+    errs = {name: 0.0 for name, _, _ in LSTM_KERNELS}
+    small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
+                        time_axis_units=12, note_axis_units=12)
+    cases = 0
+    for c, T, label in ((cfg, CHECK_T, "main widths"),
+                        (small, 6, "small widths")):
+        for axis, S, R, F, H in axis_shapes(c, T):
+            for kind, fn, plain in (
+                    ("lstm2", lstm2.lstm2_stack, lstm2.lstm2_stack_reference),
+                    ("lstm_rec", recurrence.lstm_recurrence,
+                     recurrence.lstm_recurrence_reference)):
+                args = lstm_inputs(kind, S, R, F, H, 20 + cases)
+                n_fin = 4 if kind == "lstm2" else 2
+                gen = torch.Generator("cuda").manual_seed(cases)
+                cots = [torch.randn(S, R, H, device="cuda", generator=gen)] + [
+                    torch.randn(R, H, device="cuda", generator=gen)
+                    for _ in range(n_fin)]
+                for cdt in (torch.float32, torch.bfloat16):
+                    for p in ((0.0, 0.5) if kind == "lstm2" else (0.0,)):
+                        for act in ("sigmoid", "hard_sigmoid"):
+                            kw = dict(compute_dtype=cdt,
+                                      recurrent_activation=act)
+                            if kind == "lstm2":
+                                kw.update(dropout_p=p, seed=4321)
+                            o1, g1 = outputs_and_grads(fn, args, cots, **kw)
+                            o2, g2 = outputs_and_grads(plain, args, cots,
+                                                       **kw)
+                            cases += 1
+                            fe = max(float((a - b).abs().max())
+                                     / max(1.0, float(b.abs().max()))
+                                     for a, b in zip(o1, o2))
+                            ge, rel, cos = leaf_stats(g1, g2)
+                            finite = all(bool(torch.isfinite(t).all())
+                                         for t in o1 + g1)
+                            dt = "f32" if cdt == torch.float32 else "bf16"
+                            name = f"{kind} {axis} {label} {dt} p={p} {act}"
+                            log(f"{name}: outputs max|d|={fe:.3g}; gradients "
+                                f"max|d|={ge:.3g}, worst rel={rel:.3g}, "
+                                f"worst cos={cos:.6f}")
+                            if cdt == torch.float32:
+                                if c is cfg:
+                                    errs[f"{kind}_fwd"] = max(
+                                        errs[f"{kind}_fwd"], max(
+                                            float((a - b).abs().max())
+                                            for a, b in zip(o1, o2)))
+                                    errs[f"{kind}_bwd"] = max(
+                                        errs[f"{kind}_bwd"], ge)
+                                ok = fe <= F32_ATOL and rel <= F32_GRAD_REL
+                            else:
+                                ok = (fe <= BF16_ATOL and rel <= BF16_GRAD_REL
+                                      and cos >= BF16_COS)
+                            if not ok or not finite:
+                                fail(f"{name} disagrees with its plain "
+                                     f"version")
+    log(f"lstm2, lstm_rec: {cases} cases agree with the plain versions "
+        f"(the tolerances of the biaxial checks)")
+    return errs
+
+
+def _training_wrappers():
+    """(name prefix, wrapper, plain version) of every training kernel."""
+    from music_generator_tpu_torch.ops import biax, lstm2, recurrence
+    return [("biax_time", biax.biax_time_stack,
+             biax.biax_time_stack_reference),
+            ("biax_note", biax.biax_note_stack,
+             biax.biax_note_stack_reference),
+            ("lstm2", lstm2.lstm2_stack, lstm2.lstm2_stack_reference),
+            ("lstm_rec", recurrence.lstm_recurrence,
+             recurrence.lstm_recurrence_reference)]
+
+
+def reset_counts():
+    for _, fn, plain in _training_wrappers():
         fn.fwd_launches = fn.bwd_launches = 0
-    biax.biax_time_stack_reference.calls = 0
-    biax.biax_note_stack_reference.calls = 0
+        plain.calls = 0
 
 
-def read_biax_counts():
-    from music_generator_tpu_torch.ops import biax
-    launches = {
-        "biax_time_fwd": biax.biax_time_stack.fwd_launches,
-        "biax_time_bwd": biax.biax_time_stack.bwd_launches,
-        "biax_note_fwd": biax.biax_note_stack.fwd_launches,
-        "biax_note_bwd": biax.biax_note_stack.bwd_launches,
-    }
-    plain = (biax.biax_time_stack_reference.calls
-             + biax.biax_note_stack_reference.calls)
+def read_counts():
+    """({kernel name: launches} of every training kernel, plain calls)."""
+    launches, plain = {}, 0
+    for name, fn, ref in _training_wrappers():
+        launches[f"{name}_fwd"] = fn.fwd_launches
+        launches[f"{name}_bwd"] = fn.bwd_launches
+        plain += ref.calls
     return launches, plain
 
 
@@ -342,9 +492,9 @@ def train_main_path(cfg):
     os.chdir(TRAIN_WORK)
     try:
         t = time.perf_counter()
-        reset_biax_counts()
+        reset_counts()
         hist = train_main(["--epochs", "2"])
-        launches, plain = read_biax_counts()
+        launches, plain = read_counts()
         train_s = time.perf_counter() - t
         paths = generate_main(["--bars", "2"])
         model, loaded = build_or_load(cfg, "cuda")
@@ -356,9 +506,10 @@ def train_main_path(cfg):
         f"{plain}")
     if not np.isfinite(hist["loss"]).all():
         fail("non-finite training loss")
-    if any(v != steps for v in launches.values()) or plain != 0:
+    if (any(v != (steps if k.startswith("biax") else 0)
+            for k, v in launches.items()) or plain != 0):
         fail("the training main path did not run every step through each "
-             "kernel")
+             "biaxial kernel, and only through them")
     if not loaded or not os.path.isfile(os.path.join(TRAIN_WORK, "out",
                                                      "model.pt")):
         fail("the training checkpoint was not written and reloaded")
@@ -373,18 +524,84 @@ def train_main_path(cfg):
     return launches
 
 
+def train_routes(cfg):
+    """Phase 3e: Trainer.fit, the trainer train_main runs, for 1 epoch of
+    the 3c corpus on each per-axis route at cfg's widths; every count is
+    set to 0 just before each fit and read just after.  Checks the exact
+    launches of each step, no plain call and no other kernel, finite
+    losses, evaluate() (the primal-only forwards) and the checkpoint.
+    Returns the launch counts of each route's fit."""
+    from music_generator_tpu_torch.data.dataset import load_all
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.training.checkpoint import build_or_load
+    from music_generator_tpu_torch.training.trainer import (TrainConfig,
+                                                            Trainer)
+    styles = [[os.path.join(TRAIN_WORK, d) for d in g] for g in cfg.styles]
+    ds = load_all(styles, cfg.seq_len, cfg)
+    counts = {}
+    for route, (overrides, per_step) in ROUTES.items():
+        rc = cfg.replace(out_dir=os.path.join(TRAIN_WORK, f"out_{route}"),
+                         **overrides)
+        trainer = Trainer(build_model(rc, "cuda"),
+                          TrainConfig(seed=0, tensorboard=False))
+        t = time.perf_counter()
+        reset_counts()
+        hist = trainer.fit(ds, epochs=1)
+        launches, plain = read_counts()
+        fit_s = time.perf_counter() - t
+        steps = hist["steps_per_epoch"][0]
+        log(f"route {route}: Trainer.fit {steps} steps, loss {hist['loss']}, "
+            f"{fit_s:.1f} s; kernel launches {launches}, plain version "
+            f"calls {plain}")
+        want = {k: per_step.get(k, 0) * steps for k in launches}
+        if launches != want or plain != 0:
+            fail(f"route {route}: launches {launches}, expected {want} and "
+                 f"no plain call")
+        if not np.isfinite(hist["loss"]).all():
+            fail(f"route {route}: non-finite training loss")
+        reset_counts()
+        metrics = trainer.evaluate(ds)
+        ev, _ = read_counts()
+        fwd_only = all(v == 0 for k, v in ev.items() if k.endswith("bwd"))
+        if not np.isfinite(metrics["loss"]) or not fwd_only:
+            fail(f"route {route}: evaluate() failed: {metrics}, {ev}")
+        model, loaded = build_or_load(rc, "cuda")
+        same = all(torch.equal(v, trainer.model.state_dict()[k])
+                   for k, v in model.state_dict().items())
+        if not loaded or not same:
+            fail(f"route {route}: the checkpoint did not reload")
+        log(f"route {route}: evaluate() loss {metrics['loss']:.6f} "
+            f"(forward launches {ev}), checkpoint reloaded")
+        counts[route] = launches
+    return counts
+
+
+def _plain_lstm2(x0, s1m, w0, b0, b1, u0, w1, u1, **kw):
+    """lstm2_stack's plain version from zero initial states, as DeepJ
+    calls the stack."""
+    from music_generator_tpu_torch.ops import lstm2
+    z = torch.zeros(x0.shape[1], u0.shape[0], device=x0.device)
+    return lstm2.lstm2_stack_reference(x0, s1m, w0, b0, b1, u0, w1, u1, z, z,
+                                       z, z, **kw)
+
+
 @contextlib.contextmanager
 def plain_stacks():
-    """Run DeepJ.forward through the plain stacks, even on the card."""
+    """Run DeepJ.forward through the plain versions of every training
+    kernel, even on the card."""
     from music_generator_tpu_torch.models import deepj
-    from music_generator_tpu_torch.ops import biax
-    saved = deepj.biax_time_stack, deepj.biax_note_stack
+    from music_generator_tpu_torch.ops import biax, recurrence
+    saved = (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
+             recurrence.lstm_recurrence)
     deepj.biax_time_stack = biax.biax_time_stack_reference
     deepj.biax_note_stack = biax.biax_note_stack_reference
+    deepj.lstm2_stack = _plain_lstm2
+    recurrence.lstm_recurrence = recurrence.lstm_recurrence_reference
     try:
         yield
     finally:
-        deepj.biax_time_stack, deepj.biax_note_stack = saved
+        (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
+         recurrence.lstm_recurrence) = saved
 
 
 def one_step(cfg, state, batch, plain: bool):
@@ -415,7 +632,8 @@ def step_readings(cfg, state, batch, act):
     """The float32 and bfloat16 steps of one gate flavor, kernels and plain
     stacks: (float32 loss rel diff, gradient worst rel, parameter max|d|,
     bfloat16 loss rel diff to the float32 plain path, worst-leaf cosine,
-    post-update loss gap), logged."""
+    post-update loss gap, and the bfloat16 plain path's own loss rel diff
+    and worst-leaf cosine against the float32 plain path), logged."""
     base = cfg.replace(dropout=0.0, input_dropout=0.0,
                        lstm_recurrent_activation=act)
     c32 = base.replace(compute_dtype="float32")
@@ -434,6 +652,9 @@ def step_readings(cfg, state, batch, act):
     _, _, b_cos = leaf_stats([k16[1][n] for n in names],
                              [p32[1][n] for n in names])
     gap = abs(k16[3] - p16[3])
+    pb_loss = abs(p16[0] - p32[0]) / abs(p32[0])
+    _, _, pb_cos = leaf_stats([p16[1][n] for n in names],
+                              [p32[1][n] for n in names])
     tpu = TPU_R5[act]
     log(f"  {act} float32, kernels vs plain: loss {k32[0]:.7f} vs "
         f"{p32[0]:.7f} (rel {d_loss:.3g}), gradients worst rel {g_rel:.3g}, "
@@ -443,7 +664,9 @@ def step_readings(cfg, state, batch, act):
         f"{b_cos:.6f} (TPU r5 {tpu[1]:.5f}); post-update loss {k16[3]:.6f} "
         f"vs bfloat16 plain {p16[3]:.6f}, gap {gap:.3g} (TPU r5 "
         f"{tpu[2]:.3g})")
-    return d_loss, g_rel, p_err, b_loss, b_cos, gap
+    log(f"  {act} bfloat16 plain vs float32 plain: loss rel diff "
+        f"{pb_loss:.4g}, worst-leaf gradient cosine {pb_cos:.6f}")
+    return d_loss, g_rel, p_err, b_loss, b_cos, gap, pb_loss, pb_cos
 
 
 def parity_step(cfg, r4, batch):
@@ -453,7 +676,7 @@ def parity_step(cfg, r4, batch):
     fresh = build_model(cfg, "cpu", seed=0).state_dict()
     log(f"step on fresh weights (seed 0), bar {PARITY_BAR}:")
     for act in ("sigmoid", "hard_sigmoid"):
-        d_loss, g_rel, p_err, b_loss, b_cos, gap = step_readings(
+        d_loss, g_rel, p_err, b_loss, b_cos, gap, _, _ = step_readings(
             cfg, fresh, batch, act)
         if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
             fail(f"float32 step with {act} gates: kernels and plain "
@@ -463,6 +686,39 @@ def parity_step(cfg, r4, batch):
             fail(f"bfloat16 step with {act} gates misses the bar")
     log("step on the trained r4 weights (read, no bar):")
     step_readings(cfg, r4, batch, "sigmoid")
+
+
+def route_parity_step(cfg, batch):
+    """Phase 3f: the dropout-0 step of 3d on each per-axis route, on fresh
+    weights.  Float32 kernels against the float32 plain path as in 3d;
+    bfloat16 kernels against the float32 plain path held to PARITY_BAR,
+    unless the bfloat16 plain path misses the bar too: then both readings
+    are printed and the kernels are held to the bfloat16 plain step
+    (post-update loss gap <= PARITY_BAR[2])."""
+    from music_generator_tpu_torch.models.deepj import build_model
+    for route in ("axis_fused", "per_layer"):
+        rc = cfg.replace(**ROUTES[route][0])
+        fresh = build_model(rc, "cpu", seed=0).state_dict()
+        log(f"route {route}: step on fresh weights (seed 0), bar "
+            f"{PARITY_BAR}:")
+        for act in ("sigmoid", "hard_sigmoid"):
+            (d_loss, g_rel, p_err, b_loss, b_cos, gap, pb_loss,
+             pb_cos) = step_readings(rc, fresh, batch, act)
+            if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
+                fail(f"route {route}, float32 step with {act} gates: "
+                     f"kernels and plain versions disagree")
+            if (b_loss <= PARITY_BAR[0] and b_cos >= PARITY_BAR[1]
+                    and gap <= PARITY_BAR[2]):
+                continue
+            plain_misses = pb_loss > PARITY_BAR[0] or pb_cos < PARITY_BAR[1]
+            log(f"  route {route} {act}: the bfloat16 kernels miss the bar; "
+                f"the bfloat16 plain path "
+                f"{'misses' if plain_misses else 'meets'} it")
+            if not plain_misses or gap > PARITY_BAR[2]:
+                fail(f"route {route}, bfloat16 step with {act} gates misses "
+                     f"the bar")
+            log(f"  route {route} {act}: held to the bfloat16 plain step "
+                f"instead: post-update gap {gap:.3g} <= {PARITY_BAR[2]}")
 
 
 def biax_bound_ms(name: str, cfg, T: int, bf16: bool):
@@ -536,6 +792,7 @@ def time_biax(cfg, card):
     from music_generator_tpu_torch.models.deepj import feature_dim
     lstm = torch.nn.LSTM(feature_dim(cfg), H, num_layers=2).cuda().to(
         torch.bfloat16)
+    lstm.flatten_parameters()
     x = torch.randn(T, N * B, feature_dim(cfg), device="cuda",
                     dtype=torch.bfloat16, requires_grad=True)
     y, _ = lstm(x)
@@ -549,6 +806,130 @@ def time_biax(cfg, card):
         f"ms, backward {bwd:.4f} ms ({card})")
     return {f"biax_{k}_{d}": (times[(k, "kernel")][i], times[(k, "plain")][i])
             for k in ("time", "note") for i, d in enumerate(("fwd", "bwd"))}
+
+
+def lstm_bound_ms(name: str, S: int, R: int, F: int, H: int):
+    """Least time of one bfloat16 launch at these shapes: every input read
+    once and every output (and tape) written once at HBM rate, or the
+    Pallas kernels' CostEstimate operations at the bfloat16 peak.  Returns
+    (ms, "bytes" or "operations")."""
+    it, H4 = 2, 4 * H
+    seq = S * R * H * it                  # one [S, R, H] tape
+    st = R * H * 4                        # one float32 state
+    if name.startswith("lstm2"):
+        ws = (F + 3 * H) * H4 * it + 2 * H4 * it
+        ins = S * R * F * it + seq        # x0, s1m
+        if name.endswith("fwd"):
+            flops = 2 * S * R * (F + 3 * H) * H4 + 20 * S * R * H4
+            nbytes = ins + ws + 4 * st + 4 * seq + 4 * st
+        else:
+            flops = 6 * S * R * (F + 3 * H) * H4 + 40 * S * R * H4
+            grads = ((F + 3 * H) * H4 + 2 * H4) * 4
+            nbytes = 2 * ins + ws + 5 * seq + 2 * st + grads + 4 * st
+    else:
+        xw = S * R * H4 * it
+        if name.endswith("fwd"):
+            flops = 2 * S * R * H * H4 + 10 * S * R * H4
+            nbytes = xw + H * H4 * it + 2 * st + 2 * seq + 2 * st
+        else:
+            flops = 6 * S * R * H * H4 + 30 * S * R * H4
+            nbytes = (xw + H * H4 * it + 2 * seq + 2 * seq + st + xw
+                      + H * H4 * 4 + 2 * st)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_lstm(cfg, card):
+    """ms per launch of each per-axis kernel and of its plain version at
+    the flagship's time- and note-axis shapes (T = seq_len, bfloat16,
+    sigmoid gates, lstm2 at the configured dropout), with each bound;
+    cuDNN's one-layer nn.LSTM against the port's whole lstm_scan
+    (projection + recurrence) at each axis's first-layer shapes, the
+    recurrence's library time; cuDNN's two-layer LSTM beside lstm2 for
+    orientation only (it lacks s1m and the masks).  Returns {(kernel,
+    axis): (ms, plain ms, library ms or None)}."""
+    from music_generator_tpu_torch.ops import lstm2, recurrence
+    from music_generator_tpu_torch.ops.lstm import lstm_scan
+    out = {}
+    bf = torch.bfloat16
+    for axis, S, R, F, H in axis_shapes(cfg, cfg.seq_len):
+        for kind, fn, plain, kw in (
+                ("lstm2", lstm2.lstm2_stack, lstm2.lstm2_stack_reference,
+                 dict(dropout_p=cfg.dropout, seed=99)),
+                ("lstm_rec", recurrence.lstm_recurrence,
+                 recurrence.lstm_recurrence_reference, {})):
+            kw = dict(kw, compute_dtype=bf, recurrent_activation="sigmoid")
+            args = [a.requires_grad_(True)
+                    for a in lstm_inputs(kind, S, R, F, H, 7)]
+            times = {}
+            for label, f, reps in (("kernel", fn, 10), ("plain", plain, 2)):
+                seq, fin = f(*args, **kw)
+                outs = [o for o in (seq, *fin) if o.requires_grad]
+                cots = [torch.ones_like(o) for o in outs]
+                fwd = cuda_ms(lambda: f(*args, **kw), reps)
+                bwd = cuda_ms(lambda: torch.autograd.grad(
+                    outs, args, cots, retain_graph=True), reps)
+                times[label] = (fwd, bwd)
+                del seq, fin, outs
+            lib = (None, None)
+            if kind == "lstm_rec":
+                x = torch.randn(S, R, F, device="cuda", dtype=bf,
+                                requires_grad=True)
+                cudnn = torch.nn.LSTM(F, H, device="cuda", dtype=bf)
+                cudnn.flatten_parameters()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    y, _ = cudnn(x)
+                    lib = (cuda_ms(lambda: cudnn(x), 10), cuda_ms(
+                        lambda: torch.autograd.grad(
+                            y, [x, *cudnn.parameters()], torch.ones_like(y),
+                            retain_graph=True), 10))
+                if any("compacted" in str(w.message) for w in caught):
+                    log("cuDNN compacted its weights at every call: its "
+                        "times include that copy")
+                params = torch.nn.Module()
+                for pname, shape in (("kernel", (F, 4 * H)),
+                                     ("recurrent", (H, 4 * H)),
+                                     ("bias", (4 * H,))):
+                    setattr(params, pname, torch.nn.Parameter(
+                        torch.randn(*shape, device="cuda") * 0.05))
+                hs, _ = lstm_scan(params, x, compute_dtype=bf)
+                scan = (cuda_ms(lambda: lstm_scan(params, x,
+                                                  compute_dtype=bf), 10),
+                        cuda_ms(lambda: torch.autograd.grad(
+                            hs, [x, *params.parameters()],
+                            torch.ones_like(hs), retain_graph=True), 10))
+                log(f"lstm_scan {axis} axis (S={S}, R={R}, {F}->{H}, "
+                    f"bfloat16): port forward {scan[0]:.4f} ms, backward "
+                    f"{scan[1]:.4f} ms; cuDNN nn.LSTM forward {lib[0]:.4f} "
+                    f"ms, backward {lib[1]:.4f} ms ({card})")
+                del y, hs
+            else:
+                x = torch.randn(S, R, F, device="cuda", dtype=bf,
+                                requires_grad=True)
+                cudnn = torch.nn.LSTM(F, H, num_layers=2).cuda().to(bf)
+                cudnn.flatten_parameters()
+                y, _ = cudnn(x)
+                o_f = cuda_ms(lambda: cudnn(x), 10)
+                o_b = cuda_ms(lambda: torch.autograd.grad(
+                    y, [x, *cudnn.parameters()], torch.ones_like(y),
+                    retain_graph=True), 10)
+                log(f"for orientation only: cuDNN nn.LSTM(num_layers=2) at "
+                    f"the {axis} axis's shapes (S={S}, R={R}, {F}->{H}, "
+                    f"bfloat16; no s1m, masks or hard gates): forward "
+                    f"{o_f:.4f} ms, backward {o_b:.4f} ms ({card})")
+                del y
+            for i, d in enumerate(("fwd", "bwd")):
+                bound, by = lstm_bound_ms(f"{kind}_{d}", S, R, F, H)
+                out[(f"{kind}_{d}", axis)] = (times["kernel"][i],
+                                              times["plain"][i], lib[i])
+                log(f"{kind}_{d} {axis} axis: kernel "
+                    f"{times['kernel'][i]:.4f} ms/launch, plain version "
+                    f"{times['plain'][i]:.4f} ms, bound {bound:.6f} ms by "
+                    f"{by} (S={S}, R={R}, F={F}, H={H}, bfloat16; {card})")
+    return out
 
 
 def time_train_step(cfg, state, batch, card):
@@ -616,9 +997,9 @@ def main() -> None:
 
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
-    libs = _build.build(["notegen", "biax_time", "biax_note"])
-    log(f"build: notegen, biax_time, biax_note in "
-        f"{time.perf_counter() - t:.1f} s")
+    names = ["notegen", "biax_time", "biax_note", "lstm_recurrence", "lstm2"]
+    libs = _build.build(names)
+    log(f"build: {', '.join(names)} in {time.perf_counter() - t:.1f} s")
     for lib in libs:
         log(open(str(lib) + ".log").read().strip())
 
@@ -654,6 +1035,7 @@ def main() -> None:
     log(f"notegen: {case} cases agree with the plain version "
         f"(|u-p| edge {EDGE}, volume atol {VOLUME_ATOL})")
     biax_errs = check_biax_kernels(cfg)
+    lstm_errs = check_lstm_kernels(cfg)
 
     # -- 3. main path --------------------------------------------------------
     os.makedirs(WORK, exist_ok=True)
@@ -699,15 +1081,25 @@ def main() -> None:
     # -- 3c. training main path ----------------------------------------------
     train_launches = train_main_path(cfg)
 
+    # -- 3e. the per-axis training routes ------------------------------------
+    route_launches = train_routes(cfg)
+
     # -- 3d. one dropout-0 training step, kernels against plain stacks -------
     r4 = load_params_npz(PARAMS)
     batch = tuple(torch.from_numpy(a).cuda()
                   for a in random_batch(cfg, seed=0, rolled_targets=True))
     parity_step(cfg, r4, batch)
 
+    # -- 3f. the dropout-0 step on the per-axis routes -----------------------
+    route_parity_step(cfg, batch)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
+    for route in ("axis_fused", "per_layer"):
+        log(f"route {route}:")
+        time_train_step(cfg.replace(**ROUTES[route][0]), r4, batch, card)
     biax_times = time_biax(cfg, card)
+    lstm_times = time_lstm(cfg, card)
     sampler = Sampler(model)
     for G in (3, 64):
         styles = [compute_genre(i % 3, cfg) for i in range(G)]
@@ -779,6 +1171,19 @@ def main() -> None:
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": biax_errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        })
+    # The per-axis kernels' times at the time axis's shapes; the note
+    # axis's are logged above.
+    _, S, R, F, H = axis_shapes(cfg, cfg.seq_len)[0]
+    for name, replaces, source in LSTM_KERNELS:
+        route = "axis_fused" if name.startswith("lstm2") else "per_layer"
+        ms, plain, lib = lstm_times[(name, "time")]
+        bound, bound_by = lstm_bound_ms(name, S, R, F, H)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": route_launches[route][name],
+            "max_abs_err": lstm_errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -16,14 +16,17 @@ What the port reads differently:
   * Generation always runs in float32 with TF32 off for both matmuls and
     cuDNN convolutions (device.full_f32), the counterpart of the JAX
     package's `gen_dtype="float32"` / `gen_matmul_precision="highest"`.
-  * Training runs in `compute_dtype` and always through the biaxial stack
-    kernels (ops/biax.py, csrc/biax_*.cu) on CUDA, their plain versions on
-    the CPU.  `lstm_kernel`, `fused_biax_v3` and `fused_axis_kernel` pick
-    TPU kernels in the JAX package; the port does not read them (so
-    `test_config()`'s `lstm_kernel="xla"` trains the same way).  Only the
-    DeepJ shape, two equal-width LSTM layers per axis, trains; other
-    depths raise NotImplementedError.  `fast_dropout_rng` is not read
-    either: dropout draws come from a torch.Generator.
+  * Training runs in `compute_dtype` through hand-written kernels on
+    CUDA and their plain versions on the CPU, routed as the JAX package
+    routes with lstm_kernel="pallas": `fused_biax_v3` with two equal-width
+    LSTM layers on each axis runs both axes as the biaxial stacks
+    (ops/biax.py); otherwise an axis of two equal-width layers with
+    `fused_axis_kernel` runs the fused two-layer stack (ops/lstm2.py), and
+    any other axis one recurrence per layer (ops/lstm.py `lstm_scan`), so
+    every depth trains.  `lstm_kernel` is not read (so `test_config()`'s
+    `lstm_kernel="xla"` trains the same way as "pallas").
+    `fast_dropout_rng` is not read either: dropout draws come from a
+    torch.Generator.
 """
 
 from __future__ import annotations

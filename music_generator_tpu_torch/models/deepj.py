@@ -13,12 +13,15 @@ documented intent of ref: model.py:43-49, whose raw reshape scrambles
 batch, time and pitch.
 
 Generation runs `style_embedding`, `octave_conv`, `note_features`,
-`init_time_state`/`time_axis_step`, `init_note_state`/`note_axis_cell` and
-`heads` in float32.  Training runs `forward` (the JAX package's
-`_forward_biax_v3`: both axes as the fused biaxial stacks of ops/biax.py)
-in the config's compute dtype, and `loss` / `primary_loss`.  Dropout draws
-come from an explicit `torch.Generator`; without one (or with
-train=False) there is no dropout, like Keras `predict`.
+`init_time_state`/`time_axis_step` and `init_note_state`/`note_axis_cell`
+(with ops/notegen.py's heads) in float32.  Training runs `forward` in the
+config's compute dtype, and `loss` / `primary_loss`.  `forward` routes as
+the JAX package's does with lstm_kernel="pallas": both axes as the biaxial
+stacks of ops/biax.py (`_forward_biax_v3`), or per axis the fused
+two-layer stack of ops/lstm2.py, or one ops/lstm.py `lstm_scan` per layer
+(any depth).  Dropout draws come from an explicit `torch.Generator`;
+without one (or with train=False) there is no dropout, like Keras
+`predict`.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from music_generator_tpu_torch.ops import notegen
 from music_generator_tpu_torch.ops.biax import (biax_note_stack,
                                                 biax_time_stack)
 from music_generator_tpu_torch.ops.lstm import (check_recurrent_activation,
-                                                lstm_step)
+                                                lstm_scan, lstm_step)
+from music_generator_tpu_torch.ops.lstm2 import lstm2_stack
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -265,25 +269,143 @@ class DeepJ(nn.Module):
                                  self.cfg.lstm_recurrent_activation)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
-        """sigmoid(play, replay) ++ linear volume (ref: model.py:94-95,125)."""
-        return notegen.heads(x, self.note_dense, self.volume_dense)
+        """sigmoid(play, replay) ++ linear volume in the compute dtype,
+        returned as float32 (ref: model.py:94-95,125; deepj.py:436-442).
+        Generation runs its own float32 heads (ops/notegen.py)."""
+        dt = self._dt()
+        notes_out = torch.sigmoid(dense_apply(self.note_dense, x, dt))
+        volume_out = dense_apply(self.volume_dense, x, dt)
+        return torch.cat([notes_out, volume_out], dim=-1).float()
 
     # -- training forward (ref: model.py:128-152) -------------------------
 
     def _dt(self) -> torch.dtype:
         return _DTYPES[self.cfg.compute_dtype]
 
+    @staticmethod
+    def _two_equal(layers) -> bool:
+        return (len(layers) == 2 and layers[0].lstm.recurrent.shape
+                == layers[1].lstm.recurrent.shape)
+
+    def _use_biax_v3(self) -> bool:
+        """The biaxial stacks run both axes when `fused_biax_v3` is set and
+        each axis has two equal-width layers (deepj.py:446-457)."""
+        return (self.cfg.fused_biax_v3 and self._two_equal(self.time_axis)
+                and self._two_equal(self.note_axis))
+
+    def _use_fused(self, layers) -> bool:
+        """The fused two-layer stack runs an axis when `fused_axis_kernel`
+        is set and the axis has two equal-width layers (deepj.py:284-293);
+        otherwise each layer is one lstm_scan."""
+        return self.cfg.fused_axis_kernel and self._two_equal(layers)
+
     def _check_biax_shape(self) -> None:
         """The fused biaxial stacks take two equal-width LSTM layers per
-        axis (the DeepJ shape, deepj.py:446-457); other depths are not
-        ported yet."""
+        axis (the DeepJ shape, deepj.py:446-457)."""
         for name, layers in (("time", self.time_axis),
                              ("note", self.note_axis)):
-            if (len(layers) != 2 or layers[0].lstm.recurrent.shape
-                    != layers[1].lstm.recurrent.shape):
+            if not self._two_equal(layers):
                 raise NotImplementedError(
-                    f"the training forward takes two equal-width LSTM "
-                    f"layers on the {name} axis; got {len(layers)}")
+                    f"the biaxial stacks take two equal-width LSTM layers "
+                    f"on the {name} axis; got {len(layers)}")
+
+    def _stack_dropout(self, generator: Optional[torch.Generator],
+                       train: bool) -> float:
+        """The stacks' in-kernel dropout rate: train=True without a
+        generator means no dropout, not a frozen seed-0 mask
+        (deepj.py:307-314, 504-511)."""
+        return self.cfg.dropout if (train and generator is not None) else 0.0
+
+    def _stack_seeds(self, generator: Optional[torch.Generator],
+                     train: bool, n: int) -> list:
+        """`n` stack mask seeds drawn from `generator` in one call (one
+        read on the host) when the stacks' dropout is on, else zeros."""
+        if self._stack_dropout(generator, train) <= 0.0:
+            return [0] * n
+        return torch.randint(0, 2**31 - 1, (n,), generator=generator,
+                             device=generator.device).tolist()
+
+    def _fused_stack(self, layers, x_flat: torch.Tensor,
+                     proj1_flat: torch.Tensor,
+                     generator: Optional[torch.Generator], train: bool,
+                     seed: Optional[int]) -> torch.Tensor:
+        """Two layers as one lstm2_stack (deepj.py:295-322): x_flat
+        [S, R, F] the layer-0 input with its style term added, proj1_flat
+        [S, R, H] the masked layer-1 style term; returns hs1 [S, R, H].
+        The mask seed is drawn here when `seed` is None."""
+        l0, l1 = layers
+        if seed is None:
+            (seed,) = self._stack_seeds(generator, train, 1)
+        hs1, _ = lstm2_stack(
+            x_flat, proj1_flat, l0.lstm.kernel, l0.lstm.bias, l1.lstm.bias,
+            l0.lstm.recurrent, l1.lstm.kernel, l1.lstm.recurrent,
+            dropout_p=self._stack_dropout(generator, train), seed=seed,
+            compute_dtype=self._dt(),
+            recurrent_activation=self.cfg.lstm_recurrent_activation)
+        return hs1
+
+    def _axis(self, layers, x: torch.Tensor, emb: torch.Tensor, dim: int,
+              generator: Optional[torch.Generator], train: bool,
+              seed: Optional[int]) -> torch.Tensor:
+        """One axis in its scan-major layout (deepj.py:335-375, 402-432):
+        x [S, a, b, F] -> [S, a, b, H], scanning S over the rows (a, b).
+        Each layer adds its style term (ref: model.py:77-82, 110-117):
+        tanh of the style projection of `emb`, broadcast along the new
+        dimension `dim` to the layer's input, then dropout.  A fused axis
+        runs one lstm2_stack (mask seed `seed`, drawn when None); otherwise
+        each layer is one lstm_scan.  Every layer's output goes through
+        dropout (on a fused axis, the last)."""
+        cfg = self.cfg
+        S, A, B, _ = x.shape
+
+        def style(layer, shape):
+            proj = torch.tanh(dense_apply(layer.style_proj, emb, self._dt()))
+            return dropout(proj.unsqueeze(dim).expand(shape), cfg.dropout,
+                           generator, train)
+
+        if self._use_fused(layers):
+            H = layers[1].lstm.recurrent.shape[0]
+            x = x + style(layers[0], x.shape)
+            proj1 = style(layers[1], (S, A, B, H))
+            hs = self._fused_stack(layers, x.reshape(S, A * B, -1),
+                                   proj1.reshape(S, A * B, H), generator,
+                                   train, seed)
+            return dropout(hs.reshape(S, A, B, -1), cfg.dropout, generator,
+                           train)
+        for layer in layers:
+            x = x + style(layer, x.shape)
+            hs, _ = lstm_scan(layer.lstm, x.reshape(S, A * B, -1),
+                              compute_dtype=self._dt(),
+                              recurrent_activation=(
+                                  cfg.lstm_recurrent_activation))
+            x = dropout(hs.reshape(S, A, B, -1), cfg.dropout, generator,
+                        train)
+        return x
+
+    def time_axis_tm(self, x: torch.Tensor, style_emb_tm: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False,
+                     stack_seed: Optional[int] = None) -> torch.Tensor:
+        """Time-major core (deepj.py:324-375): x [T, B, N, F],
+        style_emb_tm [T, B, style_units] -> [T, B, N, time_units]; the
+        scans' rows are (b, n)."""
+        return self._axis(self.time_axis, x, style_emb_tm, 2, generator,
+                          train, stack_seed)
+
+    def note_axis_nm(self, time_out_nm: torch.Tensor, chosen: torch.Tensor,
+                     style_emb: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False,
+                     stack_seed: Optional[int] = None) -> torch.Tensor:
+        """Note-major core (deepj.py:386-434): time_out_nm [N, B, T,
+        time_units], chosen [B, T, N, 3] -> [N, B, T, 3] float32; the
+        scans' rows are (b, t); ends in the heads."""
+        # Shift the targets one note down: note n conditions on notes < n.
+        chosen_nm = chosen.permute(2, 0, 1, 3)
+        shift = torch.cat([torch.zeros_like(chosen_nm[:1]), chosen_nm[:-1]])
+        x = torch.cat([time_out_nm, shift.to(time_out_nm.dtype)], dim=-1)
+        return self.heads(self._axis(self.note_axis, x, style_emb, 0,
+                                     generator, train, stack_seed))
 
     def forward(self, notes: torch.Tensor, chosen: torch.Tensor,
                 beat: torch.Tensor, style: torch.Tensor,
@@ -291,12 +413,52 @@ class DeepJ(nn.Module):
                 train: bool = False) -> torch.Tensor:
         """[B, T, N, 3] notes, teacher-forced `chosen` targets, beat
         [B, T, notes_per_bar] and style [B, T, num_styles] -> predictions
-        [B, T, N, 3] float32 (the JAX `_forward_biax_v3`, deepj.py:482-541).
+        [B, T, N, 3] float32 (deepj.py:459-480).
 
-        Input dropouts, the style embedding, the octave conv and the note
-        features run as PyTorch operations in the compute dtype; both axes
-        run as the biaxial stacks, each seeded once from `generator`.
+        The route is chosen as the JAX package chooses it with
+        lstm_kernel="pallas": the biaxial stacks (`_forward_biax_v3`) when
+        `_use_biax_v3`; else, per axis, one lstm2_stack when `_use_fused`,
+        else one lstm_scan per layer.  Input dropouts, the style
+        embedding, the octave conv, the note features, the style terms and
+        the between-layer dropouts run as PyTorch operations in the
+        compute dtype.
+
+        Dropout draws come from `generator` in this fixed order: the input
+        dropouts of notes, beat and chosen; the conv output; the two stack
+        seeds (time, note) in one draw, when the biaxial route runs or an
+        axis is fused; then on the time axis the style term of each layer
+        and each layer's output (a fused axis: the style terms of both
+        layers, then the stack's output), then the same on the note axis.
         train=True without a generator means no dropout."""
+        if self._use_biax_v3():
+            return self._forward_biax_v3(notes, chosen, beat, style,
+                                         generator, train)
+        cfg, dt = self.cfg, self._dt()
+        notes = dropout(notes, cfg.input_dropout, generator, train)
+        beat = dropout(beat, cfg.input_dropout, generator, train)
+        chosen = dropout(chosen, cfg.input_dropout, generator, train)
+        style_emb = dense_apply(self.style_embed, style, dt)    # [B, T, S]
+        conv_out = self.octave_conv(notes, generator, train, dt)
+        feats = self.note_features(notes, beat, conv_out)       # [B, T, N, F]
+        # Both stack seeds in one draw before the axes are queued: a draw
+        # between them would make the host wait for the time axis.
+        fused = self._use_fused(self.time_axis) or self._use_fused(
+            self.note_axis)
+        seed_t, seed_n = (self._stack_seeds(generator, train, 2) if fused
+                          else (0, 0))
+        t_out_tm = self.time_axis_tm(feats.permute(1, 0, 2, 3),
+                                     style_emb.transpose(0, 1), generator,
+                                     train, seed_t)             # [T, B, N, H]
+        out_nm = self.note_axis_nm(t_out_tm.permute(2, 1, 0, 3), chosen,
+                                   style_emb, generator, train, seed_n)
+        return out_nm.permute(1, 2, 0, 3)
+
+    def _forward_biax_v3(self, notes: torch.Tensor, chosen: torch.Tensor,
+                         beat: torch.Tensor, style: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         train: bool = False) -> torch.Tensor:
+        """The JAX `_forward_biax_v3` (deepj.py:482-541): both axes as the
+        biaxial stacks of ops/biax.py, each seeded once from `generator`."""
         self._check_biax_shape()
         cfg = self.cfg
         dt = self._dt()
@@ -309,12 +471,8 @@ class DeepJ(nn.Module):
         conv_out = self.octave_conv(notes, generator, train, dt)
         feats = self.note_features(notes, beat, conv_out)       # [B, T, N, F]
 
-        p = cfg.dropout if (train and generator is not None) else 0.0
-        seed_t = seed_n = 0
-        if p > 0.0:
-            seeds = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                                  device=generator.device).tolist()
-            seed_t, seed_n = seeds
+        p = self._stack_dropout(generator, train)
+        seed_t, seed_n = self._stack_seeds(generator, train, 2)
 
         emb_tb = style_emb.transpose(0, 1)                      # [T, B, S]
         tl0, tl1 = self.time_axis

@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -89,4 +89,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         (path,) = build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def bind(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """load(name) with the argument types of each named C function set;
+    every one returns an int, the CUDA error code (0 = ok)."""
+    lib = load(name)
+    for fn, args in signatures.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = list(args)
+            f.restype = ctypes.c_int
     return lib

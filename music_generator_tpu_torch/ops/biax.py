@@ -295,13 +295,7 @@ WGRAD_CHUNKS = 32           # row chunks of the weight-gradient reduction
 
 
 def _library(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    if lib.biax_wgrad.argtypes is None:
-        for fn, args in list(_SIGNATURES[name].items()) + [
-                ("biax_wgrad", _WGRAD)]:
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    return _build.bind(name, {**_SIGNATURES[name], "biax_wgrad": _WGRAD})
 
 
 def _check(rc: int, what: str) -> None:

@@ -1,11 +1,11 @@
-"""LSTM cell (ref: model.py:84,122 — Keras LSTM), written out rather than
-`nn.LSTM`: the gate order is (i, f, g, o) over a `[in, 4H]` kernel, the
-layout of the JAX package's `ops/lstm.py`, and the recurrent activation is
-either sigmoid or Keras 2's hard_sigmoid (deviation #12)."""
+"""LSTM cell and layer scan (ref: model.py:84,122 — Keras LSTM), written out
+rather than `nn.LSTM`: the gate order is (i, f, g, o) over a `[in, 4H]`
+kernel, the layout of the JAX package's `ops/lstm.py`, and the recurrent
+activation is either sigmoid or Keras 2's hard_sigmoid (deviation #12)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,3 +51,28 @@ def lstm_step(params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     hidden = params.recurrent.shape[0]
     z = x @ params.kernel + h @ params.recurrent + params.bias
     return gates(z.float(), c.float(), hidden, recurrent_activation)
+
+
+def lstm_scan(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              c0: Optional[torch.Tensor] = None,
+              compute_dtype: torch.dtype = torch.float32,
+              recurrent_activation: str = "sigmoid",
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One LSTM layer over a sequence, the JAX package's
+    `lstm_scan(kernel="pallas")` (ops/lstm.py:88-124): xs [S, R, D] ->
+    (hs [S, R, H] in the compute dtype, (h_T, c_T) float32).  The input
+    projection of every step, xs @ kernel + bias in the compute dtype, is
+    one matmul; the recurrence is ops/recurrence.py's kernel."""
+    # Imported here: ops/recurrence.py imports this module.
+    from music_generator_tpu_torch.ops.recurrence import lstm_recurrence
+    S, R, D = xs.shape
+    hidden = params.recurrent.shape[0]
+    dt = compute_dtype
+    if h0 is None:
+        h0 = torch.zeros(R, hidden, device=xs.device)
+    if c0 is None:
+        c0 = torch.zeros(R, hidden, device=xs.device)
+    xw = (xs.reshape(S * R, D).to(dt) @ params.kernel.to(dt)
+          + params.bias.to(dt)).reshape(S, R, 4 * hidden)
+    return lstm_recurrence(xw, params.recurrent, h0, c0, dt,
+                           recurrent_activation)

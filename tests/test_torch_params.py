@@ -73,6 +73,21 @@ def test_jax_init_params_round_trip_exactly():
     assert model.conv.kernel.shape == (24, 3, cfg.octave_units)
 
 
+@pytest.mark.parametrize("layers", [(3, 2), (1, 3)])
+def test_deeper_stacks_round_trip_exactly(layers):
+    """A JAX pytree with other depths per axis (time_axis_layers=3, ...)
+    carries into the port's DeepJ and back, leaf for leaf."""
+    kw = dict(time_axis_layers=layers[0], note_axis_layers=layers[1])
+    flat = _flat(init_params(jax.random.key(6), jax_test_config(**kw)))
+    model = DeepJ(torch_test_config(**kw), "cpu")
+    model.load_state_dict(params_from_numpy(flat))
+    back = params_to_numpy(model.state_dict())
+    assert set(back) == set(flat) and len(model.time_axis) == layers[0]
+    assert f".time_axis[{layers[0] - 1}].lstm.recurrent" in flat
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v)
+
+
 def test_fresh_weights_follow_keras_defaults():
     """Without a checkpoint the port draws Keras-default weights, the
     distributions of the JAX `init_params` (not its bits): glorot-uniform
