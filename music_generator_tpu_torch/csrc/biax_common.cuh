@@ -441,6 +441,34 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
       : "r"(a));
 }
 
+// ldmatrix without transpose: the four 8 x 8 matrices whose rows lanes
+// 0-7, 8-15, 16-23, 24-31 address (a: shared-state-space address).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  ldsm_x4(r, (uint32_t)__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __global__ void __launch_bounds__(128) wgrad_mma_kernel(
     const bf16* __restrict__ A, int lda, int shift,
     const bf16* __restrict__ Bm, int ldb, int rows, int K, int M,

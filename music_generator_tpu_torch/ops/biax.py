@@ -36,6 +36,14 @@ cast them inside, and return float32 weight gradients, as the custom VJPs
 do (pallas_biax.py:536-559, 1053-1081).  Launch counters:
 `biax_time_stack.fwd_launches` / `.bwd_launches`, the same on
 `biax_note_stack`; the plain versions count `.calls`.
+
+The time stack's backward runs in passes (`biax_time_bwd`): only the
+product dh <- dz U^T carries from step to step, so the forward's gates,
+dx1 = dz1 W1^T and dx = dz0 W0^T are bulk products outside the two
+reversed scans.  `biax_time_bwd_staged` is the same computation in plain
+PyTorch.  In bfloat16 the scans keep U resident in a thread-block cluster,
+in float32 they stream it (`time_scan_route`); `biax_time_stack`'s
+`.cluster_scans` and `.streamed_scans` count which ran.
 """
 
 from __future__ import annotations
@@ -269,6 +277,105 @@ def biax_note_stack_reference(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1,
 biax_note_stack_reference.calls = 0
 
 
+def _gate_grad(s: torch.Tensor, hard: bool) -> torch.Tensor:
+    """d gate / dz through the gate's float32 output s (`_gate_grad`)."""
+    if hard:
+        return ((s > 0) & (s < 1)).float() * 0.2
+    return s * (1.0 - s)
+
+
+def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
+                         cs1, dhs1, dropout_p: float = 0.0, seed: int = 0,
+                         compute_dtype=torch.float32,
+                         recurrent_activation: str = "sigmoid"):
+    """The time stack's backward as the CUDA kernels compute it, in plain
+    PyTorch (no autograd): the six passes of `csrc/biax_time.cu` with
+    their cast points and masks.  hs0, cs0, hs1, cs1 [T, N, B, H] are the
+    forward's tapes (h after step t, c before it, in the compute dtype) and
+    dhs1 the cotangent of hs1.
+
+      1. prologue: xtot = x + masked style-0, x1 = masked hs0 + masked
+         style-1 (each operation rounded to the compute dtype);
+      2. bulk pre-activations z = ((in W -> T) + b) + (h[t-1] U -> T),
+         h[-1] = 0;
+      3. the layer-1 scan, reversed: the cell backward gives dz1 (rounded
+         to T), and dh = dz1 U1^T (float32) is the only carried product;
+      4. dx1 = dz1 W1^T in float32: the style-1 rows dx1 * m_style1 and the
+         term dx1 * m_mid that layer 0 adds to its dh at the same step;
+      5. the layer-0 scan, as 3;
+      6. dx = dz0 W0^T (rounded to T) and the style-0 rows dx * m_style0.
+
+    The style gradients sum the rows over the notes of each TPU tile,
+    rounded to T per tile, then over the tiles; the weight gradients are
+    float32 sums of in^T dz.  Returns (dx, ds0, ds1, dw0, db0, db1, du0,
+    dw1, du1): dx in the compute dtype, the rest float32."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    R, dev = N * B, x.device
+    keep = 1.0 - dropout_p
+    k, _ = _row_tiling(N, B)
+    x, s0, s1 = x.to(cdt), s0.to(cdt), s1.to(cdt)
+    W0, U0, W1, U1 = (w.to(cdt) for w in (w0, u0, w1, u1))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    hs0, cs0, hs1, cs1, dhs1 = (t.to(cdt) for t in (hs0, cs0, hs1, cs1,
+                                                    dhs1))
+    m0 = stack_mask(seed, S_STYLE0, T, N, B, F, keep, cdt, dev)
+    m1 = stack_mask(seed, S_STYLE1, T, N, B, H, keep, cdt, dev)
+    mmid = stack_mask(seed, S_MID, T, N, B, H, keep, cdt, dev)
+    rows = lambda t: t.reshape(T, R, t.shape[-1])
+    f32 = lambda m: None if m is None else rows(m).float()
+
+    # 1. prologue
+    xtot = rows(x + _apply(s0[:, None].expand(T, N, B, F), m0))
+    x1 = rows(_apply(hs0, mmid) + _apply(s1[:, None].expand(T, N, B, H), m1))
+    # 2. bulk pre-activations
+    prev = lambda h: torch.cat([torch.zeros_like(h[:1]), h[:-1]])
+    hp0, hp1 = prev(rows(hs0)), prev(rows(hs1))
+    z0 = (_dot(xtot, W0).to(cdt) + B0) + _dot(hp0, U0).to(cdt)
+    z1 = (_dot(x1, W1).to(cdt) + B1) + _dot(hp1, U1).to(cdt)
+
+    def scan(z, cs, ext, U):
+        dz = torch.empty_like(z)
+        dh_carry = torch.zeros(R, H, device=dev)
+        dc = torch.zeros(R, H, device=dev)
+        for t in reversed(range(T)):
+            i, f, o = (_gate(z[t, :, a * H:(a + 1) * H], hard)
+                       for a in (0, 1, 3))
+            g = torch.tanh(z[t, :, 2 * H:3 * H])
+            cp = cs[t].float()
+            tc = torch.tanh((f.float() * cp + (i * g).float()).to(cdt)).float()
+            i, f, g, o = i.float(), f.float(), g.float(), o.float()
+            dh = dh_carry + ext[t].float()
+            dc = dc + dh * o * (1.0 - tc * tc)
+            dz[t] = torch.cat([dc * g * _gate_grad(i, hard),
+                               dc * cp * _gate_grad(f, hard),
+                               dc * i * (1.0 - g * g),
+                               dh * tc * _gate_grad(o, hard)], -1).to(cdt)
+            dc = dc * f
+            dh_carry = _dot(dz[t], U.t())
+        return dz
+
+    # 3. - 6.
+    dz1 = scan(z1, rows(cs1), rows(dhs1), U1)
+    dx1 = _dot(dz1, W1.t())
+    ds1r, dmid = _apply(dx1, f32(m1)), _apply(dx1, f32(mmid))
+    dz0 = scan(z0, rows(cs0), dmid, U0)
+    dxo = _dot(dz0, W0.t())
+    ds0r = _apply(dxo, f32(m0))
+
+    def tile_sums(r, W):
+        part = r.reshape(T, N // k, k, B, W).sum(2)
+        return part.to(cdt).float().sum(1)
+
+    flat = lambda t: t.reshape(T * R, t.shape[-1])
+    wg = lambda a, dz: _dot(flat(a).t(), flat(dz))
+    return (dxo.to(cdt).reshape(T, N, B, F), tile_sums(ds0r, F),
+            tile_sums(ds1r, H), wg(xtot, dz0), flat(dz0).float().sum(0),
+            flat(dz1).float().sum(0), wg(hp0, dz0), wg(x1, dz1),
+            wg(hp1, dz1))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -279,8 +386,13 @@ _SIGNATURES = {
     "biax_time": {
         "biax_time_fwd": [_I] + [_P] * 13 + [_I] * 6 + [_U, _U, _F, _I, _I,
                                                        _P],
-        "biax_time_bwd": [_I] + [_P] * 25 + [_I] * 6 + [_U, _U, _F, _I, _I,
-                                                       _P],
+        "biax_time_bwd_prologue": [_I] + [_P] * 6 + [_I] * 6 + [_U, _U, _F,
+                                                               _I, _P],
+        "biax_time_bwd_preact": [_I, _P, _I, _I] + [_P] * 5 + [_I] * 3
+        + [_P],
+        "biax_time_bwd_scan": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P, _P],
+        "biax_time_bwd_dx": [_I, _I, _P, _P, _I, _I, _I, _P, _P, _P]
+        + [_I] * 6 + [_U, _U, _F, _I, _P],
         "biax_time_ds": [_I, _P, _I, _I, _I, _I, _I, _P, _P],
     },
     "biax_note": {
@@ -367,83 +479,170 @@ def _on_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
+                  seed: int = 0, compute_dtype=torch.float32,
+                  recurrent_activation: str = "sigmoid", tapes: bool = True):
+    """The time stack's forward kernel on CUDA tensors: (hs0, cs0, hs1, cs1)
+    [T, N, B, H] in the compute dtype (h after step t, c before it), the
+    three tapes None when `tapes` is False.  Counts
+    `biax_time_stack.fwd_launches`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1)
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    k, _ = _row_tiling(N, B)
+    xs = [t.to(cdt).contiguous() for t in (x, s0, s1)]
+    w0, b0, b1, u0, w1, u1 = (t.to(cdt).contiguous()
+                              for t in (w0, b0, b1, u0, w1, u1))
+    new = lambda: torch.empty(T, N, B, H, dtype=cdt, device=dev)
+    hs1 = new()
+    hs0, cs0, cs1 = (new(), new(), new()) if tapes else (None,) * 3
+    mats = [_layout(w0), b0, b1, _layout(u0), _layout(w1), _layout(u1)]
+    lib = _library("biax_time")
+    with torch.cuda.device(dev):
+        _check(lib.biax_time_fwd(
+            _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
+            _ptr(hs0), _ptr(cs0), hs1.data_ptr(), _ptr(cs1),
+            T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
+            int(hard), _stream(dev)), "biax_time_fwd")
+    biax_time_stack.fwd_launches += 1
+    return hs0, cs0, hs1, cs1
+
+
+def time_scan_route(cdt: torch.dtype) -> str:
+    """The time backward's scans by dtype: U resident in a thread-block
+    cluster in bfloat16, streamed from L2 in float32."""
+    return "cluster" if cdt == torch.bfloat16 else "streamed"
+
+
+def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
+                  dhs1, dropout_p: float = 0.0, seed: int = 0,
+                  compute_dtype=torch.float32,
+                  recurrent_activation: str = "sigmoid", marks=None,
+                  scan_prof: Optional[torch.Tensor] = None):
+    """The time stack's backward kernels on CUDA tensors: the arguments and
+    results of `biax_time_bwd_staged`, whose six passes they run (csrc/
+    biax_time.cu), then the weight-gradient and style-gradient reductions.
+    The scans take `time_scan_route(compute_dtype)`.  With a list `marks`,
+    a recorded CUDA event is appended after each pass, as (name, event),
+    behind ("start", event).  With an int64 tensor `scan_prof` [2, 9] on
+    the card, the cluster scans of layers 1 and 0 write their first
+    block's clock cycles per phase, summed over the steps (own cell work,
+    the rest of the dz exchange with its barrier, the product, the second
+    barrier) and their plan (cluster size, rows and units per block, K
+    parts, clusters the card holds at once).  Counts
+    `biax_time_stack.bwd_launches`, and `.cluster_scans` or
+    `.streamed_scans` once per scan."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1,
+                   hs0, cs0, hs1, cs1, dhs1)
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    H4, R = 4 * H, N * B
+    M = T * R
+    k, _ = _row_tiling(N, B)
+    x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1, dhs1 = (
+        t.to(cdt).contiguous() for t in (x, s0, s1, w0, b0.reshape(-1),
+                                         b1.reshape(-1), u0, w1, u1, hs0,
+                                         cs0, hs1, cs1, dhs1))
+    route = time_scan_route(cdt)
+    scan_u = [u if route == "cluster" else _layout(u.t()) for u in (u0, u1)]
+    e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
+    f32 = torch.float32
+    # Rows padded to 8 values (zeros): 16-byte rows for the products.
+    xtot, x1 = e(T, N, B, -(-F // 8) * 8), e(T, N, B, -(-H // 8) * 8)
+    z0, z1 = e(T, N, B, H4), e(T, N, B, H4)       # z in, dz out
+    dx = e(T, N, B, F)
+    ds0r, ds1r, dmid = e(T, N, B, F, dt=f32), e(T, N, B, H, dt=f32), e(
+        T, N, B, H, dt=f32)
+    mats = [_layout(w) for w in (w0, u0, w1, u1, w0.t(), w1.t())]
+    lib = _library("biax_time")
+    bf, st = _is_bf16(cdt), _stream(dev)
+    dims = (T, N, B, F, H, k)
+    drop = _mask_args(dropout_p, seed, cdt)
+
+    def mark(name):
+        if marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+    def scan(z, cs, ext_t, ext_f, u, layer):
+        prof = None if scan_prof is None else scan_prof[1 - layer]
+        _check(lib.biax_time_bwd_scan(
+            bf, int(route == "cluster"), z.data_ptr(), cs.data_ptr(),
+            _ptr(ext_t), _ptr(ext_f), u.data_ptr(), *dims, int(hard),
+            _ptr(prof), st), f"biax_time_bwd_scan ({route})")
+        if route == "cluster":
+            biax_time_stack.cluster_scans += 1
+        else:
+            biax_time_stack.streamed_scans += 1
+
+    with torch.cuda.device(dev):
+        mark("start")
+        _check(lib.biax_time_bwd_prologue(
+            bf, *(t.data_ptr() for t in (x, s0, s1, hs0, xtot, x1)), *dims,
+            *drop, st), "biax_time_bwd_prologue")
+        mark("prologue")
+        for xin, K, w, b, hs, u, z in ((xtot, F, mats[0], b0, hs0, mats[1],
+                                        z0),
+                                       (x1, H, mats[2], b1, hs1, mats[3],
+                                        z1)):
+            _check(lib.biax_time_bwd_preact(
+                bf, xin.data_ptr(), xin.shape[-1], K, w.data_ptr(),
+                b.data_ptr(), hs.data_ptr(), u.data_ptr(), z.data_ptr(), M,
+                R, H, st), "biax_time_bwd_preact")
+        mark("preact")
+        scan(z1, cs1, dhs1, None, scan_u[1], 1)
+        mark("scan1")
+        _check(lib.biax_time_bwd_dx(
+            bf, 1, z1.data_ptr(), mats[5].data_ptr(), M, H4, H, None,
+            ds1r.data_ptr(), dmid.data_ptr(), *dims, *drop, st),
+            "biax_time_bwd_dx")
+        mark("dx1")
+        scan(z0, cs0, None, dmid, scan_u[0], 0)
+        mark("scan0")
+        _check(lib.biax_time_bwd_dx(
+            bf, 0, z0.data_ptr(), mats[4].data_ptr(), M, H4, F,
+            dx.data_ptr(), ds0r.data_ptr(), None, *dims, *drop, st),
+            "biax_time_bwd_dx")
+        mark("dx0")
+        ws = e(WGRAD_CHUNKS * max(F, H) * H4, dt=f32)
+        dw0 = _wgrad(lib, xtot, 0, z0, F, ws)
+        du0 = _wgrad(lib, hs0, R, z0, H, ws)
+        dw1 = _wgrad(lib, x1, 0, z1, H, ws)
+        du1 = _wgrad(lib, hs1, R, z1, H, ws)
+        db0 = _wgrad(lib, None, 0, z0, 1, ws).reshape(H4)
+        db1 = _wgrad(lib, None, 0, z1, 1, ws).reshape(H4)
+        ds = []
+        for rows, W in ((ds0r, F), (ds1r, H)):
+            out = e(T, B, W, dt=f32)
+            _check(lib.biax_time_ds(bf, rows.data_ptr(), T, N, B, W, k,
+                                    out.data_ptr(), st), "biax_time_ds")
+            ds.append(out)
+        mark("wgrad")
+    biax_time_stack.bwd_launches += 1
+    return dx, ds[0], ds[1], dw0, db0, db1, du0, dw1, du1
+
+
 class _TimeStack(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p, seed,
-                cdt, hard):
-        dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1)
-        T, N, B, F = x.shape
-        H = u0.shape[0]
-        k, _ = _row_tiling(N, B)
-        xs = [t.to(cdt).contiguous() for t in (x, s0, s1)]
-        ws = [t.to(cdt).contiguous() for t in (w0, b0, b1, u0, w1, u1)]
+                cdt, act):
         tapes = any(ctx.needs_input_grad)
-        new = lambda: torch.empty(T, N, B, H, dtype=cdt, device=dev)
-        hs1 = new()
-        hs0, cs0, cs1 = (new(), new(), new()) if tapes else (None,) * 3
-        mats = [_layout(ws[0]), ws[1], ws[2], _layout(ws[3]),
-                _layout(ws[4]), _layout(ws[5])]
-        lib = _library("biax_time")
-        with torch.cuda.device(dev):
-            _check(lib.biax_time_fwd(
-                _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
-                _ptr(hs0), _ptr(cs0), hs1.data_ptr(), _ptr(cs1),
-                T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
-                int(hard), _stream(dev)), "biax_time_fwd")
-        biax_time_stack.fwd_launches += 1
+        hs0, cs0, hs1, cs1 = biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1,
+                                           dropout_p, seed, cdt, act, tapes)
         if tapes:
-            ctx.save_for_backward(*xs, *ws, hs0, cs0, hs1, cs1)
-            ctx.cfg = (dropout_p, seed, cdt, hard, k)
-            ctx.dtypes = tuple(t.dtype for t in (x, s0, s1, w0, b0, b1, u0,
-                                                 w1, u1))
+            ctx.save_for_backward(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0,
+                                  cs0, hs1, cs1)
+            ctx.cfg = (dropout_p, seed, cdt, act)
         return hs1
 
     @staticmethod
     def backward(ctx, dhs1):
-        (x, s0, s1, w0, b0, b1, u0, w1, u1,
-         hs0, cs0, hs1, cs1) = ctx.saved_tensors
-        dropout_p, seed, cdt, hard, k = ctx.cfg
-        dev = x.device
-        T, N, B, F = x.shape
-        H = u0.shape[0]
-        H4 = 4 * H
-        dhs1 = dhs1.to(cdt).contiguous()
-        e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
-        # xtot rows padded to 8 values: 16-byte rows for the reduction.
-        dx, xtot = e(T, N, B, F), e(T, N, B, -(-F // 8) * 8)
-        x1t, dz0, dz1 = e(T, N, B, H), e(T, N, B, H4), e(T, N, B, H4)
-        ds0r, ds1r = e(T, N, B, F, dt=torch.float32), e(
-            T, N, B, H, dt=torch.float32)
-        fwd = [_layout(w) for w in (w0, u0, w1, u1)]
-        trans = [_layout(w.t()) for w in (w0, u0, w1, u1)]
-        lib = _library("biax_time")
-        with torch.cuda.device(dev):
-            _check(lib.biax_time_bwd(
-                _is_bf16(cdt), *(t.data_ptr() for t in (
-                    x, s0, s1, fwd[0], b0, b1, fwd[1], fwd[2], fwd[3],
-                    *trans,
-                    hs0, cs0, hs1, cs1, dhs1, dx, ds0r, ds1r, xtot, x1t,
-                    dz0, dz1)),
-                T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
-                int(hard), _stream(dev)), "biax_time_bwd")
-            ws = e(WGRAD_CHUNKS * max(F, H) * H4, dt=torch.float32)
-            R = N * B
-            dw0 = _wgrad(lib, xtot, 0, dz0, F, ws)
-            du0 = _wgrad(lib, hs0, R, dz0, H, ws)
-            dw1 = _wgrad(lib, x1t, 0, dz1, H, ws)
-            du1 = _wgrad(lib, hs1, R, dz1, H, ws)
-            db0 = _wgrad(lib, None, 0, dz0, 1, ws).reshape(H4)
-            db1 = _wgrad(lib, None, 0, dz1, 1, ws).reshape(H4)
-            ds = []
-            for rows, W in ((ds0r, F), (ds1r, H)):
-                out = e(T, B, W, dt=torch.float32)
-                _check(lib.biax_time_ds(_is_bf16(cdt), rows.data_ptr(), T,
-                                        N, B, W, k, out.data_ptr(),
-                                        _stream(dev)), "biax_time_ds")
-                ds.append(out)
-        biax_time_stack.bwd_launches += 1
-        grads = (dx, ds[0], ds[1], dw0, db0, db1, du0, dw1, du1)
-        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (
+        saved = ctx.saved_tensors
+        grads = biax_time_bwd(*saved, dhs1, *ctx.cfg)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (
             None,) * 4
 
 
@@ -550,12 +749,13 @@ def biax_time_stack(x, s0, s1, w0, b0, b1, u0, w1, u1,
         raise ValueError(f"biax_time_stack runs on CPU or CUDA tensors, "
                          f"got {x.device}")
     return _TimeStack.apply(*args, float(dropout_p), int(seed),
-                            compute_dtype,
-                            recurrent_activation == "hard_sigmoid")
+                            compute_dtype, recurrent_activation)
 
 
 biax_time_stack.fwd_launches = 0
 biax_time_stack.bwd_launches = 0
+biax_time_stack.cluster_scans = 0
+biax_time_stack.streamed_scans = 0
 
 
 def biax_note_stack(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
