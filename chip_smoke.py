@@ -15,7 +15,8 @@ Phases (any failure exits non-zero, before the result line):
      gradient, also at small odd widths; and the time stack's backward
      (six passes) against its staged plain version, which repeats those
      passes, with the scan route each dtype takes (bfloat16: U resident in
-     a thread-block cluster; float32: U streamed);
+     a thread-block cluster; float32: U streamed); and the lstm2 mask dump
+     (kernel 10) against its plain version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -41,11 +42,20 @@ Phases (any failure exits non-zero, before the result line):
      plain version and no biaxial launch, finite losses, evaluate() and the
      checkpoint;
   3f. the dropout-0 step of 3d on the two per-axis routes;
+  3g. the port's validators as a user runs them (music_generator_tpu_torch/
+     tools): validate_lstm2 (the fused stack against the plain recurrence,
+     at dropout 0.5 with its own masks from kernel 10, and its timing) and
+     validate_biax on both gate flavors;
+  3h. primed generation: generate_main --prime, the committed primed demos
+     regenerated from their own first 8 bars (event identity required,
+     byte identity reported), a self-consistency run, and check_fidelity
+     at seeds 0 and 1 (event identity required on every file); every
+     kernel must have been launched in 3g-3h;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route (and its busy share),
      each kernel and its plain version, each pass of the time backward
      (both scan routes, with the cluster scan's clock cycles per phase),
-     and cuDNN's LSTM beside the recurrence.
+     cuDNN's LSTM beside the recurrence, and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -57,7 +67,6 @@ import contextlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 import warnings
@@ -65,6 +74,14 @@ import warnings
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from music_generator_tpu_torch.tools.common import (F32_ATOL, F32_GRAD_REL,
+                                                    CheckFailed, card_line,
+                                                    cuda_ms, leaf_stats)
+from music_generator_tpu_torch.tools.validate_biax import (PARITY_BAR,
+                                                           STEP_ATOL,
+                                                           step_bars,
+                                                           step_readings)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAMS = os.path.join(ROOT, "artifacts", "trained_model_r4", "params.npz")
@@ -100,6 +117,13 @@ LSTM_KERNELS = [
     ("lstm_rec_bwd", "music_generator_tpu/ops/pallas_lstm.py:139",
      "music_generator_tpu_torch/csrc/lstm_recurrence.cu"),
 ]
+# Kernel 10: the fused stack's inter-layer masks written out (the JAX
+# tool's `extract_masks`), checked at the validator's shape, the time and
+# note axes' shapes and an odd one, (S, R, H).
+MASK_KERNEL = ("lstm2_masks", "tools/tpu_validate_lstm2.py:30",
+               "music_generator_tpu_torch/csrc/lstm2_masks.cu")
+MASK_SHAPES = [(32, 512, 256), (128, 768, 256), (48, 2048, 128),
+               (5, 37, 19)]
 # The per-axis routes of phases 3e, 3f and 4: config overrides, and the
 # launches of each kernel in one training step.
 ROUTES = {
@@ -113,35 +137,26 @@ ROUTES = {
 CHECK_T = 32        # timesteps of the kernel checks (the plain loop's sake)
 # Kernel against plain version: float32 forward within F32_ATOL and every
 # gradient within F32_GRAD_REL of the plain one (||a - b|| / ||b||, worst
-# leaf); bfloat16 forward within BF16_ATOL, gradients within BF16_GRAD_REL
-# and a cosine of at least BF16_COS.  In bfloat16 a float32 sum taken in
-# another order (tensor cores against the plain version's matmul) can move
-# a rounding to bfloat16 by one ulp, which the recurrence carries on:
+# leaf; tools/common.py); bfloat16 forward within BF16_ATOL, gradients
+# within BF16_GRAD_REL and a cosine of at least BF16_COS.  In bfloat16 a
+# float32 sum taken in another order (tensor cores against the plain
+# version's matmul) can move a rounding to bfloat16 by one ulp, which the
+# recurrence carries on:
 # BF16_ATOL is 4 ulps at 1 (outputs are h in (-1, 1) and probabilities).
 # The plain version's autograd rounds each intermediate gradient to
 # bfloat16 where the kernel keeps float32, so the gradients differ by
 # bfloat16 rounding.
-F32_ATOL, F32_GRAD_REL = 1e-4, 1e-3
 BF16_ATOL, BF16_GRAD_REL, BF16_COS = 2.0 ** -5, 0.1, 0.995
-# One dropout-0 training step on random_batch(seed=0, rolled_targets=True).
-# float32 kernels against the float32 plain path: loss within 1e-5
-# relative, gradients within F32_GRAD_REL, parameters after one Nadam step
-# within STEP_ATOL (the first Keras-2 Nadam step moves a weight by about
-# the learning rate, 2e-3, whatever its gradient's size, so only a gradient
-# element near zero whose sign differs could exceed it).  bfloat16 kernels
-# against the float32 plain path: the bar of PARITY_BAR (loss relative
-# difference, worst-leaf gradient cosine, post-update loss gap against a
-# bfloat16 plain step), beside the TPU's readings in
-# artifacts/kernel_validation_r5.  Both are held on fresh weights from a
-# seed, as the TPU's validation tool (tools/tpu_validate_biax.py) drew
-# them.  The trained r4 weights are read too, without a bar: near their
-# minimum the loss gradient is small and bfloat16 rounding, in the plain
-# path as much as in the kernels, moves the loss by about 20% and turns the
-# gradient's direction, so no bfloat16 path can meet a bar there.
-STEP_ATOL = 1e-4
-PARITY_BAR = (5e-4, 0.999, 5e-4)
-TPU_R5 = {"sigmoid": (2.102e-4, 0.99944, 1.48e-4),
-          "hard_sigmoid": (2.959e-4, 0.99941, 2.39e-4)}
+# One dropout-0 training step on random_batch(seed=0, rolled_targets=True)
+# (tools/validate_biax.py: `step_readings`, STEP_ATOL, PARITY_BAR): float32
+# kernels against the float32 plain path, bfloat16 kernels against
+# PARITY_BAR beside the TPU's readings in artifacts/kernel_validation_r5.
+# Both are held on fresh weights from a seed, as the TPU's validation tool
+# (tools/tpu_validate_biax.py) drew them.  The trained r4 weights are read
+# too, without a bar: near their minimum the loss gradient is small and
+# bfloat16 rounding, in the plain path as much as in the kernels, moves the
+# loss by about 20% and turns the gradient's direction, so no bfloat16 path
+# can meet a bar there.
 
 # More TPU-generated samples the card must reproduce, as each one's
 # PROVENANCE/report records it: (weights, style one-hots or None for the 3
@@ -152,6 +167,12 @@ MORE_SAMPLES = [
     ("trained_model_r4/params.npz", None, 64, None,
      "long_samples_r4/long_{}.mid"),
 ]
+
+# The committed primed demos (artifacts/primed_demos_r4/provenance.json):
+# file stem and style slot; each continues its own first 8 bars for 8 bars
+# with the real_corpus_r3 weights, seed 0, temperature 0.75.
+PRIMED_DEMOS = (("Baroque", 0), ("Classical", 3), ("Romantic", 9))
+DEMOS = os.path.join(ROOT, "artifacts", "primed_demos_r4")
 
 EDGE = 1e-5          # a draw with |u - p| below this may fall either way
 VOLUME_ATOL = 1e-5   # float32 sums in another order: ULP-scale drift
@@ -164,13 +185,6 @@ def log(*args) -> None:
 def fail(msg: str) -> None:
     log("FAIL:", msg)
     sys.exit(1)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def check_sample(path: str, ref: str) -> bool:
@@ -187,21 +201,6 @@ def check_sample(path: str, ref: str) -> bool:
     if not events:
         fail(f"{ref}: the notes differ from the committed sample")
     return same_bytes
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of `fn` on the card: CUDA events around `reps`
-    calls, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def notegen_inputs(model, G: int, T: float, seed: int):
@@ -268,22 +267,6 @@ def stack_grads(fn, args, cot, **kw):
     grads = torch.autograd.grad(out.float(), ts, cot)
     torch.cuda.synchronize()
     return out.detach().float(), [g.float() for g in grads]
-
-
-def leaf_stats(got, want):
-    """(max |a - b|, worst ||a - b|| / ||b||, worst cosine) over leaves."""
-    err, rel, cos = 0.0, 0.0, 1.0
-    for a, b in zip(got, want):
-        a, b = a.double().flatten(), b.double().flatten()
-        err = max(err, float((a - b).abs().max()))
-        nb, na = float(b.norm()), float(a.norm())
-        rel = max(rel, float((a - b).norm()) / nb if nb else
-                  (0.0 if na == 0 else float("inf")))
-        if na and nb:
-            cos = min(cos, float(a @ b) / (na * nb))
-        elif na or nb:
-            cos = 0.0
-    return err, rel, cos
 
 
 def check_biax_kernels(cfg):
@@ -642,99 +625,6 @@ def train_routes(cfg):
     return counts
 
 
-def _plain_lstm2(x0, s1m, w0, b0, b1, u0, w1, u1, **kw):
-    """lstm2_stack's plain version from zero initial states, as DeepJ
-    calls the stack."""
-    from music_generator_tpu_torch.ops import lstm2
-    z = torch.zeros(x0.shape[1], u0.shape[0], device=x0.device)
-    return lstm2.lstm2_stack_reference(x0, s1m, w0, b0, b1, u0, w1, u1, z, z,
-                                       z, z, **kw)
-
-
-@contextlib.contextmanager
-def plain_stacks():
-    """Run DeepJ.forward through the plain versions of every training
-    kernel, even on the card."""
-    from music_generator_tpu_torch.models import deepj
-    from music_generator_tpu_torch.ops import biax, recurrence
-    saved = (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
-             recurrence.lstm_recurrence)
-    deepj.biax_time_stack = biax.biax_time_stack_reference
-    deepj.biax_note_stack = biax.biax_note_stack_reference
-    deepj.lstm2_stack = _plain_lstm2
-    recurrence.lstm_recurrence = recurrence.lstm_recurrence_reference
-    try:
-        yield
-    finally:
-        (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
-         recurrence.lstm_recurrence) = saved
-
-
-def one_step(cfg, state, batch, plain: bool):
-    """One dropout-0 train step from `state`: (loss, gradients by name,
-    parameters after one Nadam step, the loss after it)."""
-    from music_generator_tpu_torch.models.deepj import build_model
-    from music_generator_tpu_torch.ops.nadam import Nadam
-    model = build_model(cfg, "cuda", state=state, trainable=True)
-    names = [n for n, _ in model.named_parameters()]
-    params = list(model.parameters())
-    with plain_stacks() if plain else contextlib.nullcontext():
-        loss, _ = model.loss(batch, generator=None, train=True)
-        grads = torch.autograd.grad(loss, params)
-        opt = Nadam(params, cfg.learning_rate, cfg.beta1, cfg.beta2, cfg.eps,
-                    cfg.schedule_decay)
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
-        with torch.no_grad():
-            after = model.loss(batch, generator=None, train=False)[0]
-    torch.cuda.synchronize()
-    return (float(loss.detach()), dict(zip(names, grads)),
-            {n: p.detach().clone() for n, p in zip(names, params)},
-            float(after))
-
-
-def step_readings(cfg, state, batch, act):
-    """The float32 and bfloat16 steps of one gate flavor, kernels and plain
-    stacks: (float32 loss rel diff, gradient worst rel, parameter max|d|,
-    bfloat16 loss rel diff to the float32 plain path, worst-leaf cosine,
-    post-update loss gap, and the bfloat16 plain path's own loss rel diff
-    and worst-leaf cosine against the float32 plain path), logged."""
-    base = cfg.replace(dropout=0.0, input_dropout=0.0,
-                       lstm_recurrent_activation=act)
-    c32 = base.replace(compute_dtype="float32")
-    c16 = base.replace(compute_dtype="bfloat16")
-    k32 = one_step(c32, state, batch, plain=False)
-    p32 = one_step(c32, state, batch, plain=True)
-    k16 = one_step(c16, state, batch, plain=False)
-    p16 = one_step(c16, state, batch, plain=True)
-    names = list(p32[1])
-    d_loss = abs(k32[0] - p32[0]) / abs(p32[0])
-    _, g_rel, _ = leaf_stats([k32[1][n] for n in names],
-                             [p32[1][n] for n in names])
-    p_err, _, _ = leaf_stats([k32[2][n] for n in names],
-                             [p32[2][n] for n in names])
-    b_loss = abs(k16[0] - p32[0]) / abs(p32[0])
-    _, _, b_cos = leaf_stats([k16[1][n] for n in names],
-                             [p32[1][n] for n in names])
-    gap = abs(k16[3] - p16[3])
-    pb_loss = abs(p16[0] - p32[0]) / abs(p32[0])
-    _, _, pb_cos = leaf_stats([p16[1][n] for n in names],
-                              [p32[1][n] for n in names])
-    tpu = TPU_R5[act]
-    log(f"  {act} float32, kernels vs plain: loss {k32[0]:.7f} vs "
-        f"{p32[0]:.7f} (rel {d_loss:.3g}), gradients worst rel {g_rel:.3g}, "
-        f"parameters after one Nadam step max|d| {p_err:.3g}")
-    log(f"  {act} bfloat16 kernels vs float32 plain: loss rel diff "
-        f"{b_loss:.4g} (TPU r5 {tpu[0]:.4g}), worst-leaf gradient cosine "
-        f"{b_cos:.6f} (TPU r5 {tpu[1]:.5f}); post-update loss {k16[3]:.6f} "
-        f"vs bfloat16 plain {p16[3]:.6f}, gap {gap:.3g} (TPU r5 "
-        f"{tpu[2]:.3g})")
-    log(f"  {act} bfloat16 plain vs float32 plain: loss rel diff "
-        f"{pb_loss:.4g}, worst-leaf gradient cosine {pb_cos:.6f}")
-    return d_loss, g_rel, p_err, b_loss, b_cos, gap, pb_loss, pb_cos
-
-
 def parity_step(cfg, r4, batch):
     """Phase 3d: the dropout-0 step, kernels against the plain stacks, held
     to the bar on fresh weights and read on the trained r4 weights."""
@@ -743,7 +633,7 @@ def parity_step(cfg, r4, batch):
     log(f"step on fresh weights (seed 0), bar {PARITY_BAR}:")
     for act in ("sigmoid", "hard_sigmoid"):
         d_loss, g_rel, p_err, b_loss, b_cos, gap, _, _ = step_readings(
-            cfg, fresh, batch, act)
+            cfg, fresh, batch, act, log=log)
         if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
             fail(f"float32 step with {act} gates: kernels and plain "
                  f"stacks disagree")
@@ -751,7 +641,7 @@ def parity_step(cfg, r4, batch):
                 or gap > PARITY_BAR[2]):
             fail(f"bfloat16 step with {act} gates misses the bar")
     log("step on the trained r4 weights (read, no bar):")
-    step_readings(cfg, r4, batch, "sigmoid")
+    step_readings(cfg, r4, batch, "sigmoid", log=log)
 
 
 def route_parity_step(cfg, batch):
@@ -768,23 +658,11 @@ def route_parity_step(cfg, batch):
         log(f"route {route}: step on fresh weights (seed 0), bar "
             f"{PARITY_BAR}:")
         for act in ("sigmoid", "hard_sigmoid"):
-            (d_loss, g_rel, p_err, b_loss, b_cos, gap, pb_loss,
-             pb_cos) = step_readings(rc, fresh, batch, act)
-            if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
-                fail(f"route {route}, float32 step with {act} gates: "
-                     f"kernels and plain versions disagree")
-            if (b_loss <= PARITY_BAR[0] and b_cos >= PARITY_BAR[1]
-                    and gap <= PARITY_BAR[2]):
-                continue
-            plain_misses = pb_loss > PARITY_BAR[0] or pb_cos < PARITY_BAR[1]
-            log(f"  route {route} {act}: the bfloat16 kernels miss the bar; "
-                f"the bfloat16 plain path "
-                f"{'misses' if plain_misses else 'meets'} it")
-            if not plain_misses or gap > PARITY_BAR[2]:
-                fail(f"route {route}, bfloat16 step with {act} gates misses "
-                     f"the bar")
-            log(f"  route {route} {act}: held to the bfloat16 plain step "
-                f"instead: post-update gap {gap:.3g} <= {PARITY_BAR[2]}")
+            readings = step_readings(rc, fresh, batch, act, log=log)
+            try:
+                step_bars(readings, f"route {route} {act}", log)
+            except CheckFailed as e:
+                fail(str(e))
 
 
 def biax_bound_ms(name: str, cfg, T: int, bf16: bool):
@@ -1094,6 +972,169 @@ def time_train_step(cfg, state, batch, card):
     return step, rate
 
 
+def check_mask_kernel():
+    """Kernel 10 (`dump_masks`) against its plain version (`stack_masks`)
+    with torch.equal, bit for bit: float32 and bfloat16, dropout 0.1 and
+    0.5, two seeds, at MASK_SHAPES.  Returns the largest |difference|."""
+    from music_generator_tpu_torch.ops import lstm2
+    err, cases = 0.0, 0
+    for S, R, H in MASK_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for p in (0.1, 0.5):
+                for seed in (7, 1234):
+                    got = lstm2.dump_masks(seed, S, R, H, p, dt, "cuda")
+                    want = lstm2.stack_masks(seed, S, R, H, 1.0 - p, dt,
+                                             "cuda")
+                    torch.cuda.synchronize()
+                    cases += 1
+                    err = max(err, float((got.float() - want.float())
+                                         .abs().max()))
+                    if not torch.equal(got, want):
+                        fail(f"lstm2_masks S={S} R={R} H={H} {dt} p={p} "
+                             f"seed={seed} differs from stack_masks")
+    log(f"lstm2_masks: {cases} cases equal to stack_masks bit for bit "
+        f"(shapes {MASK_SHAPES}, float32 and bfloat16, p 0.1 and 0.5, "
+        f"seeds 7 and 1234)")
+    return err
+
+
+def slice_counts():
+    """{kernel name: launches} of every kernel, the pitch loop and the
+    mask dump included."""
+    from music_generator_tpu_torch.ops import lstm2, notegen
+    launches, _ = read_counts()
+    launches["notegen"] = notegen.note_sample.launches
+    launches["lstm2_masks"] = lstm2.dump_masks.launches
+    return launches
+
+
+def reset_slice_counts():
+    from music_generator_tpu_torch.ops import lstm2, notegen
+    reset_counts()
+    notegen.note_sample.launches = 0
+    notegen.note_sample_reference.calls = 0
+    lstm2.dump_masks.launches = 0
+
+
+def validators():
+    """Phase 3g: the port's validators on the card, as a user runs them:
+    validate_lstm2 at its sizes (kernels 6-10) and validate_biax on both
+    gate flavors (kernels 2-5).  A missed bar fails."""
+    from music_generator_tpu_torch.tools import validate_biax, validate_lstm2
+    try:
+        log("validate_lstm2:")
+        validate_lstm2.main(["--device", "cuda"])
+        for gates in ("sigmoid", "hard_sigmoid"):
+            log(f"validate_biax --gates {gates}:")
+            validate_biax.main(["--gates", gates, "--device", "cuda"])
+    except CheckFailed as e:
+        fail(f"validator: {e}")
+
+
+def primed_generation(cfg):
+    """Phase 3h: primed continuation on the card.  generate_main --prime
+    writes the prime and its continuation; the committed primed demos
+    regenerate from their own first 8 bars (events required, bytes
+    reported); priming with a run's own first K steps (K not bar-aligned)
+    continues it bit for bit; check_fidelity at seeds 0 and 1 certifies
+    the card's files against the CPU (events required on every file)."""
+    from music_generator_tpu_torch.cli import generate_main
+    from music_generator_tpu_torch.data.dataset import (compute_genre,
+                                                        decode_prime)
+    from music_generator_tpu_torch.generation.sampler import (
+        GenerationResult, Sampler, prepend_prime, write_file)
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.params import load_params_npz
+    from music_generator_tpu_torch.tools import check_fidelity
+    from music_generator_tpu_torch.utils import one_hot
+    npb = cfg.notes_per_bar
+    work = os.path.join(WORK, "primed")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        baroque = os.path.join(DEMOS, "primed_Baroque.mid")
+        paths = generate_main(["--params", PARAMS, "--prime", baroque,
+                               "--prime-bars", "8", "--bars", "2"])
+    finally:
+        os.chdir(cwd)
+    prime = decode_prime(baroque, 8, config=cfg)
+    for p in paths:
+        head = decode_prime(os.path.join(work, p), 8, config=cfg)
+        if not np.array_equal(head[..., :2], prime[..., :2]):
+            fail(f"{p}: the written piece does not start with the prime")
+    if len(paths) != 3:
+        fail(f"generate_main --prime wrote {len(paths)} files, not 3")
+    log(f"generate_main --prime: {len(paths)} files of 8 prime + 2 bars")
+
+    m = build_model(cfg, "cuda", state=load_params_npz(
+        os.path.join(ROOT, "artifacts", "real_corpus_r3", "params.npz")))
+    n_bytes = 0
+    for genre, slot in PRIMED_DEMOS:
+        ref = os.path.join(DEMOS, f"primed_{genre}.mid")
+        prime = decode_prime(ref, 8, config=cfg).astype(np.float32)
+        res = Sampler(m).generate([one_hot(slot, cfg.num_styles)],
+                                  num_bars=8, seed=0, temperature=0.75,
+                                  prime=prime)
+        (out,) = write_file(f"demo_{genre}", GenerationResult(
+            prepend_prime(res.notes, prime), res.styles),
+            cfg.replace(out_dir=work))
+        n_bytes += check_sample(out, ref)
+    log(f"primed demos: {n_bytes}/3 byte-identical, 3/3 event-identical")
+
+    sampler = Sampler(build_model(cfg, "cuda", state=load_params_npz(PARAMS)))
+    styles = [compute_genre(i, cfg) for i in range(3)]
+    K = 2 * npb + 5
+    full = sampler.generate(styles, num_bars=5, seed=5)
+    cont = sampler.generate(styles, num_bars=2, seed=5,
+                            prime=full.notes[:, :K])
+    same = (cont.notes.shape[1] == 2 * npb
+            and np.array_equal(cont.notes, full.notes[:, K:K + 2 * npb]))
+    log(f"self-consistency: priming with the run's own first {K} steps "
+        f"continues it bit for bit: {same}")
+    if not same:
+        fail("the primed continuation differs from the run it continues")
+
+    fid = os.path.join(work, "fidelity")
+    report = check_fidelity.main(["--out", fid, "--seeds", "0", "1",
+                                  "--bars", "4"])
+    for key in ("cuda_vs_cpu", "padded_vs_cpu"):
+        r = report[key]
+        log(f"check_fidelity {key}: {r['files'] - len(r['mismatches'])}/"
+            f"{r['files']} byte-identical, "
+            f"{r['files'] - len(r['event_mismatches'])}/{r['files']} "
+            f"event-identical; byte mismatches {r['mismatches']}")
+        if not r["event_identical"]:
+            fail(f"check_fidelity {key}: notes differ in "
+                 f"{r['event_mismatches']}")
+    return report
+
+
+def time_masks(card):
+    """ms of kernel 10 and of its plain version at the time and note
+    axes' shapes (float32, as the validator dumps, and bfloat16), with the
+    bound: the bytes written at HBM rate.  Returns {(shape label, dtype
+    name): (ms, plain ms, bound ms)}."""
+    from music_generator_tpu_torch.ops import lstm2
+    out = {}
+    for label, (S, R, H) in (("time", MASK_SHAPES[1]),
+                             ("note", MASK_SHAPES[2])):
+        for dt, name in ((torch.float32, "float32"),
+                         (torch.bfloat16, "bfloat16")):
+            ms = cuda_ms(lambda: lstm2.dump_masks(7, S, R, H, 0.5, dt,
+                                                  "cuda"), 50)
+            plain = cuda_ms(lambda: lstm2.stack_masks(7, S, R, H, 0.5, dt,
+                                                      "cuda"), 10)
+            bound = S * R * H * (4 if dt == torch.float32 else 2) \
+                / HBM_BYTES_PER_S * 1e3
+            out[(label, name)] = (ms, plain, bound)
+            log(f"lstm2_masks {label} axis (S={S}, R={R}, H={H}, {name}): "
+                f"kernel {ms:.4f} ms/launch, plain version {plain:.4f} ms, "
+                f"bound {bound:.6f} ms by bytes ({card})")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a machine with a GPU")
@@ -1111,6 +1152,7 @@ def main() -> None:
     from music_generator_tpu_torch.params import load_params_npz
     from music_generator_tpu_torch.utils import one_hot
 
+    started = time.perf_counter()
     log(sys.version.split()[0], "torch", torch.__version__, "cuda",
         torch.version.cuda)
     card = card_line()
@@ -1118,7 +1160,8 @@ def main() -> None:
 
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
-    names = ["notegen", "biax_time", "biax_note", "lstm_recurrence", "lstm2"]
+    names = ["notegen", "biax_time", "biax_note", "lstm_recurrence", "lstm2",
+             "lstm2_masks"]
     libs = _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t:.1f} s")
     for lib in libs:
@@ -1158,6 +1201,7 @@ def main() -> None:
     biax_errs = check_biax_kernels(cfg)
     check_time_bwd_staged(cfg)
     lstm_errs = check_lstm_kernels(cfg)
+    mask_err = check_mask_kernel()
 
     # -- 3. main path --------------------------------------------------------
     os.makedirs(WORK, exist_ok=True)
@@ -1214,6 +1258,18 @@ def main() -> None:
 
     # -- 3f. the dropout-0 step on the per-axis routes -----------------------
     route_parity_step(cfg, batch)
+
+    # -- 3g, 3h. this slice's path: the validators and primed generation ----
+    reset_slice_counts()
+    validators()
+    primed_generation(cfg)
+    slice_launches = slice_counts()
+    log(f"validators and primed generation: kernel launches "
+        f"{slice_launches}")
+    idle = [k for k, v in slice_launches.items() if v == 0]
+    if idle:
+        fail(f"kernels not launched on the validators' and primed "
+             f"generation's path: {idle}")
 
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
@@ -1307,6 +1363,16 @@ def main() -> None:
             "max_abs_err": lstm_errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
         })
+    mask_times = time_masks(card)
+    ms, plain, bound = mask_times[("time", "float32")]
+    name, replaces, source = MASK_KERNEL
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": slice_launches[name],
+        "max_abs_err": mask_err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+    })
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@
 (--epochs, --seed, --no-resume) plus `--device`; it trains on the corpus
 under the config's style directories and keeps the best checkpoint in
 `out/model.pt`.  `generate` has the flags of the JAX package's
-`generate_main` (ref: generate.py:137-148) plus `--device` and `--params`.
+`generate_main` (ref: generate.py:137-148) but `--from-keras`, among them
+`--prime`, `--prime-bars` and `--continuation-only` (primed
+continuation), plus `--device` and `--params`.
 
 Orbax checkpoints cannot be read without JAX, so weights come from a
 keystr-layout `.npz` (`--params`, params.py), else from `out/model.pt`
@@ -22,9 +24,13 @@ import numpy as np
 import torch
 
 from music_generator_tpu_torch.config import default_config
-from music_generator_tpu_torch.data.dataset import compute_genre, load_all
+from music_generator_tpu_torch.data.dataset import (compute_genre,
+                                                    decode_prime, load_all)
 from music_generator_tpu_torch.device import resolve_device
-from music_generator_tpu_torch.generation.sampler import Sampler, write_file
+from music_generator_tpu_torch.generation.sampler import (GenerationResult,
+                                                          Sampler,
+                                                          prepend_prime,
+                                                          write_file)
 from music_generator_tpu_torch.models.deepj import DeepJ, build_model
 from music_generator_tpu_torch.params import load_params_npz
 from music_generator_tpu_torch.training.checkpoint import (build_or_load,
@@ -99,6 +105,16 @@ def generate_main(argv=None) -> list:
                              "torch.Generator seeded with --seed: the same "
                              "distributions as the JAX package's "
                              "init_params, not its bits")
+    parser.add_argument("--prime", type=str, default=None, metavar="MIDI",
+                        help="Continue composing from an existing .mid "
+                             "file: the streaming state is teacher-forced "
+                             "through it, then --bars NEW bars are "
+                             "generated from where it leaves off")
+    parser.add_argument("--prime-bars", type=int, default=None,
+                        help="Use only the first K bars of --prime")
+    parser.add_argument("--continuation-only", action="store_true",
+                        help="With --prime: write only the newly generated "
+                             "bars instead of prime + continuation")
     _device_flag(parser, "generate")
     args = parser.parse_args(argv)
 
@@ -134,5 +150,19 @@ def generate_main(argv=None) -> list:
           "on", torch.cuda.get_device_name(device)
           if device.type == "cuda" else "cpu")
     sampler = Sampler(model, default_temp=args.temperature)
-    result = sampler.generate(styles, num_bars=args.bars, seed=args.seed)
+    prime = None
+    if args.prime:
+        try:
+            prime = decode_prime(args.prime, args.prime_bars, config=cfg)
+        except ValueError as e:
+            raise SystemExit(f"--prime {args.prime}: {e}")
+        print(f"Priming with {prime.shape[0]} steps "
+              f"({prime.shape[0] / cfg.notes_per_bar:g} bars) "
+              f"from {args.prime}")
+    result = sampler.generate(styles, num_bars=args.bars, seed=args.seed,
+                              prime=prime)
+    if prime is not None and not args.continuation_only:
+        # The whole piece: the clamped prime, then the continuation.
+        result = GenerationResult(prepend_prime(result.notes, prime),
+                                  result.styles)
     return write_file(args.out, result, cfg)

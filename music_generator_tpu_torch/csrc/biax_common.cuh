@@ -86,8 +86,10 @@ __device__ __forceinline__ float gate_grad(float s, int hard) {
 // keeps when murmur3_fmix(r * W + col + base(seed, site, j, s)) >= thr.
 // ---------------------------------------------------------------------------
 
+// S_STACK_MID is the fused two-layer stack's inter-layer mask (lstm2.cu),
+// which lstm2_masks.cu writes out.
 enum Site { S_IN = 0, S_STYLE0 = 1, S_STYLE1 = 2, S_MID = 3, S_OUT = 4,
-            S_STYLE0C = 5 };
+            S_STYLE0C = 5, S_STACK_MID = 6 };
 
 struct Drop {
   uint32_t seed, thr;   // seed word; keep threshold computed on the host

@@ -41,8 +41,6 @@
 
 namespace biax {
 
-constexpr int S_STACK_MID = 6;   // 0-5 are the biaxial stacks' sites
-
 struct StackDims { int S, R, F, H; };
 
 template <typename T, int RB>

@@ -4,6 +4,7 @@ from music_generator_tpu_torch.data.dataset import (
     clamp_midi,
     compute_beat,
     compute_genre,
+    decode_prime,
     epoch_permutation,
     load_all,
     stagger,
@@ -12,5 +13,5 @@ from music_generator_tpu_torch.data.dataset import (
 )
 
 __all__ = ["Dataset", "batches", "clamp_midi", "compute_beat",
-           "compute_genre", "epoch_permutation", "load_all", "stagger",
-           "transpose_augment", "unclamp_midi"]
+           "compute_genre", "decode_prime", "epoch_permutation", "load_all",
+           "stagger", "transpose_augment", "unclamp_midi"]

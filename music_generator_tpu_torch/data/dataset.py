@@ -67,6 +67,36 @@ def unclamp_midi(sequence: np.ndarray, config: Optional[Config] = None) -> np.nd
     return np.pad(sequence, ((0, 0), (cfg.min_note, 0), (0, 0)), "constant")
 
 
+def decode_prime(source, prime_bars: Optional[int] = None,
+                 max_bars: int = 4096,
+                 config: Optional[Config] = None) -> np.ndarray:
+    """Decode a .mid (path or file-like) into a clamped [T, num_notes, 3]
+    roll for primed continuation (`generate --prime`), bypassing
+    load_midi's cache.  `prime_bars` keeps the first K bars.  Raises
+    ValueError for unparseable input, for negative prime_bars and for
+    primes longer than `max_bars` bars (the prime advance is O(length)
+    device work)."""
+    from music_generator_tpu_torch.midi.codec import midi_decode
+    from music_generator_tpu_torch.midi.io import read_midifile
+
+    cfg = config or default_config()
+    try:
+        roll = midi_decode(read_midifile(source), cfg.midi_max_notes,
+                           config=cfg)
+    except Exception as e:
+        raise ValueError(f"not a valid MIDI file: {e}")
+    roll = clamp_midi(roll, cfg)
+    if prime_bars is not None:
+        prime_bars = int(prime_bars)
+        if prime_bars < 0:
+            raise ValueError(f"prime_bars must be >= 0, got {prime_bars}")
+        roll = roll[:prime_bars * cfg.notes_per_bar]
+    if roll.shape[0] > max_bars * cfg.notes_per_bar:
+        raise ValueError(
+            f"prime too long (> {max_bars * cfg.notes_per_bar} steps)")
+    return roll
+
+
 def transpose_augment(seq: np.ndarray, shift: int) -> np.ndarray:
     """Transpose a clamped [T, num_notes, 3] roll by `shift` semitones,
     zero-filling the vacated edge."""

@@ -12,9 +12,12 @@ step-t uniforms are `uniform(fold_in(fold_in(key(seed), offset + g), t),
 (N, 2))` (deviation #10), reproduced bit for bit by generation/prng.py and
 drawn for a whole chunk in one batched call.  The same seed therefore
 gives the same notes as the JAX `Sampler`, up to float32 knife edges.
+Per-stream (seed, index, temperature) triples, batch padding (`pad_to`),
+primed continuation (`prime`: the state is teacher-forced through a given
+roll, consuming no randomness) and the incremental surface
+(`begin` / `ActiveGeneration.advance`) keep that contract.
 
-Not in this slice: priming, `begin`/`ActiveGeneration`, and mesh or
-multi-process sharding.
+Not in this slice: mesh or multi-process sharding.
 """
 
 from __future__ import annotations
@@ -127,15 +130,60 @@ class Sampler:
         return StepState(time_state, next_note, temperature, state.base_temp,
                          silent_time, state.stream_keys), next_note
 
+    def _prime_step(self, style_emb: torch.Tensor, state: StepState, t: int,
+                    note_t: torch.Tensor) -> StepState:
+        """Teacher-force the given notes of step t: the time-axis step and
+        the adaptive-temperature update of `_step`, on the same inputs and
+        shapes, with `note_t` [G, N, 3] in place of the sampled notes.  No
+        randomness is consumed, so the continuation's uniforms stay keyed
+        by absolute step (deviation #10)."""
+        G = style_emb.shape[0]
+        _, time_state = self.model.time_axis_step(
+            state.prev_note, self._beat_row(t, G), style_emb,
+            state.time_state)
+        temperature, silent_time = self._temperature_update(state, note_t)
+        return StepState(time_state, note_t, temperature, state.base_temp,
+                         silent_time, state.stream_keys)
+
+    def _advance_through_prime(self, style_emb: torch.Tensor,
+                               state: StepState,
+                               prime: np.ndarray) -> StepState:
+        """Run the [G, T_p, N, 3] prime through the state, one step at a
+        time.  The JAX package pads its tail chunk to a bar because XLA
+        compiles a short scan differently (sampler.py:474-483); these eager
+        steps are the same code whatever the chunking, so they need no
+        padding."""
+        rows = torch.from_numpy(prime.transpose(1, 0, 2, 3).copy()).to(
+            self.device)                                    # [T_p, G, N, 3]
+        for t in range(rows.shape[0]):
+            state = self._prime_step(style_emb, state, t, rows[t])
+        return state
+
     # -- whole piece -------------------------------------------------------
 
     def _init_state(self, G: int, seed: int, temperature,
-                    stream_offset: int = 0) -> StepState:
+                    stream_offset: int = 0,
+                    seeds: Optional[np.ndarray] = None,
+                    stream_indices: Optional[np.ndarray] = None
+                    ) -> StepState:
+        """Stream g's key is fold_in(key(seed), stream_offset + g), or
+        fold_in(key(seeds[g]), stream_indices[g]) where those are given: a
+        per-stream identity, so a stream's uniforms (and bytes) never
+        depend on the batch it rides in."""
         cfg = self.cfg
         dev = self.device
-        idx = torch.arange(stream_offset, stream_offset + G,
-                           dtype=torch.int64, device=dev)
-        stream_keys = prng.fold_in(prng.key(seed, dev), idx)
+        if stream_indices is None:
+            idx = torch.arange(stream_offset, stream_offset + G,
+                               dtype=torch.int64, device=dev)
+        else:
+            idx = torch.as_tensor(np.asarray(stream_indices, np.int64),
+                                  device=dev)
+        if seeds is None:
+            root = prng.key(seed, dev)
+        else:
+            root = prng.key(torch.as_tensor(np.asarray(seeds, np.int64),
+                                            device=dev))
+        stream_keys = prng.fold_in(root, idx)
         temp = torch.as_tensor(np.broadcast_to(
             np.asarray(temperature, np.float32), (G,)).copy(), device=dev)
         return StepState(
@@ -194,47 +242,144 @@ class Sampler:
         return np.stack([play, replay, np.asarray(pulled_vol, np.float32)],
                         axis=-1)
 
+    def _begin_streams(self, styles, seed, temperature, stream_offset,
+                       pad_to, seeds, stream_indices):
+        """Validate and pad the stream batch, compute the style embedding
+        and build the initial state: what `generate` and `begin` do before
+        their chunk loop.  Pad rows repeat the last real stream and are
+        sliced off.  Returns (style_emb, state, styles_np, G_real)."""
+        if not styles:
+            raise ValueError("at least one style mixture is required")
+        if not 0 <= int(seed) < 2 ** 32:
+            raise ValueError(f"seed must be in [0, 2**32), got {seed}")
+        G_real = len(styles)
+        styles = list(styles)
+        pad = (-G_real) % (pad_to or 1)
+        styles = styles + [styles[-1]] * pad
+
+        def _per_stream(vals, name, dtype, lo=None, hi=None):
+            vals = [dtype(v) for v in vals]
+            if len(vals) != G_real:
+                raise ValueError(f"{name} must have one entry per style "
+                                 f"mixture ({G_real}), got {len(vals)}")
+            for v in vals:
+                if lo is not None and not lo <= v < hi:
+                    raise ValueError(
+                        f"each {name} entry must be in [{lo}, {hi}), got {v}")
+            return np.asarray(vals + [vals[-1]] * pad)
+
+        if seeds is not None:
+            seeds = _per_stream(seeds, "seeds", int, 0, 2 ** 32)
+        if stream_indices is not None:
+            stream_indices = _per_stream(stream_indices, "stream_indices",
+                                         int, 0, 2 ** 32)
+        styles_np = np.stack([np.asarray(s) for s in styles]).astype(
+            np.float32)
+        style_emb = self.model.style_embedding(
+            torch.from_numpy(styles_np).to(self.device))
+        if temperature is None:
+            temp = self.default_temp
+        elif np.ndim(temperature) == 0:
+            temp = float(temperature)
+        else:
+            temp = _per_stream(temperature, "temperature", float).astype(
+                np.float32)
+        state = self._init_state(styles_np.shape[0], int(seed), temp,
+                                 stream_offset, seeds=seeds,
+                                 stream_indices=stream_indices)
+        return style_emb, state, styles_np, G_real
+
+    @torch.no_grad()
+    def begin(self, styles: Sequence[np.ndarray], *, chunk_bars: int = 8,
+              seed: int = 0, temperature=None, stream_offset: int = 0,
+              pad_to: Optional[int] = None,
+              seeds: Optional[Sequence[int]] = None,
+              stream_indices: Optional[Sequence[int]] = None,
+              ) -> "ActiveGeneration":
+        """Open an incremental generation: the stream semantics of
+        `generate`, but the caller drives the chunk loop through the
+        returned handle's `advance()`; between calls the state stays on the
+        device.  `begin(...)` followed by `advance()` calls gives the exact
+        notes of `generate(..., pad_partial_chunk=True,
+        chunk_bars=chunk_bars)`, however the calls are grouped."""
+        style_emb, state, styles_np, G_real = self._begin_streams(
+            styles, seed, temperature, stream_offset, pad_to, seeds,
+            stream_indices)
+        return ActiveGeneration(self, style_emb, state, styles_np, G_real,
+                                self.cfg.notes_per_bar * chunk_bars)
+
     @torch.no_grad()
     def generate(self, styles: Sequence[np.ndarray], num_bars: int = 32,
                  seed: int = 0, chunk_bars: int = 8, temperature=None,
-                 stream_offset: int = 0) -> GenerationResult:
+                 stream_offset: int = 0, pad_to: Optional[int] = None,
+                 prime: Optional[np.ndarray] = None,
+                 pad_partial_chunk: bool = False,
+                 seeds: Optional[Sequence[int]] = None,
+                 stream_indices: Optional[Sequence[int]] = None,
+                 ) -> GenerationResult:
         """Generate `num_bars` bars for each style mixture.
 
         The piece runs in chunks of `chunk_bars` bars; chunking does not
         change the output.  Stream g draws its uniforms from (seed,
         stream_offset + g, t), so stream g of a batch equals a solo run at
         stream_offset=g.  `temperature` is a scalar or one value per
-        stream; None takes the sampler's default."""
+        stream; None takes the sampler's default.
+
+        `pad_to` pads the batch to a multiple of that size with copies of
+        the last style mixture (the serving bucket); the padding is sliced
+        off.  `seeds` / `stream_indices` / a per-stream `temperature` give
+        stream g its own (seed, index, temperature) triple: its notes equal
+        the solo run `generate([styles[g]], seed=seeds[g],
+        stream_offset=stream_indices[g], temperature=temps[g])`.
+
+        `prime`: an optional clamped piano roll ([T_p, N, 3] shared by every
+        stream, or [G, T_p, N, 3] per stream) to continue from: the state is
+        teacher-forced through it, then `num_bars` bars are generated from
+        absolute step T_p.  The result holds the continuation only
+        (`prepend_prime` gives the whole piece).
+
+        `pad_partial_chunk` runs the final partial chunk at the full chunk
+        length and slices the surplus off: the same notes (the scan is
+        causal, the uniforms keyed by absolute step)."""
         cfg = self.cfg
         if num_bars < 0:
             raise ValueError(f"num_bars must be >= 0, got {num_bars}")
-        if not styles:
-            raise ValueError("at least one style mixture is required")
-        if not 0 <= int(seed) < 2 ** 32:
-            raise ValueError(f"seed must be in [0, 2**32), got {seed}")
-        styles_np = np.stack([np.asarray(s) for s in styles]).astype(
-            np.float32)
-        G = styles_np.shape[0]
-        if temperature is None:
-            temperature = self.default_temp
-        if np.ndim(temperature) and len(temperature) != G:
-            raise ValueError(f"temperature must have one entry per style "
-                             f"mixture ({G}), got {len(temperature)}")
-        num_steps = cfg.notes_per_bar * num_bars
+        style_emb, state, styles_np, G_real = self._begin_streams(
+            styles, seed, temperature, stream_offset, pad_to, seeds,
+            stream_indices)
+        gen_steps = cfg.notes_per_bar * num_bars
+        num_steps = gen_steps
+        if pad_partial_chunk:
+            chunk = cfg.notes_per_bar * chunk_bars
+        else:
+            chunk = min(num_steps, cfg.notes_per_bar * chunk_bars)
+        prime_steps = 0
+        if prime is not None and prime.shape[-3] > 0:
+            prime = np.asarray(prime, np.float32)
+            G_pad = styles_np.shape[0]
+            if prime.ndim == 3:
+                prime = np.broadcast_to(prime[None], (G_pad,) + prime.shape)
+            elif prime.shape[0] != G_real:
+                raise ValueError(
+                    f"prime has {prime.shape[0]} streams but "
+                    f"{G_real} style mixtures were given")
+            elif prime.shape[0] != G_pad:        # pad like the styles
+                prime = np.concatenate(
+                    [prime] + [prime[-1:]] * (G_pad - prime.shape[0]))
+            prime_steps = prime.shape[1]
+            state = self._advance_through_prime(style_emb, state, prime)
         if num_steps == 0:
             return GenerationResult(
-                np.zeros((G, 0, cfg.num_notes, cfg.note_units), np.float32),
-                styles_np)
-        style_emb = self.model.style_embedding(
-            torch.from_numpy(styles_np).to(self.device))
-        state = self._init_state(G, int(seed), temperature, stream_offset)
-        chunk = min(num_steps, cfg.notes_per_bar * chunk_bars)
+                np.zeros((G_real, 0, cfg.num_notes, cfg.note_units),
+                         np.float32), styles_np[:G_real])
         # Enqueue chunk k+1 before copying chunk k to the host, so the copy
         # overlaps the next chunk's work.  The output is that of the
         # serial loop.
-        pieces, pending, t = [], None, 0
+        pieces, pending = [], None
+        t = prime_steps
+        num_steps += prime_steps
         while t < num_steps:
-            n = min(chunk, num_steps - t)
+            n = chunk if pad_partial_chunk else min(chunk, num_steps - t)
             state, out = self._chunk(style_emb, state, n, t)
             if pending is not None:
                 pieces.append(self._assemble(*(x.cpu().numpy()
@@ -242,7 +387,54 @@ class Sampler:
             pending = out
             t += n
         pieces.append(self._assemble(*(x.cpu().numpy() for x in pending)))
-        return GenerationResult(np.concatenate(pieces, axis=1), styles_np)
+        notes = np.concatenate(pieces, axis=1)[:G_real, :gen_steps]
+        return GenerationResult(notes, styles_np[:G_real])
+
+
+class ActiveGeneration:
+    """An open incremental generation (`Sampler.begin`): the per-stream
+    state stays on the device between `advance()` calls."""
+
+    def __init__(self, sampler: Sampler, style_emb, state, styles_np,
+                 G_real: int, chunk_steps: int):
+        self._sampler = sampler
+        self._style_emb = style_emb
+        self._state = state
+        self.styles_np = styles_np
+        self.G_real = G_real
+        self.chunk_steps = chunk_steps
+        self.t = 0                     # absolute step of the next chunk
+
+    @torch.no_grad()
+    def advance(self, num_chunks: int = 1) -> np.ndarray:
+        """Run `num_chunks` full chunks and return their notes, real
+        streams only: [G_real, num_chunks * chunk_steps, N, 3]."""
+        s = self._sampler
+        pieces = []
+        for _ in range(num_chunks):
+            self._state, out = s._chunk(self._style_emb, self._state,
+                                        self.chunk_steps, self.t)
+            pieces.append(s._assemble(*(x.cpu().numpy() for x in out))[
+                :self.G_real])
+            self.t += self.chunk_steps
+        return np.concatenate(pieces, axis=1)
+
+    def close(self) -> None:
+        """Release the state on the device (the handle is unusable
+        after)."""
+        self._state = None
+        self._style_emb = None
+
+
+def prepend_prime(notes: np.ndarray, prime: np.ndarray) -> np.ndarray:
+    """The whole piece of a primed generation: the (clamped) prime followed
+    by the continuation, per stream.  A 3-d prime (shared by every stream)
+    broadcasts across the batch; a 4-d prime is per stream already."""
+    prime = np.asarray(prime, np.float32)
+    if prime.ndim == 3:
+        prime = np.broadcast_to(prime[None],
+                                (notes.shape[0],) + prime.shape)
+    return np.concatenate([prime, notes], axis=1)
 
 
 def write_file(name: str, result: GenerationResult,

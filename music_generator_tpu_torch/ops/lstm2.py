@@ -39,6 +39,10 @@ On a CPU tensor the wrapper runs the plain version
 (`lstm2_stack_reference`); on a CUDA tensor it launches the kernels or
 raises.  Launch counters: `lstm2_stack.fwd_launches` / `.bwd_launches`;
 the plain version counts `.calls`.
+
+`dump_masks` writes the stack's masks out as one [S, R, H] array (the
+JAX package's `extract_masks` of tools/tpu_validate_lstm2.py) through the
+kernel of `csrc/lstm2_masks.cu`, beside its plain version `stack_masks`.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ from music_generator_tpu_torch.ops.biax import (WGRAD_CHUNKS, _F, _P, _I, _U,
                                                 _stream, _wgrad)
 from music_generator_tpu_torch.ops.lstm import check_recurrent_activation
 
-S_STACK_MID = 6     # mask site salt; 0-5 are the biaxial stacks' sites
+S_STACK_MID = 6     # mask site salt (Site in csrc/biax_common.cuh); 0-5 are
+                    # the biaxial stacks' sites
 
 _SIGNATURES = {
     "lstm2_fwd": [_I] + [_P] * 20 + [_I] * 4 + [_U, _U, _F, _I, _I, _P],
@@ -85,6 +90,45 @@ def stack_masks(seed: int, S: int, R: int, H: int, keep_prob: float,
     steps = torch.arange(S, dtype=torch.int64, device=device)[:, None, None]
     rows = torch.arange(R, dtype=torch.int64, device=device)
     return keep_mask(seed, steps, rows.expand(S, R), H, keep_prob, dtype)
+
+
+_MASK_SIGNATURES = {"lstm2_masks": [_I, _P, _I, _I, _I, _U, _U, _F, _P]}
+
+
+def dump_masks(seed: int, S: int, R: int, H: int, dropout_p: float,
+               dtype: torch.dtype = torch.float32,
+               device=None) -> Optional[torch.Tensor]:
+    """The masks the fused stack applies at inter-layer rate `dropout_p`
+    under `seed`, [S, R, H] in `dtype` (kept elements 1/keep in the dtype,
+    dropped ones 0); None when dropout is off.  On the CPU the plain
+    version (`stack_masks`); on a CUDA device the kernel of
+    csrc/lstm2_masks.cu, which evaluates the same device function the
+    stack's kernels do.  Launch counter: `dump_masks.launches`."""
+    keep = 1.0 - dropout_p
+    if keep >= 1.0:
+        return None
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cpu":
+        return stack_masks(seed, S, R, H, keep, dtype, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"dump_masks runs on the CPU or CUDA, got {dev}")
+    bf16 = _is_bf16(dtype)
+    if R * H >= 2 ** 31 or S > 65535:
+        raise ValueError(f"dump_masks takes R * H < 2**31 and S <= 65535, "
+                         f"got S={S}, R={R}, H={H}")
+    out = torch.empty(S, R, H, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    mseed, thr, scale, _ = _mask_args(dropout_p, seed, dtype)
+    lib = _build.bind("lstm2_masks", _MASK_SIGNATURES)
+    with torch.cuda.device(dev):
+        _check(lib.lstm2_masks(bf16, out.data_ptr(), S, R, H, mseed, thr,
+                               scale, _stream(dev)), "lstm2_masks")
+    dump_masks.launches += 1
+    return out
+
+
+dump_masks.launches = 0
 
 
 def lstm2_stack_reference(x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00, h10,

@@ -50,3 +50,9 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
     """Read a keystr-layout `.npz` checkpoint into a state dict."""
     with np.load(path) as data:
         return params_from_numpy({k: data[k] for k in data.files})
+
+
+def save_params_npz(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a state dict as a keystr-layout `.npz` (what load_params_npz
+    and the JAX package's tools read)."""
+    np.savez(path, **params_to_numpy(state))
