@@ -12,11 +12,12 @@ Phases (any failure exits non-zero, before the result line):
      recurrence, forward and backward, at the time and note axes' shapes)
      in float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
      outputs, terminal states and every input, weight and initial-state
-     gradient, also at small odd widths; and the time stack's backward
-     (six passes) against its staged plain version, which repeats those
-     passes, with the scan route each dtype takes (bfloat16: U resident in
-     a thread-block cluster; float32: U streamed); and the lstm2 mask dump
-     (kernel 10) against its plain version, bit for bit;
+     gradient, also at small odd widths; and each biaxial backward (the
+     time stack's six passes, the note stack's seven) against its staged
+     plain version, which repeats those passes, with the scan route each
+     dtype takes (bfloat16: U resident in a thread-block cluster, one
+     block for the note stack; float32: U streamed); and the lstm2 mask
+     dump (kernel 10) against its plain version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -26,8 +27,8 @@ Phases (any failure exits non-zero, before the result line):
   3c. drive the training main path through the CLI's code (train_main at
      default_config(), 2 epochs on a synthetic corpus of all 23 styles),
      and check that every step launched each training kernel once (the
-     time backward's two scans on the cluster route) and no plain version
-     ran, that the losses are finite, and that
+     time and note backwards' two scans each on the cluster route) and no
+     plain version ran, that the losses are finite, and that
      generate_main picks up the checkpoint and writes 3 files;
   3d. one dropout-0 training step on a seeded batch: kernels against the
      plain stacks in float32 (loss, every gradient, the parameters after
@@ -53,8 +54,9 @@ Phases (any failure exits non-zero, before the result line):
      kernel must have been launched in 3g-3h;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route (and its busy share),
-     each kernel and its plain version, each pass of the time backward
-     (both scan routes, with the cluster scan's clock cycles per phase),
+     each kernel and its plain version, each pass of the time and note
+     backwards (both scan routes, with the cluster scan's clock cycles per
+     phase and a check that its plan is one wave),
      cuDNN's LSTM beside the recurrence, and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -328,51 +330,60 @@ def check_biax_kernels(cfg):
     return errs
 
 
-def check_time_bwd_staged(cfg):
-    """The time stack's backward kernels (`biax_time_bwd`) against their
-    staged plain version (`biax_time_bwd_staged`) on the same forward
-    tapes and cotangent, at the main widths (T = CHECK_T) and at small odd
-    widths, both dtypes, dropout 0 and 0.5, both gate flavors, with the
-    tolerances of check_biax_kernels; each backward must take its dtype's
-    scan route (two cluster scans in bfloat16, two streamed in float32)."""
+def check_bwd_staged(cfg, kind: str):
+    """A stack's backward kernels (`biax_{kind}_bwd`: the time stack's six
+    passes, the note stack's seven) against their staged plain version
+    (`biax_{kind}_bwd_staged`) on the same forward tapes and cotangent, at
+    the main widths (T = CHECK_T) and at small odd widths, both dtypes,
+    dropout 0 and 0.5, both gate flavors, with the tolerances of
+    check_biax_kernels; each backward must take its dtype's scan route
+    (two cluster scans in bfloat16, two streamed in float32)."""
     from music_generator_tpu_torch.ops import biax
+    fwd, bwd, staged = (getattr(biax, f"biax_{kind}_{s}")
+                        for s in ("fwd", "bwd", "bwd_staged"))
     small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
                         time_axis_units=12, note_axis_units=12)
     cases = 0
     for c, T, label in ((cfg, CHECK_T, "main widths"),
                         (small, 6, "small widths")):
-        args = stack_inputs("time", c, T, 12)
-        shape = (T, c.num_notes, c.batch_size, c.time_axis_units)
+        args = stack_inputs(kind, c, T, 12)
+        shape = ((T, c.num_notes, c.batch_size, c.time_axis_units)
+                 if kind == "time" else (c.num_notes, T, c.batch_size, 3))
         for cdt in (torch.float32, torch.bfloat16):
             for p in (0.0, 0.5):
                 for act in ("sigmoid", "hard_sigmoid"):
                     kw = dict(dropout_p=p, seed=4321, compute_dtype=cdt,
                               recurrent_activation=act)
-                    tapes = biax.biax_time_fwd(*args, **kw)
+                    tapes = fwd(*args, **kw)
+                    if kind == "note":
+                        tapes = tapes[1:]         # the tapes after out
                     cot = torch.randn(shape, device="cuda", generator=(
                         torch.Generator("cuda").manual_seed(cases)))
-                    before = scan_counts()
-                    got = biax.biax_time_bwd(*args, *tapes, cot, **kw)
+                    before = scan_counts(kind)
+                    got = bwd(*args, *tapes, cot, **kw)
                     torch.cuda.synchronize()
-                    ran = tuple(a - b for a, b in zip(scan_counts(), before))
-                    want = biax.biax_time_bwd_staged(*args, *tapes, cot, **kw)
+                    ran = tuple(a - b for a, b in zip(scan_counts(kind),
+                                                      before))
+                    want = staged(*args, *tapes, cot, **kw)
                     cases += 1
                     err, rel, cos = leaf_stats([g.float() for g in got],
                                                [w.float() for w in want])
                     finite = all(bool(torch.isfinite(g).all()) for g in got)
                     dt = "f32" if cdt == torch.float32 else "bf16"
-                    log(f"biax_time_bwd vs staged {label} {dt} p={p} {act}: "
-                        f"max|d|={err:.3g}, worst rel={rel:.3g}, worst "
-                        f"cos={cos:.6f}; scans (cluster, streamed) {ran}")
+                    log(f"biax_{kind}_bwd vs staged {label} {dt} p={p} "
+                        f"{act}: max|d|={err:.3g}, worst rel={rel:.3g}, "
+                        f"worst cos={cos:.6f}; scans (cluster, streamed) "
+                        f"{ran}")
                     if cdt == torch.float32:
                         ok = rel <= F32_GRAD_REL and ran == (0, 2)
                     else:
                         ok = (rel <= BF16_GRAD_REL and cos >= BF16_COS
                               and ran == (2, 0))
                     if not ok or not finite:
-                        fail(f"biax_time_bwd {label} {dt} p={p} {act} "
+                        fail(f"biax_{kind}_bwd {label} {dt} p={p} {act} "
                              f"disagrees with its staged version")
-    log(f"biax_time_bwd: {cases} cases agree with the staged plain version")
+    log(f"biax_{kind}_bwd: {cases} cases agree with the staged plain "
+        f"version")
 
 
 def axis_shapes(cfg, T: int):
@@ -501,15 +512,15 @@ def reset_counts():
     for _, fn, plain in _training_wrappers():
         fn.fwd_launches = fn.bwd_launches = 0
         plain.calls = 0
-    biax.biax_time_stack.cluster_scans = 0
-    biax.biax_time_stack.streamed_scans = 0
+    for stack in (biax.biax_time_stack, biax.biax_note_stack):
+        stack.cluster_scans = stack.streamed_scans = 0
 
 
-def scan_counts():
-    """(cluster, streamed) scans launched by the time backward."""
+def scan_counts(kind: str):
+    """(cluster, streamed) scans launched by the time or note backward."""
     from music_generator_tpu_torch.ops import biax
-    return (biax.biax_time_stack.cluster_scans,
-            biax.biax_time_stack.streamed_scans)
+    stack = getattr(biax, f"biax_{kind}_stack")
+    return stack.cluster_scans, stack.streamed_scans
 
 
 def read_counts():
@@ -540,7 +551,7 @@ def train_main_path(cfg):
         reset_counts()
         hist = train_main(["--epochs", "2"])
         launches, plain = read_counts()
-        scans = scan_counts()
+        scans = {kind: scan_counts(kind) for kind in ("time", "note")}
         train_s = time.perf_counter() - t
         paths = generate_main(["--bars", "2"])
         model, loaded = build_or_load(cfg, "cuda")
@@ -549,16 +560,17 @@ def train_main_path(cfg):
     steps = sum(hist["steps_per_epoch"])
     log(f"train main path: {steps} steps in 2 epochs, losses {hist['loss']}, "
         f"{train_s:.1f} s; kernel launches {launches}, plain version calls "
-        f"{plain}; time-backward scans (cluster, streamed) {scans}")
+        f"{plain}; backward scans (cluster, streamed) {scans}")
     if not np.isfinite(hist["loss"]).all():
         fail("non-finite training loss")
     if (any(v != (steps if k.startswith("biax") else 0)
             for k, v in launches.items()) or plain != 0):
         fail("the training main path did not run every step through each "
              "biaxial kernel, and only through them")
-    if cfg.compute_dtype == "bfloat16" and scans != (2 * steps, 0):
-        fail(f"the bfloat16 time backward ran scans {scans}, not "
-             f"{(2 * steps, 0)} on the cluster route")
+    for kind, ran in scans.items():
+        if cfg.compute_dtype == "bfloat16" and ran != (2 * steps, 0):
+            fail(f"the bfloat16 {kind} backward ran scans {ran}, not "
+                 f"{(2 * steps, 0)} on the cluster route")
     if not loaded or not os.path.isfile(os.path.join(TRAIN_WORK, "out",
                                                      "model.pt")):
         fail("the training checkpoint was not written and reloaded")
@@ -732,7 +744,8 @@ def time_biax(cfg, card):
                 f"plain version {times[(kind, 'plain')][i]:.4f} ms, bound "
                 f"{bound:.6f} ms by {by} (T={T}, B={cfg.batch_size}, "
                 f"bfloat16; {card})")
-    time_bwd_passes(cfg, card)
+    for kind in ("time", "note"):
+        bwd_passes(cfg, card, kind)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
     lstm = torch.nn.LSTM(feature_dim(cfg), H, num_layers=2).cuda().to(
@@ -754,57 +767,70 @@ def time_biax(cfg, card):
 
 
 @contextlib.contextmanager
-def scan_route(route: str):
-    """Run the time backward's scans on `route` whatever the dtype."""
+def forced_scan_route(route: str):
+    """Run the biaxial backwards' scans on `route` whatever the dtype."""
     from music_generator_tpu_torch.ops import biax
-    saved = biax.time_scan_route
-    biax.time_scan_route = lambda cdt: route
+    saved = biax.scan_route
+    biax.scan_route = lambda cdt: route
     try:
         yield
     finally:
-        biax.time_scan_route = saved
+        biax.scan_route = saved
 
 
-def time_bwd_passes(cfg, card, reps: int = 6):
-    """ms of each pass of the time backward (`biax_time_bwd`, bfloat16, the
-    training shapes): CUDA events between the passes of `reps` backwards
-    queued back to back, the first dropped; on the cluster route (the main
-    path's) and on the streamed route (the float32 route's scans, run in
-    bfloat16 for comparison).  Logs the cluster scans' clock cycles per
-    step and phase (block 0) and their plan."""
+def bwd_passes(cfg, card, kind: str, reps: int = 6):
+    """ms of each pass of a stack's backward (`biax_{kind}_bwd`, bfloat16,
+    the training shapes): CUDA events between the passes of `reps`
+    backwards queued back to back, the first dropped; on the cluster route
+    (the main path's) and on the streamed route (the float32 route's
+    scans, run in bfloat16 for comparison).  Logs the cluster scans' clock
+    cycles per step and phase (block 0) and their plan, and fails unless
+    the plan's clusters are all resident at once (one wave)."""
     from music_generator_tpu_torch.ops import biax
     T = cfg.seq_len
-    args = stack_inputs("time", cfg, T, 5)
+    args = stack_inputs(kind, cfg, T, 5)
     kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
               recurrent_activation="sigmoid")
-    tapes = biax.biax_time_fwd(*args, **kw)
-    cot = torch.ones(T, cfg.num_notes, cfg.batch_size, cfg.time_axis_units,
-                     device="cuda")
+    tapes = getattr(biax, f"biax_{kind}_fwd")(*args, **kw)
+    if kind == "time":
+        S, R = T, cfg.num_notes * cfg.batch_size
+        cot = torch.ones(T, cfg.num_notes, cfg.batch_size,
+                         cfg.time_axis_units, device="cuda")
+    else:
+        S, R = cfg.num_notes, T * cfg.batch_size
+        cot = torch.ones(cfg.num_notes, T, cfg.batch_size, 3, device="cuda")
+        tapes = tapes[1:]
+    bwd = getattr(biax, f"biax_{kind}_bwd")
     for route in ("cluster", "streamed"):
         prof = torch.zeros(2, 9, dtype=torch.int64, device="cuda")
-        with scan_route(route):
+        with forced_scan_route(route):
             runs = []
             for _ in range(reps):
                 marks = []
-                biax.biax_time_bwd(*args, *tapes, cot, **kw, marks=marks,
-                                   scan_prof=prof)
+                bwd(*args, *tapes, cot, **kw, marks=marks, scan_prof=prof)
                 runs.append(marks)
             torch.cuda.synchronize()
         per = {name: float(np.mean([m[i][1].elapsed_time(m[i + 1][1])
                                     for m in runs[1:]]))
                for i, (name, _) in enumerate(runs[0][1:])}
-        log(f"biax_time_bwd passes, {route} scans (ms, mean of {reps - 1}): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+        log(f"biax_{kind}_bwd passes, {route} scans (ms, mean of "
+            f"{reps - 1}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         per.items())
             + f"; sum {sum(per.values()):.4f} ({card})")
         if route == "cluster":
-            cyc = prof.cpu().tolist()
-            for layer, row in zip((1, 0), cyc):
-                log(f"cluster scan layer {layer}: clock cycles per step of "
-                    f"block 0: own cell work {row[0] / T:.0f}, dz exchange "
-                    f"and barrier {row[1] / T:.0f}, product {row[2] / T:.0f}, "
-                    f"second barrier {row[3] / T:.0f}; cluster {row[4]} "
-                    f"blocks, {row[5]} rows, {row[6]} units a block, "
-                    f"{row[7]} K parts, {row[8]} clusters resident")
+            for layer, row in zip((1, 0), prof.cpu().tolist()):
+                clusters = -(-R // row[5])
+                log(f"{kind} cluster scan layer {layer}: clock cycles per "
+                    f"step of block 0: own cell work {row[0] / S:.0f}, dz "
+                    f"exchange and barrier {row[1] / S:.0f}, product "
+                    f"{row[2] / S:.0f}, second barrier {row[3] / S:.0f}; "
+                    f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
+                    f"units a block, {row[7]} K parts, {clusters} clusters "
+                    f"of {row[8]} resident")
+                if clusters > row[8]:
+                    fail(f"the {kind} cluster scan's plan needs {clusters} "
+                         f"clusters, more than the {row[8]} resident: two "
+                         f"waves")
 
 
 def lstm_bound_ms(name: str, S: int, R: int, F: int, H: int):
@@ -1199,7 +1225,8 @@ def main() -> None:
     log(f"notegen: {case} cases agree with the plain version "
         f"(|u-p| edge {EDGE}, volume atol {VOLUME_ATOL})")
     biax_errs = check_biax_kernels(cfg)
-    check_time_bwd_staged(cfg)
+    for kind in ("time", "note"):
+        check_bwd_staged(cfg, kind)
     lstm_errs = check_lstm_kernels(cfg)
     mask_err = check_mask_kernel()
 

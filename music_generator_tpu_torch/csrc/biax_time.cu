@@ -48,13 +48,11 @@
 // The scans overwrite z with dz in place.  Blocks never talk across
 // clusters, so the weight gradients, which the TPU kernel summed in VMEM
 // across its sequential grid, are a second, deterministic reduction over
-// the dz tapes.
+// the dz tapes.  The prologue is this file's; passes 2-6 are the shared
+// machinery of biax_passes.cuh with (S, A) = (T, N), which the note
+// stack's backward (biax_note.cu) runs with (S, A) = (N, T).
 
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "biax_common.cuh"
+#include "biax_passes.cuh"
 
 namespace biax {
 
@@ -140,7 +138,8 @@ __global__ void __launch_bounds__(1024) time_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The backward, in six passes (see the note at the top).
+// The backward, in six passes (see the note at the top; 2-6 in
+// biax_passes.cuh).
 // ---------------------------------------------------------------------------
 
 // 1. Prologue: the layer inputs of every (t, row) m = t R + g, as the
@@ -178,575 +177,6 @@ __global__ void __launch_bounds__(128) time_bwd_prologue_kernel(
   }
 }
 
-// 2., 4., 6. The bulk products C[M][N] = A B over all T R rows.  An
-// operand pair: A [rows][lda] (K contiguous; row m reads row m - shift,
-// zero before it; columns from K to lda hold zeros); B in the layout of T
-// (`_layout`): bfloat16 [N][ldb = padk(K)] zero-padded, float32 [K][ldb = N].
-template <typename T>
-struct Operand {
-  const T* A;
-  int lda, shift, K;
-  const T* B;
-  int ldb;
-};
-
-enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2 };
-
-template <typename T>
-struct EpiArgs {
-  T* out_t;        // PRE: z [M][N]; DX0: dx [M][N]
-  const T* bias;   // PRE: [N]
-  float* out_a;    // DX1: style-1 rows; DX0: style-0 rows
-  float* out_b;    // DX1: the mid term added to layer 0's dh
-  TimeDims d;
-  Drop drop;
-};
-
-// PRE: z = ((A1 B1 -> T) + b) + (A2 B2 -> T), the cast order of `preact`;
-// `pre_first` forms the first term, exact in T, after the first product.
-// DX1: dx1 = A B in float32; style-1 rows dx1 m_style1, mid term dx1 m_mid.
-// DX0: dx = A B rounded to T; style-0 rows (float32 product) dx m_style0.
-template <typename T>
-__device__ __forceinline__ float pre_first(const EpiArgs<T>& e, int n,
-                                           float v) {
-  return add_t<T>(rnd<T>(v), ld(e.bias + n));
-}
-
-template <typename T, int MODE>
-__device__ __forceinline__ void epilogue(const EpiArgs<T>& e, int N, int m,
-                                         int n, float v1, float v2) {
-  const size_t o = (size_t)m * N + n;
-  if constexpr (MODE == EPI_PRE) {
-    st(e.out_t + o, add_t<T>(v1, rnd<T>(v2)));
-  } else {
-    float ma = 1.f, mb = 1.f;
-    if (e.drop.on) {
-      const int R = e.d.N * e.d.B, t = m / R;
-      const RowPos p = row_pos(m % R, e.d.B, e.d.k);
-      ma = mval(e.drop, MODE == EPI_DX1 ? S_STYLE1 : S_STYLE0, p.j, t, p.r,
-                N, n);
-      if (MODE == EPI_DX1) mb = mval(e.drop, S_MID, p.j, t, p.r, N, n);
-    }
-    e.out_a[o] = e.drop.on ? __fmul_rn(v1, ma) : v1;
-    if constexpr (MODE == EPI_DX1)
-      e.out_b[o] = e.drop.on ? __fmul_rn(v1, mb) : v1;
-    else
-      st(e.out_t + o, v1);
-  }
-}
-
-// Columns n and n + 1 of row m (n even, N even) with paired stores.
-template <int MODE>
-__device__ __forceinline__ void epilogue_pair(const EpiArgs<bf16>& e, int N,
-                                              int m, int n, float a0,
-                                              float a1, float b0, float b1) {
-  const size_t o = (size_t)m * N + n;
-  if constexpr (MODE == EPI_PRE) {
-    *reinterpret_cast<uint32_t*>(e.out_t + o) =
-        pack_bf16(add_t<bf16>(a0, rnd<bf16>(b0)),
-                  add_t<bf16>(a1, rnd<bf16>(b1)));
-  } else {
-    float2 va = make_float2(a0, a1), vb = va;
-    if (e.drop.on) {
-      const int R = e.d.N * e.d.B, t = m / R;
-      const RowPos p = row_pos(m % R, e.d.B, e.d.k);
-      const int site = MODE == EPI_DX1 ? S_STYLE1 : S_STYLE0;
-      va.x = __fmul_rn(a0, mval(e.drop, site, p.j, t, p.r, N, n));
-      va.y = __fmul_rn(a1, mval(e.drop, site, p.j, t, p.r, N, n + 1));
-      if (MODE == EPI_DX1) {
-        vb.x = __fmul_rn(a0, mval(e.drop, S_MID, p.j, t, p.r, N, n));
-        vb.y = __fmul_rn(a1, mval(e.drop, S_MID, p.j, t, p.r, N, n + 1));
-      }
-    }
-    *reinterpret_cast<float2*>(e.out_a + o) = va;
-    if constexpr (MODE == EPI_DX1)
-      *reinterpret_cast<float2*>(e.out_b + o) = vb;
-    else
-      *reinterpret_cast<uint32_t*>(e.out_t + o) = pack_bf16(a0, a1);
-  }
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
-// bfloat16: 128 x 64 output tiles over 8 warps of 32 x 32 (4 along M, 2
-// along N), mma.sync m16n8k16 with float32 accumulation; 32-wide K tiles
-// in a 3-stage cp.async ring (rows of 40 values: 16-byte aligned, and
-// ldmatrix's eight rows fall on distinct banks).  The grid walks N
-// fastest, so the blocks that share a panel of A run together and find it
-// in L2: A (the largest operand) comes from device memory once.
-constexpr int GBM = 128, GBN = 64, GBK = 32, GLD = GBK + 8, GST = 3;
-constexpr int GTHREADS = 256;
-
-__device__ __forceinline__ void gemm_load(const Operand<bf16>& op, int M,
-                                          int N, int m0, int n0, int k0,
-                                          bf16* As, bf16* Bs) {
-  const bool vec = (op.lda & 7) == 0;
-  for (int e = threadIdx.x; e < GBM * 4; e += GTHREADS) {
-    const int rr = e >> 2, c8 = (e & 3) * 8, row = m0 + rr;
-    const int ar = row - op.shift, kk = k0 + c8;
-    const bool in = row < M && ar >= 0;
-    bf16* dst = As + rr * GLD + c8;
-    if (vec) {
-      const bool ok = in && kk < op.K;
-      cp_async16(dst, ok ? (const void*)(op.A + (size_t)ar * op.lda + kk)
-                         : (const void*)op.A, ok);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        dst[q] = (in && kk + q < op.K) ? op.A[(size_t)ar * op.lda + kk + q]
-                                       : __float2bfloat16(0.f);
-    }
-  }
-  for (int e = threadIdx.x; e < GBN * 4; e += GTHREADS) {
-    const int rr = e >> 2, c8 = (e & 3) * 8, n = n0 + rr, kk = k0 + c8;
-    const bool ok = n < N && kk < op.ldb;
-    cp_async16(Bs + rr * GLD + c8,
-               ok ? (const void*)(op.B + (size_t)n * op.ldb + kk)
-                  : (const void*)op.B, ok);
-  }
-}
-
-// acc[i][j]: the warp's m16 tile i and n8 tile j.  Ends with a barrier, so
-// a second product may reuse the ring.
-__device__ __forceinline__ void gemm_mainloop(const Operand<bf16>& op,
-                                              int M, int N, int m0, int n0,
-                                              bf16* As, bf16* Bs,
-                                              float (&acc)[2][4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  const int KT = (op.K + GBK - 1) / GBK;
-  for (int s = 0; s < GST - 1; ++s) {
-    if (s < KT)
-      gemm_load(op, M, N, m0, n0, s * GBK, As + s * GBM * GLD,
-                Bs + s * GBN * GLD);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<GST - 2>();
-    __syncthreads();
-    const int nxt = kt + GST - 1;
-    if (nxt < KT)
-      gemm_load(op, M, N, m0, n0, nxt * GBK, As + (nxt % GST) * GBM * GLD,
-                Bs + (nxt % GST) * GBN * GLD);
-    cp_async_commit();
-    const bf16* as = As + (kt % GST) * GBM * GLD;
-    const bf16* bs = Bs + (kt % GST) * GBN * GLD;
-#pragma unroll
-    for (int ks = 0; ks < GBK; ks += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], as + (wm + i * 16 + (lane & 15)) * GLD + ks +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t v[4];
-        ldsm_x4(v, bs + (wn + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * GLD +
-                       ks + ((lane >> 3) & 1) * 8);
-        bfr[j][0] = v[0];
-        bfr[j][1] = v[1];
-        bfr[j + 1][0] = v[2];
-        bfr[j + 1][1] = v[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
-                   bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(GTHREADS) gemm_mma_kernel(
-    Operand<bf16> p1, Operand<bf16> p2, int M, int N, EpiArgs<bf16> e) {
-  __shared__ __align__(16) bf16 As[GST * GBM * GLD];
-  __shared__ __align__(16) bf16 Bs[GST * GBN * GLD];
-  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  float acc[2][4][4];
-  uint32_t first[2][4][2];   // PRE: the first term, exact in bf16, packed
-  gemm_mainloop(p1, M, N, m0, n0, As, Bs, acc);
-  if constexpr (MODE == EPI_PRE) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn + j * 8 + 2 * t;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          first[i][j][h] = pack_bf16(
-              n < N ? pre_first(e, n, acc[i][j][2 * h]) : 0.f,
-              n + 1 < N ? pre_first(e, n + 1, acc[i][j][2 * h + 1]) : 0.f);
-    }
-    gemm_mainloop(p2, M, N, m0, n0, As, Bs, acc);
-  }
-  const bool paired = (N & 1) == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + g + 8 * h;
-        const int n = n0 + wn + j * 8 + 2 * t;
-        if (m >= M || n >= N) continue;
-        float a0 = acc[i][j][2 * h], a1 = acc[i][j][2 * h + 1];
-        const float b0 = a0, b1 = a1;
-        if constexpr (MODE == EPI_PRE) {
-          const float2 f = unpack_bf16(first[i][j][h]);
-          a0 = f.x;
-          a1 = f.y;
-        }
-        if (paired) {
-          epilogue_pair<MODE>(e, N, m, n, a0, a1, b0, b1);
-        } else {
-          epilogue<bf16, MODE>(e, N, m, n, a0, b0);
-          if (n + 1 < N) epilogue<bf16, MODE>(e, N, m, n + 1, a1, b1);
-        }
-      }
-}
-
-// float32: 64 x 64 tiles on the CUDA cores, 256 threads of 4 x 4 outputs.
-__device__ __forceinline__ void fma_mainloop(const Operand<float>& op,
-                                             int M, int N, int m0, int n0,
-                                             float (*As)[65],
-                                             float (*Bs)[64],
-                                             float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < op.K; k0 += 16) {
-    for (int e = threadIdx.x; e < 16 * 64; e += 256) {
-      const int rr = e >> 4, kk = e & 15, row = m0 + rr;
-      const int ar = row - op.shift, k = k0 + kk;
-      As[kk][rr] = (row < M && ar >= 0 && k < op.K)
-                       ? op.A[(size_t)ar * op.lda + k] : 0.f;
-      const int bk = e >> 6, bn = e & 63;
-      Bs[bk][bn] = (k0 + bk < op.K && n0 + bn < N)
-                       ? op.B[(size_t)(k0 + bk) * op.ldb + n0 + bn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 16; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(256) gemm_fma_kernel(
-    Operand<float> p1, Operand<float> p2, int M, int N,
-    EpiArgs<float> e) {
-  __shared__ float As[16][65];
-  __shared__ float Bs[16][64];
-  const int n0 = blockIdx.x * 64, m0 = blockIdx.y * 64;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4], first[4][4];
-  fma_mainloop(p1, M, N, m0, n0, As, Bs, acc);
-  if constexpr (MODE == EPI_PRE) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        first[i][j] = n < N ? pre_first(e, n, acc[i][j]) : 0.f;
-      }
-    fma_mainloop(p2, M, N, m0, n0, As, Bs, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = n0 + tx + 16 * j;
-      if (m < M && n < N)
-        epilogue<float, MODE>(e, N, m, n,
-                              MODE == EPI_PRE ? first[i][j] : acc[i][j],
-                              acc[i][j]);
-    }
-}
-
-// 3., 5. One layer's scan, reversed over t.  z_dz [M][4H] holds the
-// layer's pre-activations on entry and its dz tape on exit (each thread
-// reads a z element before it writes the dz of the same element).  The
-// step's dh adds ext_t (the cotangent of hs1, layer 1) or ext_f (the mid
-// term, layer 0) to the carried dz U^T.
-//
-// The cell backward of one unit from its gate pre-activations zz[0..3]
-// and previous c: dz (rounded to T) into dz[0..3]; returns the carried dc.
-template <typename T>
-__device__ __forceinline__ float cell_step(const float* zz, float cp,
-                                           float dh, float dc, int hard,
-                                           float* dz) {
-  const Gates q = gates<T>(zz, 1, 0, hard);
-  return cell_bwd<T>(q, cp, tanh_c<T>(q, cp), dh, dc, hard, dz, 1, 0);
-}
-
-// Stage 1, streamed (the float32 route; chip_smoke.py also times it in
-// bfloat16 beside stage 2): a block owns RB rows; dh = dz U^T streams U^T
-// (`_layout(U^T)`) from L2 at every step.
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) scan_streamed_kernel(
-    T* z_dz, const T* __restrict__ cs, const T* __restrict__ ext_t,
-    const float* __restrict__ ext_f, const T* __restrict__ ut, TimeDims d,
-    int hard) {
-  extern __shared__ float sm[];
-  const int H = d.H, H4 = 4 * H, R = d.N * d.B, l4 = padk(H4);
-  float* dz = sm;                 // [RB][l4], rows past R stay zero
-  float* dh = dz + RB * l4;
-  float* dc = dh + RB * H;
-  float* scr = dc + RB * H;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * (l4 + 2 * H); i += nt) sm[i] = 0.f;
-  __syncthreads();
-  for (int t = d.T - 1; t >= 0; --t) {
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      if (g >= R) continue;
-      const size_t m = (size_t)t * R + g;
-      T* zr = z_dz + m * H4;
-      float zz[4], v[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) zz[a] = ld(zr + a * H + j);
-      const float ext = ext_t ? ld(ext_t + m * H + j) : ext_f[m * H + j];
-      dc[i] = cell_step<T>(zz, ld(cs + m * H + j), dh[i] + ext, dc[i], hard,
-                           v);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        dz[rr * l4 + a * H + j] = v[a];
-        st(zr + a * H + j, v[a]);
-      }
-    }
-    __syncthreads();
-    if (t > 0)
-      matvec<T, RB>(dz, l4, H4, ut, H, scr,
-                    [&](int rr, int c, float s) { dh[rr * H + c] = s; });
-  }
-}
-
-// Stage 2, U resident in a thread-block cluster (bfloat16).  A cluster of
-// C blocks owns RT rows (g0 ..) for the whole scan; block q of the cluster
-// owns the UJ units j0 = q UJ .. and keeps U[j0 .., :] (UJ x 4H, 128 KB at
-// most) in its shared memory, loaded once.  Each step: (a) each thread runs
-// the cell backward of one row and two units and writes those dz columns
-// into every block's dz tile through distributed shared memory; a cluster
-// barrier; (b) 16 warps compute dh[:, the block's units] = dz U[units, :]^T
-// from shared memory alone (mma.sync, units on the M side, rows on the N
-// side, K split over warps and summed in a fixed order); a second barrier
-// before the next step overwrites the dz tiles.  Clusters never talk to
-// each other; RT is chosen so that all clusters are resident at once (two
-// waves would double the chain).  Both shared tiles are [rows][Kp] bfloat16
-// (Kp = 4H rounded up to 64) with 16-byte chunk c of row r stored at
-// c ^ (r & 7), so ldmatrix's eight rows hit distinct banks.
-struct ClusterPlan { int C, UJ, UJp, Kp, RT, RTp, NT, parts, active; };
-
-__device__ __forceinline__ int swz(int r, int k, int Kp) {
-  return r * Kp + ((((k >> 3) ^ (r & 7))) << 3) + (k & 7);
-}
-
-// 1024 threads run the cell backward (its tanh chains need many warps in
-// flight); at most CL_PROD_WARPS of them split the product's K.
-constexpr int CL_THREADS = 1024, CL_PROD_WARPS = 16, CL_NTMAX = 4,
-              CL_SMEM_MAX = 232448, CL_U_BYTES = 131072;
-
-template <int NT>
-__global__ void __launch_bounds__(CL_THREADS, 1) scan_cluster_kernel(
-    bf16* z_dz, const bf16* __restrict__ cs, const bf16* __restrict__ ext_t,
-    const float* __restrict__ ext_f, const bf16* __restrict__ u, TimeDims d,
-    ClusterPlan P, int hard, unsigned long long* prof) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smraw[];
-  const int H = d.H, H4 = 4 * H, R = d.N * d.B, Kp = P.Kp, UJ = P.UJ;
-  const int RT = P.RT;
-  bf16* Us = reinterpret_cast<bf16*>(smraw);              // [UJp][Kp]
-  bf16* dzs = Us + (size_t)P.UJp * Kp;                     // [RTp][Kp]
-  float* dhp = reinterpret_cast<float*>(dzs + (size_t)P.RTp * Kp);
-  float* scr = dhp + RT * UJ;                  // [parts][RT][UJ]
-  const int q = (int)cluster.block_rank(), C = P.C;
-  const int j0 = q * UJ, g0 = (blockIdx.x / C) * RT;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < P.UJp * Kp; i += nt) {
-    const int jj = i / Kp, c = i % Kp, j = j0 + jj;
-    Us[swz(jj, c, Kp)] =
-        (jj < UJ && j < H && c < H4) ? u[(size_t)j * H4 + c] : zero;
-  }
-  for (int i = tid; i < P.RTp * Kp; i += nt) dzs[i] = zero;
-  for (int i = tid; i < RT * UJ; i += nt) dhp[i] = 0.f;
-  // The thread's item of (a): row rr, units jp, jp + 1 (RT ceil(UJ / 2)
-  // <= blockDim).  Paired columns go to the peers as one 4-byte store when
-  // H and UJ are even.
-  const int UJ2 = (UJ + 1) / 2, rr = tid / UJ2, jp = (tid % UJ2) * 2;
-  bool ok[2];
-#pragma unroll
-  for (int w = 0; w < 2; ++w)
-    ok[w] = rr < RT && g0 + rr < R && jp + w < UJ && j0 + jp + w < H;
-  const bool pairs = (H % 2 == 0) && (UJ % 2 == 0);
-  float dc[2] = {0.f, 0.f};
-  cluster.sync();
-  const int lane = tid & 31, warp = tid >> 5;
-  const uint32_t sa_us = (uint32_t)__cvta_generic_to_shared(Us);
-  const uint32_t sa_dz = (uint32_t)__cvta_generic_to_shared(dzs);
-  const int MT = P.UJp / 16, KS = Kp / 16, parts = P.parts;
-  const int per = (KS + parts - 1) / parts;
-  // prof (block 0, thread 0): clock cycles summed over the steps of its
-  // own cell work, the rest of (a) with the first barrier, (b), and the
-  // second barrier; then the plan.
-  const bool rec = prof != nullptr && blockIdx.x == 0 && tid == 0;
-  unsigned long long ck[4] = {0, 0, 0, 0}, c0 = 0, c1 = 0;
-  for (int t = d.T - 1; t >= 0; --t) {
-    if (rec) c0 = clock64();
-    // (a) the cell backward of this block's units; dz to every block.
-    if (ok[0]) {
-      const size_t m = (size_t)t * R + g0 + rr;
-      bf16* zr = z_dz + m * H4;
-      float zz[2][4], cp[2], ext[2], v[2][4];
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        if (!ok[w]) continue;
-        const int j = j0 + jp + w;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) zz[w][a] = ld(zr + a * H + j);
-        cp[w] = ld(cs + m * H + j);
-        ext[w] = ext_t ? ld(ext_t + m * H + j) : ext_f[m * H + j];
-      }
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        if (!ok[w]) continue;
-        dc[w] = cell_step<bf16>(zz[w], cp[w], dhp[rr * UJ + jp + w] + ext[w],
-                                dc[w], hard, v[w]);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) st(zr + a * H + j0 + jp + w, v[w][a]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int c = a * H + j0 + jp;
-        if (pairs && ok[1]) {
-          const int off = swz(rr, c, Kp);
-          const uint32_t pv = pack_bf16(v[0][a], v[1][a]);
-          for (int r = 0; r < C; ++r)
-            *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(dzs, r) +
-                                         off) = pv;
-        } else {
-          for (int w = 0; w < 2; ++w) {
-            if (!ok[w]) continue;
-            const int off = swz(rr, c + w, Kp);
-            for (int r = 0; r < C; ++r)
-              cluster.map_shared_rank(dzs, r)[off] =
-                  __float2bfloat16(v[w][a]);
-          }
-        }
-      }
-    }
-    if (rec) {
-      c1 = clock64();
-      ck[0] += c1 - c0;
-    }
-    cluster.sync();
-    if (rec) {
-      c0 = clock64();
-      ck[1] += c0 - c1;
-    }
-    // (b) dh[:, units] = dz U[units, :]^T: warp (mt, p) multiplies m16
-    // tile mt of the units by all rows over K part p.
-    if (t > 0) {
-      if (warp < MT * parts) {
-        const int mt = warp % MT, p = warp / MT;
-        const int ks0 = p * per, ks1 = min(KS, ks0 + per);
-        float acc[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-        // Lane addresses: row bases in shared space; chunk c of a row
-        // lies at (c ^ (row & 7)) 16 bytes.
-        const int ra = mt * 16 + (lane & 15);
-        const int rb = (lane & 7) + ((lane >> 4) << 3);
-        const uint32_t abase = sa_us + (uint32_t)ra * Kp * 2;
-        const uint32_t bbase = sa_dz + (uint32_t)rb * Kp * 2;
-        const int ahi = lane >> 4, bhi = (lane >> 3) & 1;
-        const int axr = ra & 7, bxr = rb & 7;
-#pragma unroll 2
-        for (int ks = ks0; ks < ks1; ++ks) {
-          uint32_t a[4];
-          ldsm_x4(a, abase + ((uint32_t)((2 * ks + ahi) ^ axr) << 4));
-          const uint32_t boff = (uint32_t)((2 * ks + bhi) ^ bxr) << 4;
-#pragma unroll
-          for (int n = 0; n < NT; n += 2) {
-            // n8 tiles n and n + 1 (rows past 8 NT are zero).
-            uint32_t b[4];
-            ldsm_x4(b, bbase + (uint32_t)n * 8 * Kp * 2 + boff);
-            mma_bf16(acc[n], a[0], a[1], a[2], a[3], b[0], b[1]);
-            if (n + 1 < NT)
-              mma_bf16(acc[n + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
-          }
-        }
-        // acc[n][e]: unit mt 16 + g + 8 (e >> 1), row 8 n + 2 t4 + (e & 1).
-        const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int jj = mt * 16 + g + 8 * (e >> 1);
-            const int r = n * 8 + 2 * t4 + (e & 1);
-            if (jj < UJ && r < RT) {
-              if (parts == 1)
-                dhp[r * UJ + jj] = acc[n][e];
-              else
-                scr[(p * RT + r) * UJ + jj] = acc[n][e];
-            }
-          }
-      }
-      if (parts > 1) {
-        __syncthreads();
-        for (int i = tid; i < RT * UJ; i += nt) {
-          float sum = 0.f;
-          for (int p = 0; p < parts; ++p) sum += scr[p * RT * UJ + i];
-          dhp[i] = sum;
-        }
-      }
-    }
-    if (rec) {
-      c1 = clock64();
-      ck[2] += c1 - c0;
-    }
-    cluster.sync();
-    if (rec) ck[3] += clock64() - c1;
-  }
-  if (rec) {
-    for (int i = 0; i < 4; ++i) prof[i] = ck[i];
-    prof[4] = C;
-    prof[5] = RT;
-    prof[6] = UJ;
-    prof[7] = parts;
-    prof[8] = P.active;
-  }
-}
-
 // out[t][b][c] = sum over tiles j of (sum over the k notes of tile j of
 // rows[t][n][b][c], rounded to T): the style gradient of the time stack.
 template <typename T>
@@ -766,12 +196,6 @@ __global__ void time_ds_kernel(const float* __restrict__ rows, int T_, int N,
 }
 
 constexpr int FWD_RB = 8;   // 96 blocks at the flagship
-constexpr int BWD_RB = 6;   // 128 blocks: one wave on 132 SMs
-
-inline int threads_for(int H4) {
-  const int nt = ((H4 + 31) / 32) * 32;
-  return nt > 1024 ? 1024 : nt;
-}
 
 template <typename T>
 int time_fwd(const void* x, const void* s0, const void* s1, const void* w0,
@@ -791,123 +215,6 @@ int time_fwd(const void* x, const void* s0, const void* s1, const void* w0,
       (const T*)x, (const T*)s0, (const T*)s1, (const T*)w0, (const T*)b0,
       (const T*)b1, (const T*)u0, (const T*)w1, (const T*)u1, (T*)hs0,
       (T*)cs0, (T*)hs1, (T*)cs1, d, drop, hard);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int MODE>
-int gemm(const Operand<T>& p1, const Operand<T>& p2, int M, int N,
-         const EpiArgs<T>& e, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-    gemm_mma_kernel<MODE><<<grid, GTHREADS, 0, st>>>(p1, p2, M, N, e);
-  } else {
-    const dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_fma_kernel<MODE><<<grid, 256, 0, st>>>(p1, p2, M, N, e);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The operand of a product with K-wide rows and an N-wide result: B's row
-// stride in the layout of T.
-template <typename T>
-Operand<T> operand(const void* A, int lda, int shift, int K, const void* B,
-                   int N) {
-  const int ldb = std::is_same<T, bf16>::value ? padk(K) : N;
-  return {(const T*)A, lda, shift, K, (const T*)B, ldb};
-}
-
-template <typename T>
-int scan_streamed(void* z_dz, const void* cs, const void* ext_t,
-                  const void* ext_f, const void* ut, TimeDims d, int hard,
-                  cudaStream_t st) {
-  const int R = d.N * d.B, H4 = 4 * d.H, RB = BWD_RB;
-  const int nt = threads_for(H4);
-  const size_t smem = sizeof(float) * (RB * (padk(H4) + 2 * d.H) + nt * RB);
-  auto kern = scan_streamed_kernel<T, BWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(R + RB - 1) / RB, nt, smem, st>>>(
-      (T*)z_dz, (const T*)cs, (const T*)ext_t, (const float*)ext_f,
-      (const T*)ut, d, hard);
-  return (int)cudaGetLastError();
-}
-
-inline size_t cluster_smem(const ClusterPlan& p) {
-  return sizeof(bf16) * (size_t)(p.UJp + p.RTp) * p.Kp +
-         sizeof(float) * (size_t)(1 + p.parts) * p.RT * p.UJ;
-}
-
-// C: the least power of two whose share of U (UJ rows, padded to 16, of
-// Kp values) fits CL_U_BYTES.  RT: the rows of a cluster, ceil(R / the
-// clusters that fit on the card at once, per
-// cudaOccupancyMaxActiveClusters), so that the launch is one wave, within
-// what shared memory and one item per thread allow.  A refused launch
-// returns its error.
-int scan_cluster(void* z_dz, const void* cs, const void* ext_t,
-                 const void* ext_f, const void* u, TimeDims d, int hard,
-                 unsigned long long* prof, cudaStream_t st) {
-  const int R = d.N * d.B;
-  ClusterPlan p;
-  p.Kp = (4 * d.H + 63) & ~63;
-  for (p.C = 1;; p.C *= 2) {
-    p.UJ = (d.H + p.C - 1) / p.C;
-    p.UJp = (p.UJ + 15) & ~15;
-    if ((size_t)p.UJp * p.Kp * sizeof(bf16) <= CL_U_BYTES || p.C >= 16) break;
-  }
-  if ((size_t)p.UJp * p.Kp * sizeof(bf16) > CL_U_BYTES)
-    return (int)cudaErrorInvalidValue;
-  p.parts = std::max(1, std::min(p.Kp / 16, CL_PROD_WARPS / (p.UJp / 16)));
-  auto fits = [&](int rt) {
-    p.RT = rt;
-    p.NT = (rt + 7) / 8;
-    p.RTp = 16 * ((rt + 15) / 16);   // whole pairs of n8 tiles
-    return cluster_smem(p) <= CL_SMEM_MAX &&
-           rt * ((p.UJ + 1) / 2) <= CL_THREADS;
-  };
-  int rt_max = 8 * CL_NTMAX;
-  while (rt_max > 0 && !fits(rt_max)) --rt_max;
-  if (rt_max == 0) return (int)cudaErrorInvalidConfiguration;
-  // One instantiation per count of n8 row tiles (CL_NTMAX = 4).
-  void (*const kerns[])(bf16*, const bf16*, const bf16*, const float*,
-                        const bf16*, TimeDims, ClusterPlan, int,
-                        unsigned long long*) = {
-      scan_cluster_kernel<1>, scan_cluster_kernel<2>, scan_cluster_kernel<3>,
-      scan_cluster_kernel<4>};
-  cudaError_t err;
-  for (auto kern : kerns) {
-    if (p.C > 8 && (err = cudaFuncSetAttribute(
-                        kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                        1)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             CL_SMEM_MAX)) != cudaSuccess)
-      return (int)err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(CL_THREADS);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  fits(rt_max);
-  cfg.gridDim = dim3(p.C * ((R + rt_max - 1) / rt_max));
-  cfg.dynamicSmemBytes = cluster_smem(p);
-  if ((err = cudaOccupancyMaxActiveClusters(&p.active, kerns[p.NT - 1],
-                                             &cfg)) != cudaSuccess)
-    return (int)err;
-  if (p.active == 0) return (int)cudaErrorInvalidConfiguration;
-  fits(std::min(rt_max, (R + p.active - 1) / p.active));
-  cfg.gridDim = dim3(p.C * ((R + p.RT - 1) / p.RT));
-  cfg.dynamicSmemBytes = cluster_smem(p);
-  err = cudaLaunchKernelEx(&cfg, kerns[p.NT - 1], (bf16*)z_dz, (const bf16*)cs,
-                           (const bf16*)ext_t, (const float*)ext_f,
-                           (const bf16*)u, d, p, hard, prof);
-  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -956,50 +263,25 @@ extern "C" int biax_time_bwd_prologue(int bf16, const void* x, const void* s0,
   return (int)cudaGetLastError();
 }
 
-// 2. z [M][4H] = ((xin W -> T) + bias) + (hs[m - R] U -> T), hs rows
-// before R read as zero: one layer's pre-activations over all M = T R rows.
-// xin [M][ldx] with K columns; w, u in the layout of T.
+// 2. One layer's pre-activations over all M = T R rows (launch_preact).
 extern "C" int biax_time_bwd_preact(int bf16, const void* xin, int ldx,
                                     int K, const void* w, const void* bias,
                                     const void* hs, const void* u, void* z,
                                     int M, int R, int H, void* stream) {
-  using namespace biax;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int H4 = 4 * H;
-  if (bf16) {
-    EpiArgs<biax::bf16> e = {(biax::bf16*)z, (const biax::bf16*)bias};
-    return gemm<biax::bf16, EPI_PRE>(
-        operand<biax::bf16>(xin, ldx, 0, K, w, H4),
-        operand<biax::bf16>(hs, H, R, H, u, H4), M, H4, e, st);
-  }
-  EpiArgs<float> e = {(float*)z, (const float*)bias};
-  return gemm<float, EPI_PRE>(operand<float>(xin, ldx, 0, K, w, H4),
-                              operand<float>(hs, H, R, H, u, H4), M, H4, e,
-                              st);
+  return biax::launch_preact(bf16, xin, ldx, K, w, bias, hs, u, z, M, R, H,
+                             (cudaStream_t)stream);
 }
 
-// 3., 5. One layer's reversed scan over z_dz (z in, dz out); the step's dh
-// adds ext_t (T) or ext_f (float32).  cluster = 1 (bfloat16 only): U
-// [H][4H] resident in a thread-block cluster; cluster = 0: u is
-// `_layout(U^T)`, streamed.  prof (cluster scan only, may be null): four
-// clock-cycle sums of the first block's steps and its plan, see
-// scan_cluster_kernel.
+// 3., 5. One layer's reversed scan over z_dz (launch_scan).
 extern "C" int biax_time_bwd_scan(int bf16, int cluster, void* z_dz,
                                   const void* cs, const void* ext_t,
                                   const void* ext_f, const void* u, int T,
                                   int N, int B, int F, int H, int k,
                                   int hard, unsigned long long* prof,
                                   void* stream) {
-  using namespace biax;
-  const TimeDims d = {T, N, B, F, H, k};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cluster) {
-    if (!bf16) return (int)cudaErrorInvalidValue;
-    return scan_cluster(z_dz, cs, ext_t, ext_f, u, d, hard, prof, st);
-  }
-  if (bf16)
-    return scan_streamed<biax::bf16>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
-  return scan_streamed<float>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
+  const biax::PassDims d = {T, N, B, H, k};
+  return biax::launch_scan(bf16, cluster, z_dz, cs, ext_t, ext_f, u, d, hard,
+                           prof, (cudaStream_t)stream);
 }
 
 // 4., 6. The product dz [M][4H] W^T (wt = `_layout(W^T)`, an Nout-wide
@@ -1012,20 +294,13 @@ extern "C" int biax_time_bwd_dx(int bf16, int layer, const void* dz,
                                 unsigned seed, unsigned thr, float scale,
                                 int dropout, void* stream) {
   using namespace biax;
-  const TimeDims d = {T, N, B, F, H, k};
+  const PassDims d = {T, N, B, H, k};
   const Drop drop = {seed, thr, scale, dropout};
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    const auto op = operand<biax::bf16>(dz, K, 0, K, wt, Nout);
-    const EpiArgs<biax::bf16> e = {(biax::bf16*)out_t, nullptr, out_a, out_b,
-                                   d, drop};
-    return layer ? gemm<biax::bf16, EPI_DX1>(op, op, M, Nout, e, st)
-                 : gemm<biax::bf16, EPI_DX0>(op, op, M, Nout, e, st);
-  }
-  const auto op = operand<float>(dz, K, 0, K, wt, Nout);
-  const EpiArgs<float> e = {(float*)out_t, nullptr, out_a, out_b, d, drop};
-  return layer ? gemm<float, EPI_DX1>(op, op, M, Nout, e, st)
-               : gemm<float, EPI_DX0>(op, op, M, Nout, e, st);
+  return layer ? launch_dx<EPI_DX1>(bf16, dz, wt, M, K, Nout, out_t, out_a,
+                                    out_b, nullptr, 0, d, drop, st)
+               : launch_dx<EPI_DX0>(bf16, dz, wt, M, K, Nout, out_t, out_a,
+                                    out_b, nullptr, 0, d, drop, st);
 }
 
 extern "C" int biax_time_ds(int bf16, const float* rows, int T, int N, int B,

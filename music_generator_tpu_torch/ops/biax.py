@@ -37,12 +37,15 @@ do (pallas_biax.py:536-559, 1053-1081).  Launch counters:
 `biax_time_stack.fwd_launches` / `.bwd_launches`, the same on
 `biax_note_stack`; the plain versions count `.calls`.
 
-The time stack's backward runs in passes (`biax_time_bwd`): only the
-product dh <- dz U^T carries from step to step, so the forward's gates,
-dx1 = dz1 W1^T and dx = dz0 W0^T are bulk products outside the two
-reversed scans.  `biax_time_bwd_staged` is the same computation in plain
-PyTorch.  In bfloat16 the scans keep U resident in a thread-block cluster,
-in float32 they stream it (`time_scan_route`); `biax_time_stack`'s
+Both backwards run in passes (`biax_time_bwd`, `biax_note_bwd`): only the
+product dh <- dz U^T carries from one scan step to the next, so the
+forward's gates, the note stack's heads backward, dx1 = dz1 W1^T and
+dx = dz0 W0^T are elementwise passes and bulk products outside the two
+reversed scans, whose machinery both stacks share (`csrc/
+biax_passes.cuh`).  `biax_time_bwd_staged` and `biax_note_bwd_staged` are
+the same computations in plain PyTorch.  In bfloat16 the scans keep U
+resident in a thread-block cluster (one block for the note stack's
+H = 128), in float32 they stream it (`scan_route`); each stack's
 `.cluster_scans` and `.streamed_scans` count which ran.
 """
 
@@ -284,6 +287,37 @@ def _gate_grad(s: torch.Tensor, hard: bool) -> torch.Tensor:
     return s * (1.0 - s)
 
 
+def _reverse_scan(z: torch.Tensor, cs: torch.Tensor, ext: torch.Tensor,
+                  u: torch.Tensor, hard: bool) -> torch.Tensor:
+    """Passes 3 and 5 of both staged backwards: one layer's cell backward,
+    reversed over the scanned axis.  z [S, R, 4H] holds the pre-activations
+    in the compute dtype, cs [S, R, H] the previous c, ext [S, R, H] the
+    external dh of each step; dh = dz U^T (float32) is the only carried
+    product.  Returns dz [S, R, 4H] rounded to the compute dtype."""
+    cdt = z.dtype
+    S, R, H4 = z.shape
+    H = H4 // 4
+    dz = torch.empty_like(z)
+    dh_carry = torch.zeros(R, H, device=z.device)
+    dc = torch.zeros(R, H, device=z.device)
+    for t in reversed(range(S)):
+        i, f, o = (_gate(z[t, :, a * H:(a + 1) * H], hard)
+                   for a in (0, 1, 3))
+        g = torch.tanh(z[t, :, 2 * H:3 * H])
+        cp = cs[t].float()
+        tc = torch.tanh((f.float() * cp + (i * g).float()).to(cdt)).float()
+        i, f, g, o = i.float(), f.float(), g.float(), o.float()
+        dh = dh_carry + ext[t].float()
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dz[t] = torch.cat([dc * g * _gate_grad(i, hard),
+                           dc * cp * _gate_grad(f, hard),
+                           dc * i * (1.0 - g * g),
+                           dh * tc * _gate_grad(o, hard)], -1).to(cdt)
+        dc = dc * f
+        dh_carry = _dot(dz[t], u.t())
+    return dz
+
+
 def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
                          cs1, dhs1, dropout_p: float = 0.0, seed: int = 0,
                          compute_dtype=torch.float32,
@@ -335,32 +369,11 @@ def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
     z0 = (_dot(xtot, W0).to(cdt) + B0) + _dot(hp0, U0).to(cdt)
     z1 = (_dot(x1, W1).to(cdt) + B1) + _dot(hp1, U1).to(cdt)
 
-    def scan(z, cs, ext, U):
-        dz = torch.empty_like(z)
-        dh_carry = torch.zeros(R, H, device=dev)
-        dc = torch.zeros(R, H, device=dev)
-        for t in reversed(range(T)):
-            i, f, o = (_gate(z[t, :, a * H:(a + 1) * H], hard)
-                       for a in (0, 1, 3))
-            g = torch.tanh(z[t, :, 2 * H:3 * H])
-            cp = cs[t].float()
-            tc = torch.tanh((f.float() * cp + (i * g).float()).to(cdt)).float()
-            i, f, g, o = i.float(), f.float(), g.float(), o.float()
-            dh = dh_carry + ext[t].float()
-            dc = dc + dh * o * (1.0 - tc * tc)
-            dz[t] = torch.cat([dc * g * _gate_grad(i, hard),
-                               dc * cp * _gate_grad(f, hard),
-                               dc * i * (1.0 - g * g),
-                               dh * tc * _gate_grad(o, hard)], -1).to(cdt)
-            dc = dc * f
-            dh_carry = _dot(dz[t], U.t())
-        return dz
-
     # 3. - 6.
-    dz1 = scan(z1, rows(cs1), rows(dhs1), U1)
+    dz1 = _reverse_scan(z1, rows(cs1), rows(dhs1), U1, hard)
     dx1 = _dot(dz1, W1.t())
     ds1r, dmid = _apply(dx1, f32(m1)), _apply(dx1, f32(mmid))
-    dz0 = scan(z0, rows(cs0), dmid, U0)
+    dz0 = _reverse_scan(z0, rows(cs0), dmid, U0, hard)
     dxo = _dot(dz0, W0.t())
     ds0r = _apply(dxo, f32(m0))
 
@@ -374,6 +387,101 @@ def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
             tile_sums(ds1r, H), wg(xtot, dz0), flat(dz0).float().sum(0),
             flat(dz1).float().sum(0), wg(hp0, dz0), wg(x1, dz1),
             wg(hp1, dz1))
+
+
+def biax_note_bwd_staged(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
+                         bhead, hs0, cs0, hs1, cs1, dout,
+                         dropout_p: float = 0.0, seed: int = 0,
+                         compute_dtype=torch.float32,
+                         recurrent_activation: str = "sigmoid"):
+    """The note stack's backward as the CUDA kernels compute it, in plain
+    PyTorch (no autograd): the seven passes of `csrc/biax_note.cu` with
+    their cast points and masks.  hs0, cs0, hs1, cs1 [N, T, B, H] are the
+    forward's tapes (h after pitch n, c before it, in the compute dtype)
+    and dout [N, T, B, 3] the cotangent of the output.  Rows m = n R + g,
+    g = (t, b), R = T B.
+
+      1. prologue and heads backward: xtot = (ht m_in + s0t m_style0) ++
+         (chosen + s0c m_style0c), x1 = hs0 m_mid + s1 m_style1, h1d =
+         hs1 m_out (each operation rounded to the compute dtype); the
+         heads' dz (float32): dout sigma (1 - sigma) for play and replay,
+         dout for volume; ext1 = ((dz -> T) Wh^T) m_out (float32);
+      2. bulk pre-activations z = ((in W -> T) + b) + (h[n-1] U -> T),
+         h[-1] = 0;
+      3. the layer-1 scan, reversed over the pitches, with ext1;
+      4. dx1 = dz1 W1^T in float32: the style-1 rows dx1 m_style1 and the
+         mid term dx1 m_mid;
+      5. the layer-0 scan with the mid term;
+      6. dx = dz0 W0^T: dht = (dx[:, :Ht] m_in -> T), dch = (dx[:, Ht:] ->
+         T), the style-0 rows dx[:, :Ht] m_style0 ++ dx[:, Ht:] m_style0c;
+      7. the style gradients sum the rows over the pitches in the order
+         n = N - 1 .. 0 (float32, no per-tile rounding); the weight
+         gradients are float32 sums of in^T dz.
+
+    Returns (dht [T, N, B, Ht], dch [N, T, B, C] in the compute dtype;
+    ds0 [T, B, Ht + C], ds1 [T, B, H], dw0, db0, db1, du0, dw1, du1, dwh,
+    dbh in float32), the order of the stack's inputs."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, Ht = ht.shape
+    C = chosen.shape[-1]
+    H = u0.shape[0]
+    R, dev = T * B, ht.device
+    keep = 1.0 - dropout_p
+    rows = lambda t: t.reshape(N, R, t.shape[-1])
+    ht, chosen, s0, s1 = (t.to(cdt) for t in (ht, chosen, s0, s1))
+    W0, U0, W1, U1, Wh = (w.to(cdt) for w in (w0, u0, w1, u1, whead))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    bh = bhead.reshape(-1).float()
+    hs0, cs0, hs1, cs1 = (rows(t.to(cdt)) for t in (hs0, cs0, hs1, cs1))
+
+    def masks(site, width):
+        m = stack_mask(seed, site, N, T, B, width, keep, cdt, dev)
+        return None if m is None else rows(m)
+
+    m_in, m0t, m0c = masks(S_IN, Ht), masks(S_STYLE0, Ht), masks(S_STYLE0C, C)
+    m1, mmid, m_out = masks(S_STYLE1, H), masks(S_MID, H), masks(S_OUT, H)
+    f32 = lambda m: None if m is None else m.float()
+
+    # 1. prologue and heads backward
+    s0 = s0.reshape(R, Ht + C)
+    xtot = torch.cat([_apply(rows(ht.transpose(0, 1)), m_in)
+                      + _apply(s0[:, :Ht], m0t),
+                      rows(chosen) + _apply(s0[:, Ht:], m0c)], -1)
+    x1 = _apply(hs0, mmid) + _apply(s1.reshape(R, H), m1)
+    h1d = _apply(hs1, m_out)
+    sg = _gate((_dot(h1d, Wh) + bh)[..., :2].to(cdt), False).float()
+    d = rows(dout.float())
+    dzh = torch.cat([d[..., :2] * sg * (1.0 - sg), d[..., 2:]], -1)
+    ext1 = _apply(_dot(dzh.to(cdt), Wh.t()), f32(m_out))
+    # 2. bulk pre-activations
+    prev = lambda h: torch.cat([torch.zeros_like(h[:1]), h[:-1]])
+    hp0, hp1 = prev(hs0), prev(hs1)
+    z0 = (_dot(xtot, W0).to(cdt) + B0) + _dot(hp0, U0).to(cdt)
+    z1 = (_dot(x1, W1).to(cdt) + B1) + _dot(hp1, U1).to(cdt)
+    # 3. - 6.
+    dz1 = _reverse_scan(z1, cs1, ext1, U1, hard)
+    dx1 = _dot(dz1, W1.t())
+    ds1r, dmid = _apply(dx1, f32(m1)), _apply(dx1, f32(mmid))
+    dz0 = _reverse_scan(z0, cs0, dmid, U0, hard)
+    dx = _dot(dz0, W0.t())
+    dxt, dxc = dx[..., :Ht], dx[..., Ht:]
+    dht = _apply(dxt, f32(m_in)).to(cdt).reshape(N, T, B, Ht).transpose(0, 1)
+    ds0r = torch.cat([_apply(dxt, f32(m0t)), _apply(dxc, f32(m0c))], -1)
+
+    # 7. reductions
+    def pitch_sum(r):
+        tot = torch.zeros_like(r[0])
+        for n in reversed(range(N)):
+            tot = tot + r[n]
+        return tot.reshape(T, B, r.shape[-1])
+
+    flat = lambda t: t.reshape(N * R, t.shape[-1])
+    wg = lambda a, dz: _dot(flat(a).t(), flat(dz))
+    return (dht.contiguous(), dxc.to(cdt).reshape(N, T, B, C),
+            pitch_sum(ds0r), pitch_sum(ds1r), wg(xtot, dz0),
+            flat(dz0).float().sum(0), flat(dz1).float().sum(0),
+            wg(hp0, dz0), wg(x1, dz1), wg(hp1, dz1), wg(h1d, dzh),
+            flat(dzh).sum(0))
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +506,14 @@ _SIGNATURES = {
     "biax_note": {
         "biax_note_fwd": [_I] + [_P] * 17 + [_I] * 7 + [_U, _U, _F, _I, _I,
                                                        _P],
-        "biax_note_bwd": [_I] + [_P] * 31 + [_I] * 7 + [_U, _U, _F, _I, _I,
-                                                       _P],
+        "biax_note_bwd_prologue": [_I] + [_P] * 14 + [_I] * 7
+        + [_U, _U, _F, _I, _P],
+        "biax_note_bwd_preact": [_I, _P, _I, _I] + [_P] * 5 + [_I] * 3
+        + [_P],
+        "biax_note_bwd_scan": [_I, _I] + [_P] * 4 + [_I] * 6 + [_P, _P],
+        "biax_note_bwd_dx": [_I, _I, _P, _P, _I, _I, _I] + [_P] * 4
+        + [_I] * 6 + [_U, _U, _F, _I, _P],
+        "biax_note_ds": [_P, _I, _I, _I, _P, _P],
     },
 }
 _WGRAD = [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]
@@ -450,6 +564,23 @@ def _wgrad(lib, a: Optional[torch.Tensor], shift: int, b: torch.Tensor,
     return out
 
 
+def _layer_wgrads(lib, xtot: torch.Tensor, K: int, hs0: torch.Tensor,
+                  x1: torch.Tensor, hs1: torch.Tensor, z0: torch.Tensor,
+                  z1: torch.Tensor, R: int, ws: torch.Tensor):
+    """Both layers' weight gradients from their inputs (xtot with K
+    columns, x1), their h tapes (read one scan step back: shift R) and
+    their dz tapes, by `_wgrad`: (dw0, db0, db1, du0, dw1, du1), the order
+    of the stacks' gradients."""
+    H, H4 = hs0.shape[-1], z0.shape[-1]
+    dw0 = _wgrad(lib, xtot, 0, z0, K, ws)
+    du0 = _wgrad(lib, hs0, R, z0, H, ws)
+    dw1 = _wgrad(lib, x1, 0, z1, H, ws)
+    du1 = _wgrad(lib, hs1, R, z1, H, ws)
+    db0 = _wgrad(lib, None, 0, z0, 1, ws).reshape(H4)
+    db1 = _wgrad(lib, None, 0, z1, 1, ws).reshape(H4)
+    return dw0, db0, db1, du0, dw1, du1
+
+
 def _layout(m: torch.Tensor) -> torch.Tensor:
     """A product's matrix m [K, N] (in the compute dtype) as the kernels
     take it: [K, N] for float32 (CUDA-core FMAs over rows of m); for
@@ -468,6 +599,10 @@ def _mask_args(dropout_p: float, seed: int, cdt: torch.dtype):
     if keep >= 1.0:
         return 0, 0, 1.0, 0
     return (seed & _U32, _threshold(keep), _keep_scale(keep, cdt), 1)
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -509,10 +644,21 @@ def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
     return hs0, cs0, hs1, cs1
 
 
-def time_scan_route(cdt: torch.dtype) -> str:
-    """The time backward's scans by dtype: U resident in a thread-block
+def scan_route(cdt: torch.dtype) -> str:
+    """The biaxial backwards' scans by dtype: U resident in a thread-block
     cluster in bfloat16, streamed from L2 in float32."""
     return "cluster" if cdt == torch.bfloat16 else "streamed"
+
+
+def _marker(marks):
+    """mark(name): with a list `marks`, append (name, a recorded CUDA
+    event); without one, nothing."""
+    def mark(name):
+        if marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+    return mark
 
 
 def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
@@ -523,7 +669,7 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
     """The time stack's backward kernels on CUDA tensors: the arguments and
     results of `biax_time_bwd_staged`, whose six passes they run (csrc/
     biax_time.cu), then the weight-gradient and style-gradient reductions.
-    The scans take `time_scan_route(compute_dtype)`.  With a list `marks`,
+    The scans take `scan_route(compute_dtype)`.  With a list `marks`,
     a recorded CUDA event is appended after each pass, as (name, event),
     behind ("start", event).  With an int64 tensor `scan_prof` [2, 9] on
     the card, the cluster scans of layers 1 and 0 write their first
@@ -545,12 +691,12 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
         t.to(cdt).contiguous() for t in (x, s0, s1, w0, b0.reshape(-1),
                                          b1.reshape(-1), u0, w1, u1, hs0,
                                          cs0, hs1, cs1, dhs1))
-    route = time_scan_route(cdt)
+    route = scan_route(cdt)
     scan_u = [u if route == "cluster" else _layout(u.t()) for u in (u0, u1)]
     e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
     f32 = torch.float32
     # Rows padded to 8 values (zeros): 16-byte rows for the products.
-    xtot, x1 = e(T, N, B, -(-F // 8) * 8), e(T, N, B, -(-H // 8) * 8)
+    xtot, x1 = e(T, N, B, _pad8(F)), e(T, N, B, _pad8(H))
     z0, z1 = e(T, N, B, H4), e(T, N, B, H4)       # z in, dz out
     dx = e(T, N, B, F)
     ds0r, ds1r, dmid = e(T, N, B, F, dt=f32), e(T, N, B, H, dt=f32), e(
@@ -560,12 +706,7 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
     bf, st = _is_bf16(cdt), _stream(dev)
     dims = (T, N, B, F, H, k)
     drop = _mask_args(dropout_p, seed, cdt)
-
-    def mark(name):
-        if marks is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
+    mark = _marker(marks)
 
     def scan(z, cs, ext_t, ext_f, u, layer):
         prof = None if scan_prof is None else scan_prof[1 - layer]
@@ -608,12 +749,7 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
             "biax_time_bwd_dx")
         mark("dx0")
         ws = e(WGRAD_CHUNKS * max(F, H) * H4, dt=f32)
-        dw0 = _wgrad(lib, xtot, 0, z0, F, ws)
-        du0 = _wgrad(lib, hs0, R, z0, H, ws)
-        dw1 = _wgrad(lib, x1, 0, z1, H, ws)
-        du1 = _wgrad(lib, hs1, R, z1, H, ws)
-        db0 = _wgrad(lib, None, 0, z0, 1, ws).reshape(H4)
-        db1 = _wgrad(lib, None, 0, z1, 1, ws).reshape(H4)
+        wgrads = _layer_wgrads(lib, xtot, F, hs0, x1, hs1, z0, z1, R, ws)
         ds = []
         for rows, W in ((ds0r, F), (ds1r, H)):
             out = e(T, B, W, dt=f32)
@@ -622,7 +758,7 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
             ds.append(out)
         mark("wgrad")
     biax_time_stack.bwd_launches += 1
-    return dx, ds[0], ds[1], dw0, db0, db1, du0, dw1, du1
+    return (dx, *ds, *wgrads)
 
 
 class _TimeStack(torch.autograd.Function):
@@ -646,87 +782,161 @@ class _TimeStack(torch.autograd.Function):
             None,) * 4
 
 
+def biax_note_fwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead,
+                  dropout_p: float = 0.0, seed: int = 0,
+                  compute_dtype=torch.float32,
+                  recurrent_activation: str = "sigmoid", tapes: bool = True):
+    """The note stack's forward kernel on CUDA tensors: (out [N, T, B, 3]
+    float32, hs0, cs0, hs1, cs1 [N, T, B, H] in the compute dtype (h after
+    pitch n, c before it)), the four tapes None when `tapes` is False.
+    Counts `biax_note_stack.fwd_launches`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("biax_note_stack", ht, chosen, s0, s1, w0, b0, b1, u0, w1,
+                   u1, whead, bhead)
+    T, N, B, Ht = ht.shape
+    C = chosen.shape[-1]
+    H = u0.shape[0]
+    k, _ = _row_tiling(T, B)
+    xs = [t.to(cdt).contiguous() for t in (ht, chosen, s0, s1)]
+    w0, b0, b1, u0, w1, u1, wh = (t.to(cdt).contiguous() for t in (
+        w0, b0.reshape(-1), b1.reshape(-1), u0, w1, u1, whead))
+    bh = bhead.reshape(-1).float().contiguous()
+    out = torch.empty(N, T, B, 3, dtype=torch.float32, device=dev)
+    tp = [torch.empty(N, T, B, H, dtype=cdt, device=dev)
+          for _ in range(4)] if tapes else [None] * 4
+    mats = [_layout(w0), b0, b1, _layout(u0), _layout(w1), _layout(u1), wh]
+    lib = _library("biax_note")
+    with torch.cuda.device(dev):
+        _check(lib.biax_note_fwd(
+            _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
+            bh.data_ptr(), out.data_ptr(), *(_ptr(t) for t in tp),
+            T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
+            int(hard), _stream(dev)), "biax_note_fwd")
+    biax_note_stack.fwd_launches += 1
+    return (out, *tp)
+
+
+def biax_note_bwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead,
+                  hs0, cs0, hs1, cs1, dout, dropout_p: float = 0.0,
+                  seed: int = 0, compute_dtype=torch.float32,
+                  recurrent_activation: str = "sigmoid", marks=None,
+                  scan_prof: Optional[torch.Tensor] = None):
+    """The note stack's backward kernels on CUDA tensors: the arguments and
+    results of `biax_note_bwd_staged`, whose seven passes they run (csrc/
+    biax_note.cu): the prologue with the heads backward, the
+    pre-activations, the scans, the dx products, then the weight-gradient
+    and style-gradient reductions.  The scans take
+    `scan_route(compute_dtype)`; `marks` and `scan_prof` as for
+    `biax_time_bwd`.  Counts `biax_note_stack.bwd_launches`, and
+    `.cluster_scans` or `.streamed_scans` once per scan."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("biax_note_stack", ht, chosen, s0, s1, w0, b0, b1, u0, w1,
+                   u1, whead, bhead, hs0, cs0, hs1, cs1, dout)
+    T, N, B, Ht = ht.shape
+    C = chosen.shape[-1]
+    H = u0.shape[0]
+    H4, D, R = 4 * H, Ht + C, T * B
+    M = N * R
+    k, _ = _row_tiling(T, B)
+    (ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, wh, hs0, cs0, hs1,
+     cs1) = (t.to(cdt).contiguous() for t in (
+         ht, chosen, s0, s1, w0, b0.reshape(-1), b1.reshape(-1), u0, w1, u1,
+         whead, hs0, cs0, hs1, cs1))
+    bh = bhead.reshape(-1).float().contiguous()
+    dout = dout.float().contiguous()
+    route = scan_route(cdt)
+    scan_u = [u if route == "cluster" else _layout(u.t()) for u in (u0, u1)]
+    e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
+    f32 = torch.float32
+    # Rows padded to 8 values (zeros): 16-byte rows for the products.
+    xtot, x1, h1d = e(N, T, B, _pad8(D)), e(N, T, B, _pad8(H)), e(N, T, B, H)
+    dzh, ext1 = e(N, T, B, 3, dt=f32), e(N, T, B, H, dt=f32)
+    z0, z1 = e(N, T, B, H4), e(N, T, B, H4)       # z in, dz out
+    dht, dch = e(T, N, B, Ht), e(N, T, B, C)
+    ds0r, ds1r, dmid = e(N, T, B, D, dt=f32), e(N, T, B, H, dt=f32), e(
+        N, T, B, H, dt=f32)
+    mats = [_layout(w) for w in (w0, u0, w1, u1, w0.t(), w1.t())]
+    lib = _library("biax_note")
+    bf, st = _is_bf16(cdt), _stream(dev)
+    drop = _mask_args(dropout_p, seed, cdt)
+    mark = _marker(marks)
+
+    def scan(z, cs, ext, u, layer):
+        prof = None if scan_prof is None else scan_prof[1 - layer]
+        _check(lib.biax_note_bwd_scan(
+            bf, int(route == "cluster"), z.data_ptr(), cs.data_ptr(),
+            ext.data_ptr(), u.data_ptr(), T, N, B, H, k, int(hard),
+            _ptr(prof), st), f"biax_note_bwd_scan ({route})")
+        if route == "cluster":
+            biax_note_stack.cluster_scans += 1
+        else:
+            biax_note_stack.streamed_scans += 1
+
+    def dx(layer, z, wt, Nout, dht, dch, out_a, out_b):
+        _check(lib.biax_note_bwd_dx(
+            bf, layer, z.data_ptr(), wt.data_ptr(), M, H4, Nout, _ptr(dht),
+            _ptr(dch), out_a.data_ptr(), _ptr(out_b), T, N, B, Ht, H, k,
+            *drop, st), "biax_note_bwd_dx")
+
+    with torch.cuda.device(dev):
+        mark("start")
+        _check(lib.biax_note_bwd_prologue(
+            bf, *(t.data_ptr() for t in (ht, chosen, s0, s1, hs0, hs1, wh,
+                                         bh, dout, xtot, x1, h1d, dzh,
+                                         ext1)),
+            T, N, B, Ht, C, H, k, *drop, st), "biax_note_bwd_prologue")
+        mark("prologue")
+        for xin, K, w, b, hs, u, z in ((xtot, D, mats[0], b0, hs0, mats[1],
+                                        z0),
+                                       (x1, H, mats[2], b1, hs1, mats[3],
+                                        z1)):
+            _check(lib.biax_note_bwd_preact(
+                bf, xin.data_ptr(), xin.shape[-1], K, w.data_ptr(),
+                b.data_ptr(), hs.data_ptr(), u.data_ptr(), z.data_ptr(), M,
+                R, H, st), "biax_note_bwd_preact")
+        mark("preact")
+        scan(z1, cs1, ext1, scan_u[1], 1)
+        mark("scan1")
+        dx(1, z1, mats[5], H, None, None, ds1r, dmid)
+        mark("dx1")
+        scan(z0, cs0, dmid, scan_u[0], 0)
+        mark("scan0")
+        dx(0, z0, mats[4], D, dht, dch, ds0r, None)
+        mark("dx0")
+        ws = e(WGRAD_CHUNKS * max(D, H) * H4, dt=f32)
+        wgrads = _layer_wgrads(lib, xtot, D, hs0, x1, hs1, z0, z1, R, ws)
+        dwh = _wgrad(lib, h1d, 0, dzh, H, ws)
+        dbh = _wgrad(lib, None, 0, dzh, 1, ws).reshape(3)
+        ds = []
+        for rows, W in ((ds0r, D), (ds1r, H)):
+            out = e(T, B, W, dt=f32)
+            _check(lib.biax_note_ds(rows.data_ptr(), N, R, W, out.data_ptr(),
+                                    st), "biax_note_ds")
+            ds.append(out)
+        mark("wgrad")
+    biax_note_stack.bwd_launches += 1
+    return (dht, dch, *ds, *wgrads, dwh, dbh)
+
+
 class _NoteStack(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
-                bhead, dropout_p, seed, cdt, hard):
-        dev = _on_cuda("biax_note_stack", ht, chosen, s0, s1, w0, b0, b1,
-                       u0, w1, u1, whead, bhead)
-        T, N, B, Ht = ht.shape
-        C = chosen.shape[-1]
-        H = u0.shape[0]
-        k, _ = _row_tiling(T, B)
-        xs = [t.to(cdt).contiguous() for t in (ht, chosen, s0, s1)]
-        ws = [t.to(cdt).contiguous() for t in (w0, b0, b1, u0, w1, u1,
-                                               whead)]
-        bh = bhead.float().contiguous()
+                bhead, dropout_p, seed, cdt, act):
         tapes = any(ctx.needs_input_grad)
-        new = lambda: torch.empty(N, T, B, H, dtype=cdt, device=dev)
-        out = torch.empty(N, T, B, 3, dtype=torch.float32, device=dev)
-        tp = [new() for _ in range(4)] if tapes else [None] * 4
-        mats = [_layout(ws[0]), ws[1], ws[2], _layout(ws[3]),
-                _layout(ws[4]), _layout(ws[5]), ws[6]]
-        lib = _library("biax_note")
-        with torch.cuda.device(dev):
-            _check(lib.biax_note_fwd(
-                _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
-                bh.data_ptr(), out.data_ptr(), *(_ptr(t) for t in tp),
-                T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
-                int(hard), _stream(dev)), "biax_note_fwd")
-        biax_note_stack.fwd_launches += 1
+        out, *tp = biax_note_fwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1,
+                                 whead, bhead, dropout_p, seed, cdt, act,
+                                 tapes)
         if tapes:
-            ctx.save_for_backward(*xs, *ws, bh, *tp)
-            ctx.cfg = (dropout_p, seed, cdt, hard, k)
-            ctx.dtypes = tuple(t.dtype for t in (
-                ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead))
+            ctx.save_for_backward(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1,
+                                  whead, bhead, *tp)
+            ctx.cfg = (dropout_p, seed, cdt, act)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        (ht, ch, s0, s1, w0, b0, b1, u0, w1, u1, wh, bh,
-         hs0, cs0, hs1, cs1) = ctx.saved_tensors
-        dropout_p, seed, cdt, hard, k = ctx.cfg
-        dev = ht.device
-        T, N, B, Ht = ht.shape
-        C = ch.shape[-1]
-        H = u0.shape[0]
-        H4, D = 4 * H, Ht + C
-        dout = dout.float().contiguous()
-        e = lambda *shape, dt=cdt: torch.empty(*shape, dtype=dt, device=dev)
-        z = lambda *shape: torch.zeros(*shape, dtype=torch.float32,
-                                       device=dev)
-        dht, dch = e(T, N, B, Ht), e(N, T, B, C)
-        ds0, ds1 = z(T, B, D), z(T, B, H)
-        # xtot rows padded to 8 values: 16-byte rows for the reduction.
-        xtot = e(N, T, B, -(-D // 8) * 8)
-        x1t, h1d = e(N, T, B, H), e(N, T, B, H)
-        dzh = e(N, T, B, 3, dt=torch.float32)
-        dz0, dz1 = e(N, T, B, H4), e(N, T, B, H4)
-        fwd = [_layout(w) for w in (w0, u0, w1, u1)]
-        trans = [_layout(w.t()) for w in (w0, u0, w1, u1)]
-        lib = _library("biax_note")
-        with torch.cuda.device(dev):
-            _check(lib.biax_note_bwd(
-                _is_bf16(cdt), *(t.data_ptr() for t in (
-                    ht, ch, s0, s1, fwd[0], b0, b1, fwd[1], fwd[2], fwd[3],
-                    wh, bh, *trans,
-                    hs0, cs0, hs1, cs1, dout, dht, dch, ds0, ds1, xtot, x1t,
-                    h1d, dzh, dz0, dz1)),
-                T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
-                int(hard), _stream(dev)), "biax_note_bwd")
-            ws = e(WGRAD_CHUNKS * max(D, H) * H4, dt=torch.float32)
-            R = T * B
-            dw0 = _wgrad(lib, xtot, 0, dz0, D, ws)
-            du0 = _wgrad(lib, hs0, R, dz0, H, ws)
-            dw1 = _wgrad(lib, x1t, 0, dz1, H, ws)
-            du1 = _wgrad(lib, hs1, R, dz1, H, ws)
-            db0 = _wgrad(lib, None, 0, dz0, 1, ws).reshape(H4)
-            db1 = _wgrad(lib, None, 0, dz1, 1, ws).reshape(H4)
-            dwh = _wgrad(lib, h1d, 0, dzh, H, ws)
-            dbh = _wgrad(lib, None, 0, dzh, 1, ws).reshape(3)
-        biax_note_stack.bwd_launches += 1
-        grads = (dht, dch, ds0, ds1, dw0, db0, db1, du0, dw1, du1, dwh, dbh)
-        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (
+        saved = ctx.saved_tensors
+        grads = biax_note_bwd(*saved, dout, *ctx.cfg)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (
             None,) * 4
 
 
@@ -779,9 +989,10 @@ def biax_note_stack(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
         raise ValueError(f"biax_note_stack runs on CPU or CUDA tensors, "
                          f"got {ht.device}")
     return _NoteStack.apply(*args, float(dropout_p), int(seed),
-                            compute_dtype,
-                            recurrent_activation == "hard_sigmoid")
+                            compute_dtype, recurrent_activation)
 
 
 biax_note_stack.fwd_launches = 0
 biax_note_stack.bwd_launches = 0
+biax_note_stack.cluster_scans = 0
+biax_note_stack.streamed_scans = 0
