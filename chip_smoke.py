@@ -12,12 +12,13 @@ Phases (any failure exits non-zero, before the result line):
      recurrence, forward and backward, at the time and note axes' shapes)
      in float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
      outputs, terminal states and every input, weight and initial-state
-     gradient, also at small odd widths; and each biaxial backward (the
-     time stack's six passes, the note stack's seven) against its staged
-     plain version, which repeats those passes, with the scan route each
-     dtype takes (bfloat16: U resident in a thread-block cluster, one
-     block for the note stack; float32: U streamed); and the lstm2 mask
-     dump (kernel 10) against its plain version, bit for bit;
+     gradient, also at small odd widths; the time forward (six passes)
+     and each biaxial backward (the time stack's six passes, the note
+     stack's seven) against its staged plain version, which repeats those
+     passes, with the scan route each dtype takes (bfloat16: U resident
+     in a thread-block cluster, one block for the note stack; float32: U
+     streamed); and the lstm2 mask dump (kernel 10) against its plain
+     version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -27,9 +28,10 @@ Phases (any failure exits non-zero, before the result line):
   3c. drive the training main path through the CLI's code (train_main at
      default_config(), 2 epochs on a synthetic corpus of all 23 styles),
      and check that every step launched each training kernel once (the
-     time and note backwards' two scans each on the cluster route) and no
-     plain version ran, that the losses are finite, and that
-     generate_main picks up the checkpoint and writes 3 files;
+     time forward's and the time and note backwards' two scans each on
+     the cluster route) and no plain version ran, that the losses are
+     finite, and that generate_main picks up the checkpoint and writes 3
+     files;
   3d. one dropout-0 training step on a seeded batch: kernels against the
      plain stacks in float32 (loss, every gradient, the parameters after
      one Nadam step), and the bfloat16 kernels against the float32 plain
@@ -54,9 +56,10 @@ Phases (any failure exits non-zero, before the result line):
      kernel must have been launched in 3g-3h;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route (and its busy share),
-     each kernel and its plain version, each pass of the time and note
-     backwards (both scan routes, with the cluster scan's clock cycles per
-     phase and a check that its plan is one wave),
+     each kernel and its plain version, each pass of the time forward and
+     of the time and note backwards (both scan routes, with the cluster
+     scans' clock cycles per phase and a check that each plan is one
+     wave),
      cuDNN's LSTM beside the recurrence, and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -386,6 +389,58 @@ def check_bwd_staged(cfg, kind: str):
         f"version")
 
 
+def check_fwd_staged(cfg, kind: str):
+    """A stack's forward kernels (`biax_{kind}_fwd`: the time stack's six
+    passes) against their staged plain version (`biax_{kind}_fwd_staged`),
+    all four tapes, at the main widths (T = CHECK_T) and at small odd
+    widths, both dtypes, dropout 0 and 0.5, both gate flavors: max |d|
+    relative to the tape's largest magnitude where that exceeds 1 (c grows
+    past 1) within F32_ATOL in float32 and BF16_ATOL in bfloat16.  Each
+    forward must take its dtype's scan route (two cluster scans in
+    bfloat16, two streamed in float32)."""
+    from music_generator_tpu_torch.ops import biax
+    fwd, staged = (getattr(biax, f"biax_{kind}_{s}")
+                   for s in ("fwd", "fwd_staged"))
+    small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
+                        time_axis_units=12, note_axis_units=12)
+    cases = 0
+    for c, T, label in ((cfg, CHECK_T, "main widths"),
+                        (small, 6, "small widths")):
+        args = stack_inputs(kind, c, T, 13)
+        for cdt in (torch.float32, torch.bfloat16):
+            for p in (0.0, 0.5):
+                for act in ("sigmoid", "hard_sigmoid"):
+                    kw = dict(dropout_p=p, seed=4321, compute_dtype=cdt,
+                              recurrent_activation=act)
+                    before = fwd_scan_counts()
+                    got = fwd(*args, **kw)
+                    torch.cuda.synchronize()
+                    ran = tuple(a - b for a, b in zip(fwd_scan_counts(),
+                                                      before))
+                    want = staged(*args, **kw)
+                    cases += 1
+                    err = max(float((a.float() - b.float()).abs().max())
+                              / max(1.0, float(b.float().abs().max()))
+                              for a, b in zip(got, want))
+                    _, rel, cos = leaf_stats([g.float() for g in got],
+                                             [w.float() for w in want])
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    dt = "f32" if cdt == torch.float32 else "bf16"
+                    log(f"biax_{kind}_fwd vs staged {label} {dt} p={p} "
+                        f"{act}: tapes max|d| (scaled)={err:.3g}, worst "
+                        f"rel={rel:.3g}, worst cos={cos:.6f}; scans "
+                        f"(cluster, streamed) {ran}")
+                    if cdt == torch.float32:
+                        ok = err <= F32_ATOL and ran == (0, 2)
+                    else:
+                        ok = err <= BF16_ATOL and ran == (2, 0)
+                    if not ok or not finite:
+                        fail(f"biax_{kind}_fwd {label} {dt} p={p} {act} "
+                             f"disagrees with its staged version")
+    log(f"biax_{kind}_fwd: {cases} cases agree with the staged plain "
+        f"version")
+
+
 def axis_shapes(cfg, T: int):
     """(axis, S, R, F, H) of the time and note axes' scans at cfg's widths
     with T timesteps: the time axis scans T over rows (b, n), the note axis
@@ -514,6 +569,8 @@ def reset_counts():
         plain.calls = 0
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
+    t = biax.biax_time_stack
+    t.fwd_cluster_scans = t.fwd_streamed_scans = 0
 
 
 def scan_counts(kind: str):
@@ -521,6 +578,13 @@ def scan_counts(kind: str):
     from music_generator_tpu_torch.ops import biax
     stack = getattr(biax, f"biax_{kind}_stack")
     return stack.cluster_scans, stack.streamed_scans
+
+
+def fwd_scan_counts():
+    """(cluster, streamed) scans launched by the time forward."""
+    from music_generator_tpu_torch.ops import biax
+    t = biax.biax_time_stack
+    return t.fwd_cluster_scans, t.fwd_streamed_scans
 
 
 def read_counts():
@@ -551,7 +615,9 @@ def train_main_path(cfg):
         reset_counts()
         hist = train_main(["--epochs", "2"])
         launches, plain = read_counts()
-        scans = {kind: scan_counts(kind) for kind in ("time", "note")}
+        scans = {f"{kind} backward": scan_counts(kind)
+                 for kind in ("time", "note")}
+        scans["time forward"] = fwd_scan_counts()
         train_s = time.perf_counter() - t
         paths = generate_main(["--bars", "2"])
         model, loaded = build_or_load(cfg, "cuda")
@@ -560,7 +626,7 @@ def train_main_path(cfg):
     steps = sum(hist["steps_per_epoch"])
     log(f"train main path: {steps} steps in 2 epochs, losses {hist['loss']}, "
         f"{train_s:.1f} s; kernel launches {launches}, plain version calls "
-        f"{plain}; backward scans (cluster, streamed) {scans}")
+        f"{plain}; scans (cluster, streamed) {scans}")
     if not np.isfinite(hist["loss"]).all():
         fail("non-finite training loss")
     if (any(v != (steps if k.startswith("biax") else 0)
@@ -569,7 +635,7 @@ def train_main_path(cfg):
              "biaxial kernel, and only through them")
     for kind, ran in scans.items():
         if cfg.compute_dtype == "bfloat16" and ran != (2 * steps, 0):
-            fail(f"the bfloat16 {kind} backward ran scans {ran}, not "
+            fail(f"the bfloat16 {kind} ran scans {ran}, not "
                  f"{(2 * steps, 0)} on the cluster route")
     if not loaded or not os.path.isfile(os.path.join(TRAIN_WORK, "out",
                                                      "model.pt")):
@@ -744,6 +810,7 @@ def time_biax(cfg, card):
                 f"plain version {times[(kind, 'plain')][i]:.4f} ms, bound "
                 f"{bound:.6f} ms by {by} (T={T}, B={cfg.batch_size}, "
                 f"bfloat16; {card})")
+    fwd_passes(cfg, card, "time")
     for kind in ("time", "note"):
         bwd_passes(cfg, card, kind)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
@@ -778,6 +845,64 @@ def forced_scan_route(route: str):
         biax.scan_route = saved
 
 
+def pass_ms(runs):
+    """{pass name: mean ms} from the marks of runs queued back to back,
+    the first run dropped."""
+    return {name: float(np.mean([m[i][1].elapsed_time(m[i + 1][1])
+                                 for m in runs[1:]]))
+            for i, (name, _) in enumerate(runs[0][1:])}
+
+
+def check_plan(what: str, R: int, row) -> None:
+    """Fail unless a cluster scan's plan (its scan_prof row: rows a
+    cluster at 5, clusters resident at 8) takes one wave over R rows."""
+    clusters = -(-R // row[5])
+    if clusters > row[8]:
+        fail(f"the {what}'s plan needs {clusters} clusters, more than the "
+             f"{row[8]} resident: two waves")
+
+
+def fwd_passes(cfg, card, kind: str, reps: int = 6):
+    """ms of each pass of a stack's forward (`biax_{kind}_fwd`, bfloat16,
+    the training shapes, tapes on): CUDA events between the passes of
+    `reps` forwards queued back to back, the first dropped; on the cluster
+    route (the main path's) and on the streamed route (the float32
+    route's scans, run in bfloat16 for comparison).  Logs the cluster
+    scans' clock cycles per step and phase (block 0) and their plan, and
+    fails unless the plan's clusters are all resident at once."""
+    from music_generator_tpu_torch.ops import biax
+    T = cfg.seq_len
+    args = stack_inputs(kind, cfg, T, 5)
+    kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
+              recurrent_activation="sigmoid")
+    R = cfg.num_notes * cfg.batch_size
+    fwd = getattr(biax, f"biax_{kind}_fwd")
+    for route in ("cluster", "streamed"):
+        prof = torch.zeros(2, 9, dtype=torch.int64, device="cuda")
+        with forced_scan_route(route):
+            runs = []
+            for _ in range(reps):
+                marks = []
+                fwd(*args, **kw, marks=marks, scan_prof=prof)
+                runs.append(marks)
+            torch.cuda.synchronize()
+        per = pass_ms(runs)
+        log(f"biax_{kind}_fwd passes, {route} scans (ms, mean of "
+            f"{reps - 1}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         per.items())
+            + f"; sum {sum(per.values()):.4f} ({card})")
+        if route == "cluster":
+            for layer, row in enumerate(prof.cpu().tolist()):
+                log(f"{kind} forward cluster scan layer {layer}: clock "
+                    f"cycles per step of block 0: product with block "
+                    f"barrier {row[0] / T:.0f}, own cell work "
+                    f"{row[1] / T:.0f}, cluster barrier {row[2] / T:.0f}; "
+                    f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
+                    f"units a block, {row[7]} K parts, {-(-R // row[5])} "
+                    f"clusters of {row[8]} resident")
+                check_plan(f"{kind} forward cluster scan", R, row)
+
+
 def bwd_passes(cfg, card, kind: str, reps: int = 6):
     """ms of each pass of a stack's backward (`biax_{kind}_bwd`, bfloat16,
     the training shapes): CUDA events between the passes of `reps`
@@ -810,9 +935,7 @@ def bwd_passes(cfg, card, kind: str, reps: int = 6):
                 bwd(*args, *tapes, cot, **kw, marks=marks, scan_prof=prof)
                 runs.append(marks)
             torch.cuda.synchronize()
-        per = {name: float(np.mean([m[i][1].elapsed_time(m[i + 1][1])
-                                    for m in runs[1:]]))
-               for i, (name, _) in enumerate(runs[0][1:])}
+        per = pass_ms(runs)
         log(f"biax_{kind}_bwd passes, {route} scans (ms, mean of "
             f"{reps - 1}): " + ", ".join(f"{k} {v:.4f}" for k, v in
                                          per.items())
@@ -827,10 +950,7 @@ def bwd_passes(cfg, card, kind: str, reps: int = 6):
                     f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
                     f"units a block, {row[7]} K parts, {clusters} clusters "
                     f"of {row[8]} resident")
-                if clusters > row[8]:
-                    fail(f"the {kind} cluster scan's plan needs {clusters} "
-                         f"clusters, more than the {row[8]} resident: two "
-                         f"waves")
+                check_plan(f"{kind} cluster scan", R, row)
 
 
 def lstm_bound_ms(name: str, S: int, R: int, F: int, H: int):
@@ -1225,6 +1345,7 @@ def main() -> None:
     log(f"notegen: {case} cases agree with the plain version "
         f"(|u-p| edge {EDGE}, volume atol {VOLUME_ATOL})")
     biax_errs = check_biax_kernels(cfg)
+    check_fwd_staged(cfg, "time")
     for kind in ("time", "note"):
         check_bwd_staged(cfg, kind)
     lstm_errs = check_lstm_kernels(cfg)

@@ -1,18 +1,20 @@
-// The pass machinery of the biaxial stacks' backward (biax_time.cu,
-// biax_note.cu) for Hopper (sm_90a): the bulk products with their
-// epilogues, and the two reversed scans of one layer, streamed and with U
-// resident in a thread-block cluster.
+// The pass machinery of the biaxial stacks (biax_time.cu, biax_note.cu)
+// for Hopper (sm_90a): the bulk products with their epilogues, the forward
+// scans of one layer and the two reversed scans of the backward, each
+// streamed and with U resident in a thread-block cluster.
 //
 // Dims by role: the scanned axis S, the across axis A, and the rows
 // R = A B of `row_pos`; pass row m = s R + g holds scan step s and row g.
 // The time stack is (S, A) = (T, N), the note stack (S, A) = (N, T); under
 // that relabelling a mask at site, tile, step, row and width is the same
-// `mval` for both, so the scans, EPI_PRE and EPI_DX1 serve both stacks.
+// `mval` for both, so the scans and the epilogues serve both stacks.
 //
-// The products (2., 4., 6. of the time backward; 2., 4., 6. of the note
-// backward) run over all S R rows at once: tensor-core mma.sync in
+// The products run over all S R rows at once: tensor-core mma.sync in
 // bfloat16 (128 x 64 tiles, cp.async ring), CUDA-core FMAs in float32.
-// The scans (3., 5.) carry only dh <- dz U^T from step to step.
+// EPI_IN forms a layer's input pre-activations (in W -> T) + b for the
+// forward; EPI_PRE adds the recurrent term the backward recomputes.  The
+// forward scan carries only h U from step to step, the reversed scans only
+// dh <- dz U^T.
 
 #pragma once
 
@@ -43,12 +45,13 @@ struct Operand {
   int ldb;
 };
 
-enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3 };
+enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3, EPI_IN = 4 };
 
 template <typename T>
 struct EpiArgs {
-  T* out_t;        // PRE: z [M][N]; DX0: dx [M][N]; NOTE_DX: dht
-  const T* bias;   // PRE: [N]
+  T* out_t;        // PRE: z [M][N]; IN: P [M][N]; DX0: dx [M][N];
+                   // NOTE_DX: dht
+  const T* bias;   // PRE, IN: [N]
   float* out_a;    // DX1: style-1 rows; DX0, NOTE_DX: style-0 rows
   float* out_b;    // DX1: the mid term added to layer 0's dh
   PassDims d;
@@ -59,6 +62,7 @@ struct EpiArgs {
 
 // PRE: z = ((A1 B1 -> T) + b) + (A2 B2 -> T), the cast order of `preact`;
 // `pre_first` forms the first term, exact in T, after the first product.
+// IN: P = (A B -> T) + b, that first term alone.
 // DX1: dx1 = A B in float32; style-1 rows dx1 m_style1, mid term dx1 m_mid.
 // DX0: dx = A B rounded to T; style-0 rows (float32 product) dx m_style0.
 // NOTE_DX: the note stack's dx = [dxt | dch] (D = Ht + C columns): dht =
@@ -78,6 +82,8 @@ __device__ __forceinline__ void epilogue(const EpiArgs<T>& e, int N, int m,
   const size_t o = (size_t)m * N + n;
   if constexpr (MODE == EPI_PRE) {
     st(e.out_t + o, add_t<T>(v1, rnd<T>(v2)));
+  } else if constexpr (MODE == EPI_IN) {
+    st(e.out_t + o, pre_first(e, n, v1));
   } else if constexpr (MODE == EPI_NOTE_DX) {
     const int R = e.d.A * e.d.B, s = m / R, Ht = e.split;
     const RowPos p = row_pos(m % R, e.d.B, e.d.k);
@@ -123,6 +129,9 @@ __device__ __forceinline__ void epilogue_pair(const EpiArgs<bf16>& e, int N,
     *reinterpret_cast<uint32_t*>(e.out_t + o) =
         pack_bf16(add_t<bf16>(a0, rnd<bf16>(b0)),
                   add_t<bf16>(a1, rnd<bf16>(b1)));
+  } else if constexpr (MODE == EPI_IN) {
+    *reinterpret_cast<uint32_t*>(e.out_t + o) =
+        pack_bf16(pre_first(e, n, a0), pre_first(e, n + 1, a1));
   } else {
     float2 va = make_float2(a0, a1), vb = va;
     if (e.drop.on) {
@@ -802,6 +811,360 @@ inline int launch_scan(int bf16_, int cluster, void* z_dz, const void* cs,
   }
   if (bf16_) return scan_streamed<bf16>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
   return scan_streamed<float>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
+}
+
+// ---------------------------------------------------------------------------
+// The forward of one layer (the time forward's passes 3 and 6), forward
+// over s: z = add_t(P[s], rnd_T(h[s-1] U)) with h[-1] = 0 (no product at
+// s = 0), the gates in T, c carried in float32, h = o tanh(c -> T) rounded
+// to T.  P [M][4H] holds the layer's input pre-activations (EPI_IN); the
+// scan writes hs [M][H] and, when cs is not null, cs [M][H] (the previous
+// c, in T).  u is `_layout(U)` in both routes.
+// ---------------------------------------------------------------------------
+
+// Streamed (the float32 route; chip_smoke.py also times it in bfloat16
+// beside the cluster scan): a block owns RB rows; h U streams U from L2 at
+// every step (`matvec`).
+template <typename T, int RB>
+__global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
+    const T* __restrict__ pre, T* __restrict__ hs, T* __restrict__ cs,
+    const T* __restrict__ u, PassDims d, int hard) {
+  extern __shared__ float sm[];
+  const int H = d.H, H4 = 4 * H, R = d.A * d.B, lH = padk(H);
+  float* h = sm;                  // [RB][lH], zero past H and past R
+  float* z = h + RB * lH;         // [RB][4H]: rnd_T(h U)
+  float* c = z + RB * H4;         // [RB][H]
+  float* scr = c + RB * H;
+  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
+  for (int i = tid; i < RB * (lH + H4 + H); i += nt) sm[i] = 0.f;
+  __syncthreads();
+  for (int s = 0; s < d.S; ++s) {
+    if (s > 0)
+      matvec<T, RB>(h, lH, H, u, H4, scr, [&](int rr, int col, float v) {
+        z[rr * H4 + col] = rnd<T>(v);
+      });
+    for (int i = tid; i < RB * H; i += nt) {
+      const int rr = i / H, j = i % H, g = g0 + rr;
+      if (g >= R) continue;
+      const size_t m = (size_t)s * R + g;
+      float zz[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        zz[a] = ld(pre + m * H4 + a * H + j);
+        if (s > 0) zz[a] = add_t<T>(zz[a], z[rr * H4 + a * H + j]);
+      }
+      const float cp = c[i];
+      float hn;
+      c[i] = cell<T>(gates<T>(zz, 1, 0, hard), cp, &hn);
+      h[rr * lH + j] = hn;
+      st(hs + m * H + j, hn);
+      if (cs) st(cs + m * H + j, cp);
+    }
+    __syncthreads();
+  }
+}
+
+// U resident in a thread-block cluster (bfloat16), the plan of
+// scan_cluster.  A cluster of C blocks owns RT rows (g0 ..) for the whole
+// scan; block q owns the UJ units j0 = q UJ .. and keeps the 4 UJ columns
+// of U that feed their gates, {a H + j}, as a [4 UJ][H] tile (gate row
+// r = a UJ + jj; the A side of mma.sync, K = H), loaded once.  Each step:
+// (a) warp w multiplies m16 tile w of the gate rows by the h tile of every
+// row of the cluster over all of K (no K parts), into float32 gate sums in
+// shared memory; a block barrier; (b) each thread runs the cell of one row
+// and two units, writes hs and cs to device memory, and writes h (bf16)
+// into the next h tile of every block of the cluster through distributed
+// shared memory; one cluster barrier.  The h tiles alternate by step: the
+// products of step s read tile s % 2 while the cells write tile
+// (s + 1) % 2, so no block can overwrite a tile a peer still reads, and
+// one barrier a step suffices.  Both tiles are swizzled as the backward's
+// (`swz`).  The P values of the step are loaded before the product, so
+// their latency hides behind it.
+struct FwdPlan { int C, UJ, G4p, Kp, RT, RTp, NT, active; };
+
+template <int NT>
+__global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
+    const bf16* __restrict__ pre, bf16* __restrict__ hs,
+    bf16* __restrict__ cs, const bf16* __restrict__ u, PassDims d,
+    FwdPlan P, int hard, unsigned long long* prof) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int H = d.H, H4 = 4 * H, R = d.A * d.B, Kp = P.Kp, UJ = P.UJ;
+  const int RT = P.RT, G4 = 4 * UJ, ZLD = G4 + 4, ldu = padk(H);
+  bf16* Us = reinterpret_cast<bf16*>(smraw);              // [G4p][Kp]
+  bf16* hb = Us + (size_t)P.G4p * Kp;                      // 2 x [RTp][Kp]
+  // [RT][ZLD]: gate sums; the pad of 4 puts the 32 lanes of a store on
+  // distinct banks.
+  float* zs = reinterpret_cast<float*>(hb + 2 * (size_t)P.RTp * Kp);
+  const int q = (int)cluster.block_rank(), C = P.C;
+  const int j0 = q * UJ, g0 = (blockIdx.x / C) * RT;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < P.G4p * Kp; i += nt) {
+    const int r = i / Kp, k = i % Kp, j = j0 + r % UJ;
+    Us[swz(r, k, Kp)] = (r < G4 && j < H && k < H)
+                            ? u[(size_t)((r / UJ) * H + j) * ldu + k]
+                            : zero;
+  }
+  for (int i = tid; i < 2 * P.RTp * Kp; i += nt) hb[i] = zero;
+  // The thread's item of (b): row rr, units jp, jp + 1 (RT ceil(UJ / 2) <=
+  // blockDim).  Paired columns move as one 4-byte load or store when H and
+  // UJ are even.
+  const int UJ2 = (UJ + 1) / 2, rr = tid / UJ2, jp = (tid % UJ2) * 2;
+  bool ok[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+    ok[w] = rr < RT && g0 + rr < R && jp + w < UJ && j0 + jp + w < H;
+  const bool pairs = (H % 2 == 0) && (UJ % 2 == 0);
+  float c[2] = {0.f, 0.f};
+  cluster.sync();
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const uint32_t sa_us = (uint32_t)__cvta_generic_to_shared(Us);
+  const uint32_t sa_h = (uint32_t)__cvta_generic_to_shared(hb);
+  const int MT = P.G4p / 16, KS = Kp / 16;
+  // prof (block 0, thread 0): clock cycles summed over the steps of the
+  // product with the block barrier, its own cell work, and the cluster
+  // barrier; then the plan.
+  const bool rec = prof != nullptr && blockIdx.x == 0 && tid == 0;
+  unsigned long long ck[3] = {0, 0, 0}, c0 = 0, c1 = 0;
+  for (int s = 0; s < d.S; ++s) {
+    if (rec) c0 = clock64();
+    const size_t m = (size_t)s * R + g0 + rr;
+    float pz[2][4];
+    if (ok[0]) {
+      const bf16* pr = pre + m * H4 + j0 + jp;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (pairs && ok[1]) {
+          const float2 v = unpack_bf16(
+              *reinterpret_cast<const uint32_t*>(pr + a * H));
+          pz[0][a] = v.x;
+          pz[1][a] = v.y;
+        } else {
+          pz[0][a] = ld(pr + a * H);
+          pz[1][a] = ok[1] ? ld(pr + a * H + 1) : 0.f;
+        }
+      }
+    }
+    // (a) the gate sums h[s-1] U[:, the block's gate columns].
+    if (s > 0) {
+      const uint32_t hbase = sa_h + (uint32_t)((s & 1) * P.RTp * Kp) * 2;
+      for (int mt = warp; mt < MT; mt += nwarps) {
+        float acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        const int ra = mt * 16 + (lane & 15);
+        const int rb = (lane & 7) + ((lane >> 4) << 3);
+        const uint32_t abase = sa_us + (uint32_t)ra * Kp * 2;
+        const uint32_t bbase = hbase + (uint32_t)rb * Kp * 2;
+        const int ahi = lane >> 4, bhi = (lane >> 3) & 1;
+        const int axr = ra & 7, bxr = rb & 7;
+#pragma unroll 4
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a, abase + ((uint32_t)((2 * ks + ahi) ^ axr) << 4));
+          const uint32_t boff = (uint32_t)((2 * ks + bhi) ^ bxr) << 4;
+#pragma unroll
+          for (int n = 0; n < NT; n += 2) {
+            uint32_t b[4];
+            ldsm_x4(b, bbase + (uint32_t)n * 8 * Kp * 2 + boff);
+            mma_bf16(acc[n], a[0], a[1], a[2], a[3], b[0], b[1]);
+            if (n + 1 < NT)
+              mma_bf16(acc[n + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+          }
+        }
+        // acc[n][e]: gate row mt 16 + g + 8 (e >> 1), cluster row
+        // 8 n + 2 t4 + (e & 1).
+        const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = mt * 16 + g + 8 * (e >> 1);
+            const int row = n * 8 + 2 * t4 + (e & 1);
+            if (r < G4 && row < RT) zs[row * ZLD + r] = acc[n][e];
+          }
+      }
+    }
+    __syncthreads();
+    if (rec) {
+      c1 = clock64();
+      ck[0] += c1 - c0;
+    }
+    // (b) the cell of this block's units; h to every block's next tile.
+    if (ok[0]) {
+      float hn[2] = {0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        if (!ok[w]) continue;
+        float zz[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          zz[a] = s > 0 ? add_t<bf16>(pz[w][a], rnd<bf16>(
+                              zs[rr * ZLD + a * UJ + jp + w]))
+                        : pz[w][a];
+        const float cp = c[w];
+        c[w] = cell<bf16>(gates<bf16>(zz, 1, 0, hard), cp, &hn[w]);
+        const size_t o = m * H + j0 + jp + w;
+        st(hs + o, hn[w]);
+        if (cs) st(cs + o, cp);
+      }
+      bf16* nxt = hb + ((s + 1) & 1) * P.RTp * Kp;
+      const int j = j0 + jp;
+      if (pairs && ok[1]) {
+        const int off = swz(rr, j, Kp);
+        const uint32_t pv = pack_bf16(hn[0], hn[1]);
+        for (int r = 0; r < C; ++r)
+          *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(nxt, r) +
+                                       off) = pv;
+      } else {
+        for (int w = 0; w < 2; ++w) {
+          if (!ok[w]) continue;
+          const int off = swz(rr, j + w, Kp);
+          for (int r = 0; r < C; ++r)
+            cluster.map_shared_rank(nxt, r)[off] = __float2bfloat16(hn[w]);
+        }
+      }
+    }
+    if (rec) {
+      c0 = clock64();
+      ck[1] += c0 - c1;
+    }
+    cluster.sync();
+    if (rec) ck[2] += clock64() - c0;
+  }
+  if (rec) {
+    for (int i = 0; i < 3; ++i) prof[i] = ck[i];
+    prof[3] = 0;
+    prof[4] = C;
+    prof[5] = RT;
+    prof[6] = UJ;
+    prof[7] = 1;
+    prof[8] = P.active;
+  }
+}
+
+inline size_t fwd_cluster_smem(const FwdPlan& p) {
+  return sizeof(bf16) * (size_t)(p.G4p + 2 * p.RTp) * p.Kp +
+         sizeof(float) * (size_t)p.RT * (4 * p.UJ + 4);
+}
+
+// The plan of scan_cluster: C the least power of two whose [4 UJ][Kp] share
+// of U fits CL_U_BYTES, RT = ceil(R / the clusters the card holds at once)
+// within shared memory and one item per thread, so the launch is one wave.
+// A refused launch returns its error.
+inline int fwd_scan_cluster(const void* pre, void* hs, void* cs,
+                            const void* u, PassDims d, int hard,
+                            unsigned long long* prof, cudaStream_t st) {
+  const int R = d.A * d.B;
+  FwdPlan p;
+  p.Kp = (d.H + 63) & ~63;
+  for (p.C = 1;; p.C *= 2) {
+    p.UJ = (d.H + p.C - 1) / p.C;
+    p.G4p = (4 * p.UJ + 15) & ~15;
+    if ((size_t)p.G4p * p.Kp * sizeof(bf16) <= CL_U_BYTES || p.C >= 16) break;
+  }
+  if ((size_t)p.G4p * p.Kp * sizeof(bf16) > CL_U_BYTES)
+    return (int)cudaErrorInvalidValue;
+  auto fits = [&](int rt) {
+    p.RT = rt;
+    p.NT = (rt + 7) / 8;
+    p.RTp = 16 * ((rt + 15) / 16);   // whole pairs of n8 tiles
+    return fwd_cluster_smem(p) <= CL_SMEM_MAX &&
+           rt * ((p.UJ + 1) / 2) <= CL_THREADS;
+  };
+  int rt_max = 8 * CL_NTMAX;
+  while (rt_max > 0 && !fits(rt_max)) --rt_max;
+  if (rt_max == 0) return (int)cudaErrorInvalidConfiguration;
+  void (*const kerns[])(const bf16*, bf16*, bf16*, const bf16*, PassDims,
+                        FwdPlan, int, unsigned long long*) = {
+      fwd_scan_cluster_kernel<1>, fwd_scan_cluster_kernel<2>,
+      fwd_scan_cluster_kernel<3>, fwd_scan_cluster_kernel<4>};
+  cudaError_t err;
+  for (auto kern : kerns) {
+    if (p.C > 8 && (err = cudaFuncSetAttribute(
+                        kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                        1)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             CL_SMEM_MAX)) != cudaSuccess)
+      return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  fits(rt_max);
+  cfg.gridDim = dim3(p.C * ((R + rt_max - 1) / rt_max));
+  cfg.dynamicSmemBytes = fwd_cluster_smem(p);
+  if ((err = cudaOccupancyMaxActiveClusters(&p.active, kerns[p.NT - 1],
+                                             &cfg)) != cudaSuccess)
+    return (int)err;
+  if (p.active == 0) return (int)cudaErrorInvalidConfiguration;
+  fits(std::min(rt_max, (R + p.active - 1) / p.active));
+  cfg.gridDim = dim3(p.C * ((R + p.RT - 1) / p.RT));
+  cfg.dynamicSmemBytes = fwd_cluster_smem(p);
+  err = cudaLaunchKernelEx(&cfg, kerns[p.NT - 1], (const bf16*)pre,
+                           (bf16*)hs, (bf16*)cs, (const bf16*)u, d, p, hard,
+                           prof);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd_scan_streamed(const void* pre, void* hs, void* cs, const void* u,
+                      PassDims d, int hard, cudaStream_t st) {
+  const int R = d.A * d.B, H4 = 4 * d.H, RB = SCAN_RB;
+  const int nt = threads_for(H4);
+  const size_t smem =
+      sizeof(float) * (RB * (padk(d.H) + H4 + d.H) + nt * RB);
+  auto kern = fwd_scan_streamed_kernel<T, SCAN_RB>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kern<<<(R + RB - 1) / RB, nt, smem, st>>>((const T*)pre, (T*)hs, (T*)cs,
+                                            (const T*)u, d, hard);
+  return (int)cudaGetLastError();
+}
+
+// 2., 5. of the time forward: P [M][4H] = (xin W -> T) + bias over all M
+// rows (EPI_IN); xin [M][ldx] with K columns, w in the layout of T.
+inline int launch_in(int bf16_, const void* xin, int ldx, int K,
+                     const void* w, const void* bias, void* out, int M,
+                     int H, cudaStream_t st) {
+  const int H4 = 4 * H;
+  if (bf16_) {
+    const auto op = operand<bf16>(xin, ldx, 0, K, w, H4);
+    const EpiArgs<bf16> e = {(bf16*)out, (const bf16*)bias};
+    return gemm<bf16, EPI_IN>(op, op, M, H4, e, st);
+  }
+  const auto op = operand<float>(xin, ldx, 0, K, w, H4);
+  const EpiArgs<float> e = {(float*)out, (const float*)bias};
+  return gemm<float, EPI_IN>(op, op, M, H4, e, st);
+}
+
+// 3., 6. of the time forward: one layer's forward scan over P.  cluster =
+// 1 (bfloat16 only): U resident in a thread-block cluster; cluster = 0:
+// streamed.  prof (cluster scan only, may be null): three clock-cycle sums
+// of the first block's steps and its plan, see fwd_scan_cluster_kernel.
+inline int launch_fwd_scan(int bf16_, int cluster, const void* pre,
+                           void* hs, void* cs, const void* u, PassDims d,
+                           int hard, unsigned long long* prof,
+                           cudaStream_t st) {
+  if (cluster) {
+    if (!bf16_) return (int)cudaErrorInvalidValue;
+    return fwd_scan_cluster(pre, hs, cs, u, d, hard, prof, st);
+  }
+  if (bf16_) return fwd_scan_streamed<bf16>(pre, hs, cs, u, d, hard, st);
+  return fwd_scan_streamed<float>(pre, hs, cs, u, d, hard, st);
 }
 
 }  // namespace biax

@@ -23,34 +23,41 @@
 // The bytes (about 220 MB for the forward) take 0.07 ms at 3.35 TB/s.  The
 // real floor is the chain of 128 dependent steps.
 //
-// Forward (simple first).  One block owns RB = 8 rows for the whole scan
-// (96 blocks at the flagship) and keeps h, c, the gates and the layer
-// inputs in shared memory; the weights stream from L2 every step.  In
-// bfloat16 each warp multiplies 16 gate columns by the block's rows with
-// tensor-core mma.sync (float32 accumulation); in float32 a thread owns a
-// gate column and accumulates its rows with FMAs on the CUDA cores.
+// Both directions run in passes, because only one product carries from
+// step to step: h U in the forward, dh <- dz U^T in the backward.
 //
-// Backward, in six passes.  Only dh <- dz U^T carries from step to step;
-// the forward's gates at step t depend only on tapes the forward wrote,
-// and dx1 = dz1 W1^T, dx = dz0 W0^T feed nothing later in the chain.  So
-// the products that do not carry leave the scans: (1) an elementwise
-// prologue forms the layer inputs xtot and x1; (2) a tiled GEMM forms both
-// layers' pre-activations z for all T N B rows at once; (3) the layer-1
-// scan, reversed, runs the cell backward and one product dz1 U1^T per step;
-// (4) a GEMM forms dx1 = dz1 W1^T with the style-1 rows and the mid term
-// in its epilogue; (5) the layer-0 scan; (6) a GEMM forms dx = dz0 W0^T and
-// the style-0 rows.  The GEMMs run on the tensor cores in bfloat16
-// (mma.sync, cp.async double buffering) and on the CUDA cores in float32.
-// The bfloat16 scans keep U resident in a thread-block cluster's shared
-// memory (loaded once per launch; dz exchanged through distributed shared
-// memory, two cluster barriers a step); the float32 scans stream U^T from
-// L2 (RB = 6 rows a block).  The choice is by dtype, fixed in the wrapper.
-// The scans overwrite z with dz in place.  Blocks never talk across
-// clusters, so the weight gradients, which the TPU kernel summed in VMEM
-// across its sequential grid, are a second, deterministic reduction over
-// the dz tapes.  The prologue is this file's; passes 2-6 are the shared
-// machinery of biax_passes.cuh with (S, A) = (T, N), which the note
-// stack's backward (biax_note.cu) runs with (S, A) = (N, T).
+// Forward, in six passes.  x W0 depends only on the inputs, and x1 W1 only
+// on layer 0's h at the same step, so (1) an elementwise pass forms xtot
+// (the first half of the prologue below); (2) a tiled GEMM forms layer 0's
+// input pre-activations P = (xtot W0 -> T) + b0 for all T N B rows at once
+// (EPI_IN); (3) the layer-0 scan runs the cell forward with one h U0
+// product a step and writes hs0 (always: layer 1 reads it) and cs0 (when
+// tapes are wanted); (4) the prologue's second half forms x1 from hs0;
+// (5) a GEMM forms layer 1's P into the same buffer; (6) the layer-1 scan
+// writes hs1 and cs1.
+//
+// Backward, in six passes.  The forward's gates at step t depend only on
+// tapes the forward wrote, and dx1 = dz1 W1^T, dx = dz0 W0^T feed nothing
+// later in the chain.  So the products that do not carry leave the scans:
+// (1) the prologue forms both layer inputs xtot and x1; (2) a tiled GEMM
+// forms both layers' pre-activations z for all T N B rows at once; (3) the
+// layer-1 scan, reversed, runs the cell backward and one product dz1 U1^T
+// per step; (4) a GEMM forms dx1 = dz1 W1^T with the style-1 rows and the
+// mid term in its epilogue; (5) the layer-0 scan; (6) a GEMM forms
+// dx = dz0 W0^T and the style-0 rows.  The scans overwrite z with dz in
+// place.  Blocks never talk across clusters, so the weight gradients,
+// which the TPU kernel summed in VMEM across its sequential grid, are a
+// second, deterministic reduction over the dz tapes.
+//
+// The GEMMs run on the tensor cores in bfloat16 (mma.sync, cp.async ring)
+// and on the CUDA cores in float32.  The bfloat16 scans keep U resident in
+// a thread-block cluster's shared memory (loaded once per launch; h or dz
+// exchanged through distributed shared memory; the forward double-buffers
+// h and needs one cluster barrier a step, the backward two); the float32
+// scans stream U from L2 (RB = 6 rows a block).  The choice is by dtype,
+// fixed in the wrapper.  The prologue is this file's; the other passes are
+// the shared machinery of biax_passes.cuh with (S, A) = (T, N), which the
+// note stack's backward (biax_note.cu) runs with (S, A) = (N, T).
 
 #include "biax_passes.cuh"
 
@@ -58,103 +65,30 @@ namespace biax {
 
 struct TimeDims { int T, N, B, F, H, k; };
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) time_fwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ s0,
-    const T* __restrict__ s1, const T* __restrict__ w0,
-    const T* __restrict__ b0, const T* __restrict__ b1,
-    const T* __restrict__ u0, const T* __restrict__ w1,
-    const T* __restrict__ u1, T* hs0, T* cs0, T* hs1, T* cs1, TimeDims d,
-    Drop drop, int hard) {
-  extern __shared__ float sm[];
-  const int F = d.F, H = d.H, H4 = 4 * H, R = d.N * d.B;
-  const int lF = padk(F), lH = padk(H);
-  // Product inputs (rows padded to 32 with zeros): xin, x1, h0, h1.
-  float* xin = sm;
-  float* x1 = xin + RB * lF;
-  float* h0 = x1 + RB * lH;
-  float* h1 = h0 + RB * lH;
-  float* c0 = h1 + RB * lH;
-  float* c1 = c0 + RB * H;
-  float* z = c1 + RB * H;
-  float* scr = z + RB * H4;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * (lF + 3 * lH + 2 * H + H4); i += nt) sm[i] = 0.f;
-  __syncthreads();
-  for (int t = 0; t < d.T; ++t) {
-    for (int i = tid; i < RB * F; i += nt) {
-      const int rr = i / F, f = i % F, g = g0 + rr;
-      float v = 0.f;
-      if (g < R) {
-        const RowPos p = row_pos(g, d.B, d.k);
-        float s = ld(s0 + ((size_t)t * d.B + p.b) * F + f);
-        if (drop.on) s = mul_t<T>(s, mval(drop, S_STYLE0, p.j, t, p.r, F, f));
-        v = add_t<T>(ld(x + ((size_t)t * R + g) * F + f), s);
-      }
-      xin[rr * lF + f] = v;
-    }
-    __syncthreads();
-    preact<T, RB>(xin, lF, F, w0, b0, h0, lH, H, u0, z, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float cp = c0[i];
-      float hn;
-      c0[i] = cell<T>(q, cp, &hn);
-      h0[rr * lH + j] = hn;
-      float xv = 0.f;
-      if (g < R) {
-        const size_t o = ((size_t)t * R + g) * H + j;
-        if (cs0) st(cs0 + o, cp);
-        if (hs0) st(hs0 + o, hn);
-        const RowPos p = row_pos(g, d.B, d.k);
-        float s = ld(s1 + ((size_t)t * d.B + p.b) * H + j);
-        float hv = hn;
-        if (drop.on) {
-          hv = mul_t<T>(hn, mval(drop, S_MID, p.j, t, p.r, H, j));
-          s = mul_t<T>(s, mval(drop, S_STYLE1, p.j, t, p.r, H, j));
-        }
-        xv = add_t<T>(hv, s);
-      }
-      x1[rr * lH + j] = xv;
-    }
-    __syncthreads();
-    preact<T, RB>(x1, lH, H, w1, b1, h1, lH, H, u1, z, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float cp = c1[i];
-      float hn;
-      c1[i] = cell<T>(q, cp, &hn);
-      h1[rr * lH + j] = hn;
-      if (g < R) {
-        const size_t o = ((size_t)t * R + g) * H + j;
-        if (cs1) st(cs1 + o, cp);
-        st(hs1 + o, hn);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The backward, in six passes (see the note at the top; 2-6 in
-// biax_passes.cuh).
+// The passes (see the note at the top; the rest in biax_passes.cuh).
 // ---------------------------------------------------------------------------
 
-// 1. Prologue: the layer inputs of every (t, row) m = t R + g, as the
-// forward formed them: xtot[m] = x + style-0 (masked), x1[m] = hs0 (masked)
-// + style-1 (masked), rows padded to 8 values with zeros.  One block a
-// row, threads over the columns of both.
+// The prologue: the layer inputs of every (t, row) m = t R + g:
+// xtot[m] = x + style-0 (masked), x1[m] = hs0 (masked) + style-1 (masked),
+// rows padded to 8 values with zeros.  `halves` selects them (PRO_XTOT,
+// PRO_X1 or both): the forward forms xtot first (its pass 1) and x1 once
+// layer 0 has run (pass 4), the backward both at once (its pass 1).  One
+// block a row, threads over the selected columns.
+enum { PRO_XTOT = 1, PRO_X1 = 2 };
+
 template <typename T>
-__global__ void __launch_bounds__(128) time_bwd_prologue_kernel(
+__global__ void __launch_bounds__(128) time_prologue_kernel(
     const T* __restrict__ x, const T* __restrict__ s0,
     const T* __restrict__ s1, const T* __restrict__ hs0,
-    T* __restrict__ xtot, T* __restrict__ x1, TimeDims d, Drop drop) {
+    T* __restrict__ xtot, T* __restrict__ x1, TimeDims d, Drop drop,
+    int halves) {
   const int F = d.F, H = d.H, R = d.N * d.B, lx = pad8(F), l1 = pad8(H);
   const int m = blockIdx.x, t = m / R;
   const RowPos p = row_pos(m % R, d.B, d.k);
-  for (int c = threadIdx.x; c < lx + l1; c += blockDim.x) {
+  const int c0 = (halves & PRO_XTOT) ? 0 : lx;
+  const int c1 = (halves & PRO_X1) ? lx + l1 : lx;
+  for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
     float v = 0.f;
     if (c < F) {
       float s = ld(s0 + ((size_t)t * d.B + p.b) * F + c);
@@ -195,75 +129,55 @@ __global__ void time_ds_kernel(const float* __restrict__ rows, int T_, int N,
   out[i] = tot;
 }
 
-constexpr int FWD_RB = 8;   // 96 blocks at the flagship
-
-template <typename T>
-int time_fwd(const void* x, const void* s0, const void* s1, const void* w0,
-             const void* b0, const void* b1, const void* u0, const void* w1,
-             const void* u1, void* hs0, void* cs0, void* hs1, void* cs1,
-             TimeDims d, Drop drop, int hard, cudaStream_t st) {
-  const int R = d.N * d.B, H4 = 4 * d.H, RB = FWD_RB;
-  const int nt = threads_for(H4);
-  // The forward's products never split K (blockDim <= 4H) unless 4H < 32.
-  const size_t smem = sizeof(float) *
-      (RB * (padk(d.F) + 3 * padk(d.H) + 2 * d.H + H4) +
-       (H4 < 32 ? nt * RB : 0));
-  auto kern = time_fwd_kernel<T, FWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(R + RB - 1) / RB, nt, smem, st>>>(
-      (const T*)x, (const T*)s0, (const T*)s1, (const T*)w0, (const T*)b0,
-      (const T*)b1, (const T*)u0, (const T*)w1, (const T*)u1, (T*)hs0,
-      (T*)cs0, (T*)hs1, (T*)cs1, d, drop, hard);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace biax
 
-extern "C" int biax_time_fwd(int bf16, const void* x, const void* s0,
-                             const void* s1, const void* w0, const void* b0,
-                             const void* b1, const void* u0, const void* w1,
-                             const void* u1, void* hs0, void* cs0, void* hs1,
-                             void* cs1, int T, int N, int B, int F, int H,
-                             int k, unsigned seed, unsigned thr, float scale,
-                             int dropout, int hard, void* stream) {
-  using namespace biax;
-  const TimeDims d = {T, N, B, F, H, k};
-  const Drop drop = {seed, thr, scale, dropout};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return time_fwd<biax::bf16>(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0,
-                                hs1, cs1, d, drop, hard, st);
-  return time_fwd<float>(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
-                         cs1, d, drop, hard, st);
-}
-
-// The backward's passes, launched in order by ops/biax.py::biax_time_bwd.
-// 1. xtot [T R][pad8(F)], x1 [T R][pad8(H)] from x, s0, s1 and hs0.
-extern "C" int biax_time_bwd_prologue(int bf16, const void* x, const void* s0,
-                                      const void* s1, const void* hs0,
-                                      void* xtot, void* x1, int T, int N,
-                                      int B, int F, int H, int k,
-                                      unsigned seed, unsigned thr,
-                                      float scale, int dropout,
-                                      void* stream) {
+// The passes, launched in order by ops/biax.py::biax_time_fwd and
+// biax_time_bwd.
+// The prologue: xtot [T R][pad8(F)] from x and s0 (halves & 1), x1
+// [T R][pad8(H)] from s1 and hs0 (halves & 2).
+extern "C" int biax_time_prologue(int bf16, int halves, const void* x,
+                                  const void* s0, const void* s1,
+                                  const void* hs0, void* xtot, void* x1,
+                                  int T, int N, int B, int F, int H, int k,
+                                  unsigned seed, unsigned thr, float scale,
+                                  int dropout, void* stream) {
   using namespace biax;
   const TimeDims d = {T, N, B, F, H, k};
   const Drop drop = {seed, thr, scale, dropout};
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = T * N * B;
   if (bf16)
-    time_bwd_prologue_kernel<biax::bf16><<<blocks, 128, 0, st>>>(
+    time_prologue_kernel<biax::bf16><<<blocks, 128, 0, st>>>(
         (const biax::bf16*)x, (const biax::bf16*)s0, (const biax::bf16*)s1,
-        (const biax::bf16*)hs0, (biax::bf16*)xtot, (biax::bf16*)x1, d, drop);
+        (const biax::bf16*)hs0, (biax::bf16*)xtot, (biax::bf16*)x1, d, drop,
+        halves);
   else
-    time_bwd_prologue_kernel<float><<<blocks, 128, 0, st>>>(
+    time_prologue_kernel<float><<<blocks, 128, 0, st>>>(
         (const float*)x, (const float*)s0, (const float*)s1,
-        (const float*)hs0, (float*)xtot, (float*)x1, d, drop);
+        (const float*)hs0, (float*)xtot, (float*)x1, d, drop, halves);
   return (int)cudaGetLastError();
 }
 
-// 2. One layer's pre-activations over all M = T R rows (launch_preact).
+// Forward 2., 5. One layer's input pre-activations P [M][4H] (launch_in).
+extern "C" int biax_time_fwd_in(int bf16, const void* xin, int ldx, int K,
+                                const void* w, const void* bias, void* pre,
+                                int M, int H, void* stream) {
+  return biax::launch_in(bf16, xin, ldx, K, w, bias, pre, M, H,
+                         (cudaStream_t)stream);
+}
+
+// Forward 3., 6. One layer's forward scan over P (launch_fwd_scan).
+extern "C" int biax_time_fwd_scan(int bf16, int cluster, const void* pre,
+                                  void* hs, void* cs, const void* u, int T,
+                                  int N, int B, int H, int k, int hard,
+                                  unsigned long long* prof, void* stream) {
+  const biax::PassDims d = {T, N, B, H, k};
+  return biax::launch_fwd_scan(bf16, cluster, pre, hs, cs, u, d, hard, prof,
+                               (cudaStream_t)stream);
+}
+
+// Backward 2. One layer's pre-activations over all M = T R rows
+// (launch_preact).
 extern "C" int biax_time_bwd_preact(int bf16, const void* xin, int ldx,
                                     int K, const void* w, const void* bias,
                                     const void* hs, const void* u, void* z,
@@ -272,7 +186,7 @@ extern "C" int biax_time_bwd_preact(int bf16, const void* xin, int ldx,
                              (cudaStream_t)stream);
 }
 
-// 3., 5. One layer's reversed scan over z_dz (launch_scan).
+// Backward 3., 5. One layer's reversed scan over z_dz (launch_scan).
 extern "C" int biax_time_bwd_scan(int bf16, int cluster, void* z_dz,
                                   const void* cs, const void* ext_t,
                                   const void* ext_f, const void* u, int T,
@@ -284,7 +198,7 @@ extern "C" int biax_time_bwd_scan(int bf16, int cluster, void* z_dz,
                            prof, (cudaStream_t)stream);
 }
 
-// 4., 6. The product dz [M][4H] W^T (wt = `_layout(W^T)`, an Nout-wide
+// Backward 4., 6. The product dz [M][4H] W^T (wt = `_layout(W^T)`, an Nout-wide
 // result).  layer 1: out_a = style-1 rows, out_b = the mid term (float32).
 // layer 0: out_t = dx (T), out_a = style-0 rows.
 extern "C" int biax_time_bwd_dx(int bf16, int layer, const void* dz,

@@ -37,16 +37,21 @@ do (pallas_biax.py:536-559, 1053-1081).  Launch counters:
 `biax_time_stack.fwd_launches` / `.bwd_launches`, the same on
 `biax_note_stack`; the plain versions count `.calls`.
 
-Both backwards run in passes (`biax_time_bwd`, `biax_note_bwd`): only the
-product dh <- dz U^T carries from one scan step to the next, so the
-forward's gates, the note stack's heads backward, dx1 = dz1 W1^T and
-dx = dz0 W0^T are elementwise passes and bulk products outside the two
-reversed scans, whose machinery both stacks share (`csrc/
-biax_passes.cuh`).  `biax_time_bwd_staged` and `biax_note_bwd_staged` are
-the same computations in plain PyTorch.  In bfloat16 the scans keep U
-resident in a thread-block cluster (one block for the note stack's
-H = 128), in float32 they stream it (`scan_route`); each stack's
-`.cluster_scans` and `.streamed_scans` count which ran.
+Every CUDA path runs in passes, because only one product carries from
+one scan step to the next: h U in a forward, dh <- dz U^T in a backward.
+The time forward (`biax_time_fwd`) is six passes: xtot, layer 0's input
+pre-activations as one bulk product, layer 0's forward scan, x1, layer 1's
+bulk product, layer 1's scan.  In both backwards (`biax_time_bwd`,
+`biax_note_bwd`) the forward's gates, the note stack's heads backward,
+dx1 = dz1 W1^T and dx = dz0 W0^T are elementwise passes and bulk products
+outside the two reversed scans.  The stacks share that machinery
+(`csrc/biax_passes.cuh`).  `biax_time_fwd_staged`, `biax_time_bwd_staged`
+and `biax_note_bwd_staged` are the same computations in plain PyTorch.
+In bfloat16 the scans keep U resident in a thread-block cluster (one
+block for the note stack's H = 128), in float32 they stream it
+(`scan_route`); `biax_time_stack.fwd_cluster_scans` and
+`.fwd_streamed_scans` count the time forward's scans, each stack's
+`.cluster_scans` and `.streamed_scans` its backward's.
 """
 
 from __future__ import annotations
@@ -318,6 +323,84 @@ def _reverse_scan(z: torch.Tensor, cs: torch.Tensor, ext: torch.Tensor,
     return dz
 
 
+def _forward_scan(pre: torch.Tensor, u: torch.Tensor,
+                  hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Passes 3 and 6 of the staged time forward: one layer's cell over the
+    scanned axis.  pre [S, R, 4H] holds the input pre-activations
+    ((in W -> T) + b) in the compute dtype; h[s-1] U (float32, cast to
+    T) is the only carried product, h[-1] = 0.  Returns hs, cs [S, R, H]
+    in the compute dtype (h after step s, c before it)."""
+    cdt = pre.dtype
+    S, R, H4 = pre.shape
+    h = c = torch.zeros(R, H4 // 4, device=pre.device)
+    hs, cs = [], []
+    for s in range(S):
+        cs.append(c.to(cdt))
+        h, c = _cell(pre[s], h, c, u, hard)
+        hs.append(h.to(cdt))
+    return torch.stack(hs), torch.stack(cs)
+
+
+def _time_masks(seed, T, N, B, F, H, dropout_p, cdt, dev):
+    """The time stack's (m_style0, m_style1, m_mid), each None at p = 0."""
+    keep = 1.0 - dropout_p
+    return tuple(stack_mask(seed, site, T, N, B, W, keep, cdt, dev)
+                 for site, W in ((S_STYLE0, F), (S_STYLE1, H), (S_MID, H)))
+
+
+def _time_xtot(x, s0, m0) -> torch.Tensor:
+    """The time stack's layer-0 input xtot = x + s0 m_style0 as rows
+    [T, N B, F] (each operation rounded to the compute dtype)."""
+    T, N, B, F = x.shape
+    return (x + _apply(s0[:, None].expand(T, N, B, F), m0)).reshape(
+        T, N * B, F)
+
+
+def _time_x1(hs0, s1, mmid, m1) -> torch.Tensor:
+    """The time stack's layer-1 input x1 = hs0 m_mid + s1 m_style1 as rows
+    [T, N B, H]."""
+    T, N, B, H = hs0.shape
+    return (_apply(hs0, mmid)
+            + _apply(s1[:, None].expand(T, N, B, H), m1)).reshape(
+                T, N * B, H)
+
+
+def biax_time_fwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1,
+                         dropout_p: float = 0.0, seed: int = 0,
+                         compute_dtype=torch.float32,
+                         recurrent_activation: str = "sigmoid"):
+    """The time stack's forward as the CUDA kernels compute it, in plain
+    PyTorch (no autograd): the six passes of `csrc/biax_time.cu` with
+    their cast points and masks.
+
+      1. xtot = x + masked style-0 (each operation rounded to T);
+      2. layer 0's input pre-activations P0 = (xtot W0 -> T) + b0 for all
+         T N B rows at once;
+      3. the layer-0 scan: z = P0[t] + (h[t-1] U0 -> T), h[-1] = 0, gates
+         in T, c in float32, h = o tanh(c -> T);
+      4. x1 = masked hs0 + masked style-1;
+      5. P1 = (x1 W1 -> T) + b1;
+      6. the layer-1 scan, as 3.
+
+    Returns the tapes (hs0, cs0, hs1, cs1) [T, N, B, H] in the compute
+    dtype (h after step t, c before it)."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    x, s0, s1 = x.to(cdt), s0.to(cdt), s1.to(cdt)
+    W0, U0, W1, U1 = (w.to(cdt) for w in (w0, u0, w1, u1))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    m0, m1, mmid = _time_masks(seed, T, N, B, F, H, dropout_p, cdt, x.device)
+    tape = lambda t: t.reshape(T, N, B, H)
+    # 1. - 3.
+    hs0, cs0 = _forward_scan(_dot(_time_xtot(x, s0, m0), W0).to(cdt) + B0,
+                             U0, hard)
+    # 4. - 6.
+    x1 = _time_x1(tape(hs0), s1, mmid, m1)
+    hs1, cs1 = _forward_scan(_dot(x1, W1).to(cdt) + B1, U1, hard)
+    return tuple(tape(t) for t in (hs0, cs0, hs1, cs1))
+
+
 def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
                          cs1, dhs1, dropout_p: float = 0.0, seed: int = 0,
                          compute_dtype=torch.float32,
@@ -347,22 +430,18 @@ def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
     T, N, B, F = x.shape
     H = u0.shape[0]
     R, dev = N * B, x.device
-    keep = 1.0 - dropout_p
     k, _ = _row_tiling(N, B)
     x, s0, s1 = x.to(cdt), s0.to(cdt), s1.to(cdt)
     W0, U0, W1, U1 = (w.to(cdt) for w in (w0, u0, w1, u1))
     B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
     hs0, cs0, hs1, cs1, dhs1 = (t.to(cdt) for t in (hs0, cs0, hs1, cs1,
                                                     dhs1))
-    m0 = stack_mask(seed, S_STYLE0, T, N, B, F, keep, cdt, dev)
-    m1 = stack_mask(seed, S_STYLE1, T, N, B, H, keep, cdt, dev)
-    mmid = stack_mask(seed, S_MID, T, N, B, H, keep, cdt, dev)
+    m0, m1, mmid = _time_masks(seed, T, N, B, F, H, dropout_p, cdt, dev)
     rows = lambda t: t.reshape(T, R, t.shape[-1])
     f32 = lambda m: None if m is None else rows(m).float()
 
     # 1. prologue
-    xtot = rows(x + _apply(s0[:, None].expand(T, N, B, F), m0))
-    x1 = rows(_apply(hs0, mmid) + _apply(s1[:, None].expand(T, N, B, H), m1))
+    xtot, x1 = _time_xtot(x, s0, m0), _time_x1(hs0, s1, mmid, m1)
     # 2. bulk pre-activations
     prev = lambda h: torch.cat([torch.zeros_like(h[:1]), h[:-1]])
     hp0, hp1 = prev(rows(hs0)), prev(rows(hs1))
@@ -492,10 +571,10 @@ _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
 _SIGNATURES = {
     "biax_time": {
-        "biax_time_fwd": [_I] + [_P] * 13 + [_I] * 6 + [_U, _U, _F, _I, _I,
-                                                       _P],
-        "biax_time_bwd_prologue": [_I] + [_P] * 6 + [_I] * 6 + [_U, _U, _F,
-                                                               _I, _P],
+        "biax_time_prologue": [_I, _I] + [_P] * 6 + [_I] * 6
+        + [_U, _U, _F, _I, _P],
+        "biax_time_fwd_in": [_I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+        "biax_time_fwd_scan": [_I, _I] + [_P] * 4 + [_I] * 6 + [_P, _P],
         "biax_time_bwd_preact": [_I, _P, _I, _I] + [_P] * 5 + [_I] * 3
         + [_P],
         "biax_time_bwd_scan": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P, _P],
@@ -517,6 +596,7 @@ _SIGNATURES = {
     },
 }
 _WGRAD = [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+_PRO_XTOT, _PRO_X1 = 1, 2   # the halves of biax_time_prologue
 WGRAD_CHUNKS = 32           # row chunks of the weight-gradient reduction
 
 
@@ -614,38 +694,8 @@ def _on_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
-                  seed: int = 0, compute_dtype=torch.float32,
-                  recurrent_activation: str = "sigmoid", tapes: bool = True):
-    """The time stack's forward kernel on CUDA tensors: (hs0, cs0, hs1, cs1)
-    [T, N, B, H] in the compute dtype (h after step t, c before it), the
-    three tapes None when `tapes` is False.  Counts
-    `biax_time_stack.fwd_launches`."""
-    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
-    dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1)
-    T, N, B, F = x.shape
-    H = u0.shape[0]
-    k, _ = _row_tiling(N, B)
-    xs = [t.to(cdt).contiguous() for t in (x, s0, s1)]
-    w0, b0, b1, u0, w1, u1 = (t.to(cdt).contiguous()
-                              for t in (w0, b0, b1, u0, w1, u1))
-    new = lambda: torch.empty(T, N, B, H, dtype=cdt, device=dev)
-    hs1 = new()
-    hs0, cs0, cs1 = (new(), new(), new()) if tapes else (None,) * 3
-    mats = [_layout(w0), b0, b1, _layout(u0), _layout(w1), _layout(u1)]
-    lib = _library("biax_time")
-    with torch.cuda.device(dev):
-        _check(lib.biax_time_fwd(
-            _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
-            _ptr(hs0), _ptr(cs0), hs1.data_ptr(), _ptr(cs1),
-            T, N, B, F, H, k, *_mask_args(dropout_p, seed, cdt),
-            int(hard), _stream(dev)), "biax_time_fwd")
-    biax_time_stack.fwd_launches += 1
-    return hs0, cs0, hs1, cs1
-
-
 def scan_route(cdt: torch.dtype) -> str:
-    """The biaxial backwards' scans by dtype: U resident in a thread-block
+    """The biaxial stacks' scans by dtype: U resident in a thread-block
     cluster in bfloat16, streamed from L2 in float32."""
     return "cluster" if cdt == torch.bfloat16 else "streamed"
 
@@ -659,6 +709,80 @@ def _marker(marks):
             ev.record()
             marks.append((name, ev))
     return mark
+
+
+def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
+                  seed: int = 0, compute_dtype=torch.float32,
+                  recurrent_activation: str = "sigmoid", tapes: bool = True,
+                  marks=None, scan_prof: Optional[torch.Tensor] = None):
+    """The time stack's forward kernels on CUDA tensors: (hs0, cs0, hs1,
+    cs1) [T, N, B, H] in the compute dtype (h after step t, c before it),
+    the three tapes None when `tapes` is False, by the six passes of
+    `biax_time_fwd_staged` (csrc/biax_time.cu).  The scans take
+    `scan_route(compute_dtype)`; without tapes hs0 is scratch and cs0, cs1
+    are not written.  With a list `marks`, a recorded CUDA event is
+    appended after each pass, as (name, event), behind ("start", event).
+    With an int64 tensor `scan_prof` [2, 9] on the card, the cluster scans
+    of layers 0 and 1 write their first block's clock cycles per phase,
+    summed over the steps (the product with its block barrier, the cell
+    work, the cluster barrier, then 0) and their plan (cluster size, rows
+    and units per block, K parts = 1, clusters the card holds at once).
+    Counts `biax_time_stack.fwd_launches`, and `.fwd_cluster_scans` or
+    `.fwd_streamed_scans` once per scan."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("biax_time_stack", x, s0, s1, w0, b0, b1, u0, w1, u1)
+    T, N, B, F = x.shape
+    H = u0.shape[0]
+    M = T * N * B
+    k, _ = _row_tiling(N, B)
+    x, s0, s1, w0, b0, b1, u0, w1, u1 = (
+        t.to(cdt).contiguous() for t in (x, s0, s1, w0, b0.reshape(-1),
+                                         b1.reshape(-1), u0, w1, u1))
+    route = scan_route(cdt)
+    e = lambda *shape: torch.empty(*shape, dtype=cdt, device=dev)
+    # Rows padded to 8 values (zeros): 16-byte rows for the products.
+    xtot, x1 = e(T, N, B, _pad8(F)), e(T, N, B, _pad8(H))
+    pre = e(T, N, B, 4 * H)            # P of layer 0, then of layer 1
+    hs0, hs1 = e(T, N, B, H), e(T, N, B, H)
+    cs0, cs1 = (e(T, N, B, H), e(T, N, B, H)) if tapes else (None, None)
+    w0, u0, w1, u1 = (_layout(w) for w in (w0, u0, w1, u1))
+    lib = _library("biax_time")
+    bf, st = _is_bf16(cdt), _stream(dev)
+    dims = (T, N, B, F, H, k)
+    drop = _mask_args(dropout_p, seed, cdt)
+    mark = _marker(marks)
+
+    def prologue(halves, name):
+        _check(lib.biax_time_prologue(
+            bf, halves, x.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+            hs0.data_ptr(), xtot.data_ptr(), x1.data_ptr(), *dims, *drop,
+            st), "biax_time_prologue")
+        mark(name)
+
+    def run_layer(i, xin, K, w, b, u, hs, cs):
+        _check(lib.biax_time_fwd_in(
+            bf, xin.data_ptr(), xin.shape[-1], K, w.data_ptr(), b.data_ptr(),
+            pre.data_ptr(), M, H, st), "biax_time_fwd_in")
+        mark(f"in{i}")
+        prof = None if scan_prof is None else scan_prof[i]
+        _check(lib.biax_time_fwd_scan(
+            bf, int(route == "cluster"), pre.data_ptr(), hs.data_ptr(),
+            _ptr(cs), u.data_ptr(), T, N, B, H, k, int(hard), _ptr(prof),
+            st), f"biax_time_fwd_scan ({route})")
+        mark(f"scan{i}")
+        if route == "cluster":
+            biax_time_stack.fwd_cluster_scans += 1
+        else:
+            biax_time_stack.fwd_streamed_scans += 1
+
+    with torch.cuda.device(dev):
+        mark("start")
+        prologue(_PRO_XTOT, "xtot")
+        run_layer(0, xtot, F, w0, b0, u0, hs0, cs0)
+        prologue(_PRO_X1, "x1")
+        run_layer(1, x1, H, w1, b1, u1, hs1, cs1)
+    biax_time_stack.fwd_launches += 1
+    return (hs0 if tapes else None), cs0, hs1, cs1
 
 
 def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
@@ -721,9 +845,10 @@ def biax_time_bwd(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1, cs1,
 
     with torch.cuda.device(dev):
         mark("start")
-        _check(lib.biax_time_bwd_prologue(
-            bf, *(t.data_ptr() for t in (x, s0, s1, hs0, xtot, x1)), *dims,
-            *drop, st), "biax_time_bwd_prologue")
+        _check(lib.biax_time_prologue(
+            bf, _PRO_XTOT | _PRO_X1,
+            *(t.data_ptr() for t in (x, s0, s1, hs0, xtot, x1)), *dims,
+            *drop, st), "biax_time_prologue")
         mark("prologue")
         for xin, K, w, b, hs, u, z in ((xtot, F, mats[0], b0, hs0, mats[1],
                                         z0),
@@ -964,6 +1089,8 @@ def biax_time_stack(x, s0, s1, w0, b0, b1, u0, w1, u1,
 
 biax_time_stack.fwd_launches = 0
 biax_time_stack.bwd_launches = 0
+biax_time_stack.fwd_cluster_scans = 0
+biax_time_stack.fwd_streamed_scans = 0
 biax_time_stack.cluster_scans = 0
 biax_time_stack.streamed_scans = 0
 
