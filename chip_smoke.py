@@ -6,10 +6,13 @@ Phases (any failure exits non-zero, before the result line):
   1. build every CUDA kernel from csrc/ (nvcc, one process per source, all
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' widths: the generation pitch loop, the four biaxial
-     training kernels (time and note stack, forward and backward) and the
-     four per-axis kernels (the fused two-layer stack and the single-layer
-     recurrence, forward and backward, at the time and note axes' shapes)
+     main paths' widths: the generation pitch loop (the cluster kernel
+     also bit for bit against the streamed kernel in all 32 cases, and its
+     plan printed with the clusters the card holds at once, one wave
+     required at G <= 64), the four biaxial training kernels (time and
+     note stack, forward and backward) and the four per-axis kernels (the
+     fused two-layer stack and the single-layer recurrence, forward and
+     backward, at the time and note axes' shapes)
      in float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
      outputs, terminal states and every input, weight and initial-state
      gradient, also at small odd widths; the time forward (six passes)
@@ -23,8 +26,9 @@ Phases (any failure exits non-zero, before the result line):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
      identity required, byte identity reported) and that every timestep
-     went through the kernel; then regenerate more committed samples
-     (real_corpus_r3, the 64-bar long_samples_r4) the same way;
+     went through the cluster kernel (the streamed one never); then
+     regenerate more committed samples (real_corpus_r3, the 64-bar
+     long_samples_r4) the same way;
   3c. drive the training main path through the CLI's code (train_main at
      default_config(), 2 epochs on a synthetic corpus of all 23 styles),
      and check that every step launched each training kernel once (the
@@ -56,11 +60,12 @@ Phases (any failure exits non-zero, before the result line):
      kernel must have been launched in 3g-3h;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route (and its busy share),
-     each kernel and its plain version, each pass of the time forward and
-     of the time and note backwards (both scan routes, with the cluster
-     scans' clock cycles per phase and a check that each plan is one
-     wave),
-     cuDNN's LSTM beside the recurrence, and the mask dump.
+     each kernel and its plain version (the pitch loop's cluster and
+     streamed kernels in turns at G = 3, 64 and 256, with the cluster
+     kernel's clock cycles per pitch by phase), each pass of the time
+     forward and of the time and note backwards (both scan routes, with
+     the cluster scans' clock cycles per phase and a check that each plan
+     is one wave), cuDNN's LSTM beside the recurrence, and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -1158,6 +1163,7 @@ def reset_slice_counts():
     from music_generator_tpu_torch.ops import lstm2, notegen
     reset_counts()
     notegen.note_sample.launches = 0
+    notegen.note_sample_streamed.launches = 0
     notegen.note_sample_reference.calls = 0
     lstm2.dump_masks.launches = 0
 
@@ -1257,6 +1263,70 @@ def primed_generation(cfg):
     return report
 
 
+def check_notegen_plans(cfg):
+    """Print the cluster pitch-loop kernel's plan at G = 1, 3, 8, 64 and
+    256 beside the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters); fail if a plan at G <= 64 needs two
+    waves."""
+    from music_generator_tpu_torch.ops import notegen
+    F, H, N = cfg.time_axis_units, cfg.note_axis_units, cfg.num_notes
+    for G in (1, 3, 8, 64, 256):
+        p = notegen.notegen_plan(G, F, H, N)
+        active = notegen.active_clusters(G, F, H, N)
+        waves = -(-p.clusters // active) if active else 0
+        log(f"notegen plan G={G}: C={p.C} blocks a cluster, Gc={p.Gc} "
+            f"streams a cluster, {p.clusters} cluster(s), {p.smem} bytes "
+            f"a block; {active} clusters resident at once: {waves} "
+            f"wave(s)")
+        if G <= 64 and (active == 0 or p.clusters > active):
+            fail(f"notegen plan at G={G} needs more than one wave")
+
+
+def time_notegen(model, card):
+    """Kernel 1 at G = 3, 64 and 256: the cluster kernel and the streamed
+    kernel on one card in turns (cluster, streamed, streamed, cluster;
+    CUDA events, mean of 50 launches each), the plain version at G = 3 and
+    64, the bound, and block 0's clock cycles per pitch by phase.  Returns
+    {G: (ms, streamed ms, plain ms or None, bound ms, bound_by)}."""
+    from music_generator_tpu_torch.ops import notegen
+    cfg = model.cfg
+    l0, l1 = model.note_axis
+    heads = (model.note_dense, model.volume_dense)
+    times = {}
+    for G in (3, 64, 256):
+        feats, us, temp, emb = notegen_inputs(model, G, 1.0, 100 + G)
+        args = (feats, us, temp, l0, l1, *heads, emb, "sigmoid", None)
+        ops = notegen._kernel_operands(*args[:8], None)
+        runs = [cuda_ms(lambda: notegen._launch(*ops, False), 50),
+                cuda_ms(lambda: notegen._launch_streamed(*ops, False), 50),
+                cuda_ms(lambda: notegen._launch_streamed(*ops, False), 50),
+                cuda_ms(lambda: notegen._launch(*ops, False), 50)]
+        plain = (cuda_ms(lambda: notegen.note_sample_reference(*args), 5)
+                 if G <= 64 else None)
+        prof = torch.zeros(14, dtype=torch.int64, device="cuda")
+        notegen._launch(*ops, False, prof=prof)
+        torch.cuda.synchronize()
+        pr = prof.tolist()
+        per = [c / pr[11] for c in pr[:6]]
+        bound, bound_by = notegen_bound_ms(
+            G, cfg.num_notes, cfg.time_axis_units, cfg.note_axis_units)
+        ms, streamed = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        times[G] = (ms, streamed, plain, bound, bound_by)
+        log(f"notegen G={G}: cluster kernel {runs[0]:.4f} / {runs[3]:.4f} "
+            f"ms/launch, streamed kernel {runs[1]:.4f} / {runs[2]:.4f}, "
+            f"plain version {'-' if plain is None else f'{plain:.4f}'} ms, "
+            f"bound {bound:.6f} ms by {bound_by} ({card})")
+        log(f"notegen G={G} block 0 (C={pr[8]}, Gc={pr[9]}, {pr[10]} "
+            f"clusters), cycles per pitch: layer 0 h0 U0 {per[0]:.0f}, wait "
+            f"for the draw with z0 and cells {per[1]:.0f}, h0 exchange and "
+            f"barrier 1 {per[2]:.0f}, layer 1 with cells {per[3]:.0f}, h1 "
+            f"exchange and barrier 2 {per[4]:.0f} (sum "
+            f"{sum(per[:5]):.0f}); heads and draw, beside layer 0, "
+            f"{per[5]:.0f}; prologue {pr[6]} cycles ({pr[12]} before the "
+            f"acc_F chunks, {pr[13]} in them), launch {pr[7]} cycles")
+    return times
+
+
 def time_masks(card):
     """ms of kernel 10 and of its plain version at the time and note
     axes' shapes (float32, as the validator dumps, and bfloat16), with the
@@ -1330,7 +1400,12 @@ def main() -> None:
                     feats, us, temp, emb = notegen_inputs(model, G, T, case)
                     args = (feats, us, temp, l0, l1, *heads, emb, act, grid)
                     got = notegen.note_sample(*args)
+                    streamed = notegen.note_sample_streamed(*args)
                     torch.cuda.synchronize()
+                    if not torch.equal(got, streamed):
+                        fail(f"notegen G={G} T={T} {act} quantize="
+                             f"{grid is not None}: the cluster kernel "
+                             f"differs from the streamed kernel")
                     want = notegen.note_sample_reference(*args)
                     probs = notegen.tempered_probs(feats, got, temp, l0, l1,
                                                    *heads, emb, act)
@@ -1342,8 +1417,10 @@ def main() -> None:
                     if not ok or not torch.isfinite(got).all():
                         fail(f"notegen disagrees with its plain version: "
                              f"{report}")
-    log(f"notegen: {case} cases agree with the plain version "
-        f"(|u-p| edge {EDGE}, volume atol {VOLUME_ATOL})")
+    log(f"notegen: {case} cases of the cluster kernel equal the streamed "
+        f"kernel bit for bit and agree with the plain version (|u-p| edge "
+        f"{EDGE}, volume atol {VOLUME_ATOL})")
+    check_notegen_plans(cfg)
     biax_errs = check_biax_kernels(cfg)
     check_fwd_staged(cfg, "time")
     for kind in ("time", "note"):
@@ -1356,6 +1433,7 @@ def main() -> None:
     cwd = os.getcwd()
     os.chdir(WORK)
     notegen.note_sample.launches = 0
+    notegen.note_sample_streamed.launches = 0
     notegen.note_sample_reference.calls = 0
     paths = {}
     try:
@@ -1367,11 +1445,14 @@ def main() -> None:
         os.chdir(cwd)
     launches = notegen.note_sample.launches
     plain_calls = notegen.note_sample_reference.calls
+    streamed_launches = notegen.note_sample_streamed.launches
     steps = 2 * 8 * cfg.notes_per_bar
     log(f"main path: notegen launches {launches} for {steps} timesteps, "
-        f"plain version calls {plain_calls}")
-    if launches != steps or plain_calls != 0:
-        fail("the main path did not run every timestep through the kernel")
+        f"streamed kernel launches {streamed_launches}, plain version calls "
+        f"{plain_calls}")
+    if launches != steps or plain_calls != 0 or streamed_launches != 0:
+        fail("the main path did not run every timestep through the cluster "
+             "kernel")
     n_bytes = 0
     for seed, ps in paths.items():
         for i, p in enumerate(ps):
@@ -1418,6 +1499,9 @@ def main() -> None:
     if idle:
         fail(f"kernels not launched on the validators' and primed "
              f"generation's path: {idle}")
+    if notegen.note_sample_streamed.launches:
+        fail("the streamed pitch-loop kernel ran on the validators' and "
+             "primed generation's path")
 
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
@@ -1457,25 +1541,8 @@ def main() -> None:
             f"{device - note:.4f}), busy share {device / step:.3f} "
             f"({card})")
 
-    times = {}
-    for G in (3, 64):
-        feats, us, temp, emb = notegen_inputs(model, G, 1.0, 100 + G)
-        args = (feats, us, temp, l0, l1, *heads, emb, "sigmoid", None)
-        w0f, w0c, a0, a1 = notegen.fold_style(l0, l1, emb, feats.shape[-1])
-        kernel_args = (feats, us, temp, w0f, w0c, a0, l0.lstm.recurrent,
-                       l1.lstm.kernel, a1, l1.lstm.recurrent,
-                       model.note_dense.kernel, model.note_dense.bias,
-                       model.volume_dense.kernel, model.volume_dense.bias,
-                       None, False)
-        ms = cuda_ms(lambda: notegen._launch(*kernel_args), 50)
-        plain = cuda_ms(lambda: notegen.note_sample_reference(*args), 5)
-        bound, bound_by = notegen_bound_ms(
-            G, cfg.num_notes, cfg.time_axis_units, cfg.note_axis_units)
-        times[G] = (ms, plain, bound, bound_by)
-        log(f"notegen G={G}: kernel {ms:.4f} ms/launch, plain version "
-            f"{plain:.4f} ms, bound {bound:.6f} ms by {bound_by} ({card})")
-
-    ms, plain, bound, bound_by = times[3]
+    times = time_notegen(model, card)
+    ms, _, plain, bound, bound_by = times[3]
     kernels = [{
         "name": "notegen",
         "route": "cuda",
