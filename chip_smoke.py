@@ -15,13 +15,13 @@ Phases (any failure exits non-zero, before the result line):
      backward, at the time and note axes' shapes)
      in float32 and bfloat16, both gate flavors, dropout 0 and 0.5, forward
      outputs, terminal states and every input, weight and initial-state
-     gradient, also at small odd widths; the time forward (six passes)
-     and each biaxial backward (the time stack's six passes, the note
-     stack's seven) against its staged plain version, which repeats those
-     passes, with the scan route each dtype takes (bfloat16: U resident
-     in a thread-block cluster, one block for the note stack; float32: U
-     streamed); and the lstm2 mask dump (kernel 10) against its plain
-     version, bit for bit;
+     gradient, also at small odd widths; each biaxial forward (the time
+     stack's six passes, the note stack's seven) and each biaxial backward
+     (the time stack's six passes, the note stack's seven) against its
+     staged plain version, which repeats those passes, with the scan route
+     each dtype takes (bfloat16: U resident in a thread-block cluster, one
+     block for the note stack; float32: U streamed); and the lstm2 mask
+     dump (kernel 10) against its plain version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -31,9 +31,9 @@ Phases (any failure exits non-zero, before the result line):
      long_samples_r4) the same way;
   3c. drive the training main path through the CLI's code (train_main at
      default_config(), 2 epochs on a synthetic corpus of all 23 styles),
-     and check that every step launched each training kernel once (the
-     time forward's and the time and note backwards' two scans each on
-     the cluster route) and no plain version ran, that the losses are
+     and check that every step launched each training kernel once (each
+     biaxial forward's and backward's two scans on the cluster route) and
+     no plain version ran, that the losses are
      finite, and that generate_main picks up the checkpoint and writes 3
      files;
   3d. one dropout-0 training step on a seeded batch: kernels against the
@@ -62,8 +62,8 @@ Phases (any failure exits non-zero, before the result line):
      share of it), the training step of each route (and its busy share),
      each kernel and its plain version (the pitch loop's cluster and
      streamed kernels in turns at G = 3, 64 and 256, with the cluster
-     kernel's clock cycles per pitch by phase), each pass of the time
-     forward and of the time and note backwards (both scan routes, with
+     kernel's clock cycles per pitch by phase), each pass of the time and
+     note forwards and of the time and note backwards (both scan routes, with
      the cluster scans' clock cycles per phase and a check that each plan
      is one wave), cuDNN's LSTM beside the recurrence, and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
@@ -396,13 +396,14 @@ def check_bwd_staged(cfg, kind: str):
 
 def check_fwd_staged(cfg, kind: str):
     """A stack's forward kernels (`biax_{kind}_fwd`: the time stack's six
-    passes) against their staged plain version (`biax_{kind}_fwd_staged`),
-    all four tapes, at the main widths (T = CHECK_T) and at small odd
-    widths, both dtypes, dropout 0 and 0.5, both gate flavors: max |d|
-    relative to the tape's largest magnitude where that exceeds 1 (c grows
-    past 1) within F32_ATOL in float32 and BF16_ATOL in bfloat16.  Each
-    forward must take its dtype's scan route (two cluster scans in
-    bfloat16, two streamed in float32)."""
+    passes, the note stack's seven) against their staged plain version
+    (`biax_{kind}_fwd_staged`), every result (the note stack's out and all
+    four tapes), at the main widths (T = CHECK_T) and at small odd widths,
+    both dtypes, dropout 0 and 0.5, both gate flavors: max |d| relative to
+    the result's largest magnitude where that exceeds 1 (c grows past 1)
+    within F32_ATOL in float32 and BF16_ATOL in bfloat16.  Each forward
+    must take its dtype's scan route (two cluster scans in bfloat16, two
+    streamed in float32)."""
     from music_generator_tpu_torch.ops import biax
     fwd, staged = (getattr(biax, f"biax_{kind}_{s}")
                    for s in ("fwd", "fwd_staged"))
@@ -417,10 +418,10 @@ def check_fwd_staged(cfg, kind: str):
                 for act in ("sigmoid", "hard_sigmoid"):
                     kw = dict(dropout_p=p, seed=4321, compute_dtype=cdt,
                               recurrent_activation=act)
-                    before = fwd_scan_counts()
+                    before = fwd_scan_counts(kind)
                     got = fwd(*args, **kw)
                     torch.cuda.synchronize()
-                    ran = tuple(a - b for a, b in zip(fwd_scan_counts(),
+                    ran = tuple(a - b for a, b in zip(fwd_scan_counts(kind),
                                                       before))
                     want = staged(*args, **kw)
                     cases += 1
@@ -432,7 +433,7 @@ def check_fwd_staged(cfg, kind: str):
                     finite = all(bool(torch.isfinite(g).all()) for g in got)
                     dt = "f32" if cdt == torch.float32 else "bf16"
                     log(f"biax_{kind}_fwd vs staged {label} {dt} p={p} "
-                        f"{act}: tapes max|d| (scaled)={err:.3g}, worst "
+                        f"{act}: results max|d| (scaled)={err:.3g}, worst "
                         f"rel={rel:.3g}, worst cos={cos:.6f}; scans "
                         f"(cluster, streamed) {ran}")
                     if cdt == torch.float32:
@@ -574,8 +575,7 @@ def reset_counts():
         plain.calls = 0
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
-    t = biax.biax_time_stack
-    t.fwd_cluster_scans = t.fwd_streamed_scans = 0
+        stack.fwd_cluster_scans = stack.fwd_streamed_scans = 0
 
 
 def scan_counts(kind: str):
@@ -585,11 +585,11 @@ def scan_counts(kind: str):
     return stack.cluster_scans, stack.streamed_scans
 
 
-def fwd_scan_counts():
-    """(cluster, streamed) scans launched by the time forward."""
+def fwd_scan_counts(kind: str):
+    """(cluster, streamed) scans launched by the time or note forward."""
     from music_generator_tpu_torch.ops import biax
-    t = biax.biax_time_stack
-    return t.fwd_cluster_scans, t.fwd_streamed_scans
+    stack = getattr(biax, f"biax_{kind}_stack")
+    return stack.fwd_cluster_scans, stack.fwd_streamed_scans
 
 
 def read_counts():
@@ -620,9 +620,10 @@ def train_main_path(cfg):
         reset_counts()
         hist = train_main(["--epochs", "2"])
         launches, plain = read_counts()
-        scans = {f"{kind} backward": scan_counts(kind)
-                 for kind in ("time", "note")}
-        scans["time forward"] = fwd_scan_counts()
+        scans = {}
+        for kind in ("time", "note"):
+            scans[f"{kind} forward"] = fwd_scan_counts(kind)
+            scans[f"{kind} backward"] = scan_counts(kind)
         train_s = time.perf_counter() - t
         paths = generate_main(["--bars", "2"])
         model, loaded = build_or_load(cfg, "cuda")
@@ -815,8 +816,8 @@ def time_biax(cfg, card):
                 f"plain version {times[(kind, 'plain')][i]:.4f} ms, bound "
                 f"{bound:.6f} ms by {by} (T={T}, B={cfg.batch_size}, "
                 f"bfloat16; {card})")
-    fwd_passes(cfg, card, "time")
     for kind in ("time", "note"):
+        fwd_passes(cfg, card, kind)
         bwd_passes(cfg, card, kind)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
@@ -880,7 +881,8 @@ def fwd_passes(cfg, card, kind: str, reps: int = 6):
     args = stack_inputs(kind, cfg, T, 5)
     kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
               recurrent_activation="sigmoid")
-    R = cfg.num_notes * cfg.batch_size
+    S, R = ((T, cfg.num_notes * cfg.batch_size) if kind == "time" else
+            (cfg.num_notes, T * cfg.batch_size))
     fwd = getattr(biax, f"biax_{kind}_fwd")
     for route in ("cluster", "streamed"):
         prof = torch.zeros(2, 9, dtype=torch.int64, device="cuda")
@@ -900,8 +902,8 @@ def fwd_passes(cfg, card, kind: str, reps: int = 6):
             for layer, row in enumerate(prof.cpu().tolist()):
                 log(f"{kind} forward cluster scan layer {layer}: clock "
                     f"cycles per step of block 0: product with block "
-                    f"barrier {row[0] / T:.0f}, own cell work "
-                    f"{row[1] / T:.0f}, cluster barrier {row[2] / T:.0f}; "
+                    f"barrier {row[0] / S:.0f}, own cell work "
+                    f"{row[1] / S:.0f}, cluster barrier {row[2] / S:.0f}; "
                     f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
                     f"units a block, {row[7]} K parts, {-(-R // row[5])} "
                     f"clusters of {row[8]} resident")
@@ -1422,8 +1424,8 @@ def main() -> None:
         f"{EDGE}, volume atol {VOLUME_ATOL})")
     check_notegen_plans(cfg)
     biax_errs = check_biax_kernels(cfg)
-    check_fwd_staged(cfg, "time")
     for kind in ("time", "note"):
+        check_fwd_staged(cfg, kind)
         check_bwd_staged(cfg, kind)
     lstm_errs = check_lstm_kernels(cfg)
     mask_err = check_mask_kernel()

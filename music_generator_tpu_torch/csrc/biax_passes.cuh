@@ -47,6 +47,10 @@ struct Operand {
 
 enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3, EPI_IN = 4 };
 
+// The parts of a stack's elementwise prologue: the layer-0 input xtot, the
+// layer-1 input x1 and, in the note stack, the heads.
+enum { PRO_XTOT = 1, PRO_X1 = 2, PRO_HEADS = 4 };
+
 template <typename T>
 struct EpiArgs {
   T* out_t;        // PRE: z [M][N]; IN: P [M][N]; DX0: dx [M][N];
@@ -814,7 +818,7 @@ inline int launch_scan(int bf16_, int cluster, void* z_dz, const void* cs,
 }
 
 // ---------------------------------------------------------------------------
-// The forward of one layer (the time forward's passes 3 and 6), forward
+// The forward of one layer (both forwards' passes 3 and 6), forward
 // over s: z = add_t(P[s], rnd_T(h[s-1] U)) with h[-1] = 0 (no product at
 // s = 0), the gates in T, c carried in float32, h = o tanh(c -> T) rounded
 // to T.  P [M][4H] holds the layer's input pre-activations (EPI_IN); the
@@ -879,7 +883,10 @@ __global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
 // (s + 1) % 2, so no block can overwrite a tile a peer still reads, and
 // one barrier a step suffices.  Both tiles are swizzled as the backward's
 // (`swz`).  The P values of the step are loaded before the product, so
-// their latency hides behind it.
+// their latency hides behind it.  The time stack (H = 256) takes C = 4;
+// the note stack's H = 128 fits one block (C = 1, the [512][128] tile is
+// 128 KB), whose "peers" are itself: h goes to its own next tile and the
+// cluster barrier is a barrier of one block.
 struct FwdPlan { int C, UJ, G4p, Kp, RT, RTp, NT, active; };
 
 template <int NT>
@@ -1135,7 +1142,7 @@ int fwd_scan_streamed(const void* pre, void* hs, void* cs, const void* u,
   return (int)cudaGetLastError();
 }
 
-// 2., 5. of the time forward: P [M][4H] = (xin W -> T) + bias over all M
+// 2., 5. of both forwards: P [M][4H] = (xin W -> T) + bias over all M
 // rows (EPI_IN); xin [M][ldx] with K columns, w in the layout of T.
 inline int launch_in(int bf16_, const void* xin, int ldx, int K,
                      const void* w, const void* bias, void* out, int M,
@@ -1151,7 +1158,7 @@ inline int launch_in(int bf16_, const void* xin, int ldx, int K,
   return gemm<float, EPI_IN>(op, op, M, H4, e, st);
 }
 
-// 3., 6. of the time forward: one layer's forward scan over P.  cluster =
+// 3., 6. of both forwards: one layer's forward scan over P.  cluster =
 // 1 (bfloat16 only): U resident in a thread-block cluster; cluster = 0:
 // streamed.  prof (cluster scan only, may be null): three clock-cycle sums
 // of the first block's steps and its plan, see fwd_scan_cluster_kernel.

@@ -57,7 +57,7 @@
 // scans stream U from L2 (RB = 6 rows a block).  The choice is by dtype,
 // fixed in the wrapper.  The prologue is this file's; the other passes are
 // the shared machinery of biax_passes.cuh with (S, A) = (T, N), which the
-// note stack's backward (biax_note.cu) runs with (S, A) = (N, T).
+// note stack (biax_note.cu) runs with (S, A) = (N, T).
 
 #include "biax_passes.cuh"
 
@@ -75,7 +75,6 @@ struct TimeDims { int T, N, B, F, H, k; };
 // PRO_X1 or both): the forward forms xtot first (its pass 1) and x1 once
 // layer 0 has run (pass 4), the backward both at once (its pass 1).  One
 // block a row, threads over the selected columns.
-enum { PRO_XTOT = 1, PRO_X1 = 2 };
 
 template <typename T>
 __global__ void __launch_bounds__(128) time_prologue_kernel(

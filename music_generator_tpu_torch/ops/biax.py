@@ -41,17 +41,18 @@ Every CUDA path runs in passes, because only one product carries from
 one scan step to the next: h U in a forward, dh <- dz U^T in a backward.
 The time forward (`biax_time_fwd`) is six passes: xtot, layer 0's input
 pre-activations as one bulk product, layer 0's forward scan, x1, layer 1's
-bulk product, layer 1's scan.  In both backwards (`biax_time_bwd`,
+bulk product, layer 1's scan; the note forward (`biax_note_fwd`) the same
+six and the heads as a seventh.  In both backwards (`biax_time_bwd`,
 `biax_note_bwd`) the forward's gates, the note stack's heads backward,
 dx1 = dz1 W1^T and dx = dz0 W0^T are elementwise passes and bulk products
 outside the two reversed scans.  The stacks share that machinery
-(`csrc/biax_passes.cuh`).  `biax_time_fwd_staged`, `biax_time_bwd_staged`
-and `biax_note_bwd_staged` are the same computations in plain PyTorch.
-In bfloat16 the scans keep U resident in a thread-block cluster (one
-block for the note stack's H = 128), in float32 they stream it
-(`scan_route`); `biax_time_stack.fwd_cluster_scans` and
-`.fwd_streamed_scans` count the time forward's scans, each stack's
-`.cluster_scans` and `.streamed_scans` its backward's.
+(`csrc/biax_passes.cuh`).  The `*_staged` functions (`biax_time_fwd_staged`,
+`biax_note_fwd_staged`, `biax_time_bwd_staged`, `biax_note_bwd_staged`)
+are the same computations in plain PyTorch.  In bfloat16 the scans keep
+U resident in a thread-block cluster (one block for the note stack's
+H = 128), in float32 they stream it (`scan_route`); each stack's
+`.fwd_cluster_scans` and `.fwd_streamed_scans` count its forward's
+scans, `.cluster_scans` and `.streamed_scans` its backward's.
 """
 
 from __future__ import annotations
@@ -468,6 +469,91 @@ def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
             wg(hp1, dz1))
 
 
+def _note_masks(seed, T, N, B, Ht, C, H, dropout_p, cdt, dev):
+    """The note stack's (m_in, m_style0, m_style0c, m_style1, m_mid, m_out)
+    as rows [N, T B, W], each None at p = 0."""
+    keep = 1.0 - dropout_p
+
+    def rows(site, W):
+        m = stack_mask(seed, site, N, T, B, W, keep, cdt, dev)
+        return None if m is None else m.reshape(N, T * B, W)
+
+    return tuple(rows(site, W) for site, W in (
+        (S_IN, Ht), (S_STYLE0, Ht), (S_STYLE0C, C), (S_STYLE1, H),
+        (S_MID, H), (S_OUT, H)))
+
+
+def _note_xtot(ht, chosen, s0, m_in, m0t, m0c) -> torch.Tensor:
+    """The note stack's layer-0 input xtot = (ht m_in + s0t m_style0) ++
+    (chosen + s0c m_style0c) as rows [N, T B, Ht + C] (each operation
+    rounded to the compute dtype)."""
+    T, N, B, Ht = ht.shape
+    R = T * B
+    s0 = s0.reshape(R, s0.shape[-1])
+    rows = lambda t: t.reshape(N, R, t.shape[-1])
+    return torch.cat([_apply(rows(ht.transpose(0, 1)), m_in)
+                      + _apply(s0[:, :Ht], m0t),
+                      rows(chosen) + _apply(s0[:, Ht:], m0c)], -1)
+
+
+def _note_x1(hs0, s1, mmid, m1) -> torch.Tensor:
+    """The note stack's layer-1 input x1 = hs0 m_mid + s1 m_style1 from the
+    rows hs0 [N, T B, H]."""
+    return _apply(hs0, mmid) + _apply(s1.reshape(-1, hs0.shape[-1]), m1)
+
+
+def _note_heads(hs1, wh, bh, m_out):
+    """The heads on the rows hs1 [N, T B, H]: (h1d = hs1 m_out, the float32
+    pre-activation z = h1d Wh + bh, sigmoid(z[..., :2] -> T) in float32)."""
+    h1d = _apply(hs1, m_out)
+    z = _dot(h1d, wh) + bh
+    return h1d, z, _gate(z[..., :2].to(hs1.dtype), False).float()
+
+
+def biax_note_fwd_staged(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
+                         bhead, dropout_p: float = 0.0, seed: int = 0,
+                         compute_dtype=torch.float32,
+                         recurrent_activation: str = "sigmoid"):
+    """The note stack's forward as the CUDA kernels compute it, in plain
+    PyTorch (no autograd): the seven passes of `csrc/biax_note.cu` with
+    their cast points and masks.  Rows m = n R + g, g = (t, b), R = T B.
+
+      1. xtot = (ht m_in + s0t m_style0) ++ (chosen + s0c m_style0c) (each
+         operation rounded to the compute dtype);
+      2. layer 0's input pre-activations P0 = (xtot W0 -> T) + b0 for all
+         N T B rows at once, one float32 sum over the Ht and C columns;
+      3. the layer-0 scan over the pitches: z = P0[n] + (h[n-1] U0 -> T),
+         h[-1] = 0, gates in T, c in float32, h = o tanh(c -> T);
+      4. x1 = hs0 m_mid + s1 m_style1;
+      5. P1 = (x1 W1 -> T) + b1;
+      6. the layer-1 scan, as 3.;
+      7. the heads: z = (hs1 m_out) Wh + bh in float32, out =
+         sigmoid(z_play, z_replay -> T) ++ z_volume.
+
+    Returns (out [N, T, B, 3] float32, hs0, cs0, hs1, cs1 [N, T, B, H] in
+    the compute dtype (h after pitch n, c before it)), as `biax_note_fwd`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    T, N, B, Ht = ht.shape
+    C = chosen.shape[-1]
+    H = u0.shape[0]
+    ht, chosen, s0, s1 = (t.to(cdt) for t in (ht, chosen, s0, s1))
+    W0, U0, W1, U1, Wh = (w.to(cdt) for w in (w0, u0, w1, u1, whead))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    bh = bhead.reshape(-1).float()
+    m_in, m0t, m0c, m1, mmid, m_out = _note_masks(
+        seed, T, N, B, Ht, C, H, dropout_p, cdt, ht.device)
+    # 1. - 3.
+    xtot = _note_xtot(ht, chosen, s0, m_in, m0t, m0c)
+    hs0, cs0 = _forward_scan(_dot(xtot, W0).to(cdt) + B0, U0, hard)
+    # 4. - 6.
+    x1 = _note_x1(hs0, s1, mmid, m1)
+    hs1, cs1 = _forward_scan(_dot(x1, W1).to(cdt) + B1, U1, hard)
+    # 7.
+    _, z, sg = _note_heads(hs1, Wh, bh, m_out)
+    out = torch.cat([sg, z[..., 2:]], -1).reshape(N, T, B, 3)
+    return (out, *(t.reshape(N, T, B, H) for t in (hs0, cs0, hs1, cs1)))
+
+
 def biax_note_bwd_staged(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
                          bhead, hs0, cs0, hs1, cs1, dout,
                          dropout_p: float = 0.0, seed: int = 0,
@@ -504,31 +590,21 @@ def biax_note_bwd_staged(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
     T, N, B, Ht = ht.shape
     C = chosen.shape[-1]
     H = u0.shape[0]
-    R, dev = T * B, ht.device
-    keep = 1.0 - dropout_p
+    R = T * B
     rows = lambda t: t.reshape(N, R, t.shape[-1])
     ht, chosen, s0, s1 = (t.to(cdt) for t in (ht, chosen, s0, s1))
     W0, U0, W1, U1, Wh = (w.to(cdt) for w in (w0, u0, w1, u1, whead))
     B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
     bh = bhead.reshape(-1).float()
     hs0, cs0, hs1, cs1 = (rows(t.to(cdt)) for t in (hs0, cs0, hs1, cs1))
-
-    def masks(site, width):
-        m = stack_mask(seed, site, N, T, B, width, keep, cdt, dev)
-        return None if m is None else rows(m)
-
-    m_in, m0t, m0c = masks(S_IN, Ht), masks(S_STYLE0, Ht), masks(S_STYLE0C, C)
-    m1, mmid, m_out = masks(S_STYLE1, H), masks(S_MID, H), masks(S_OUT, H)
+    m_in, m0t, m0c, m1, mmid, m_out = _note_masks(
+        seed, T, N, B, Ht, C, H, dropout_p, cdt, ht.device)
     f32 = lambda m: None if m is None else m.float()
 
     # 1. prologue and heads backward
-    s0 = s0.reshape(R, Ht + C)
-    xtot = torch.cat([_apply(rows(ht.transpose(0, 1)), m_in)
-                      + _apply(s0[:, :Ht], m0t),
-                      rows(chosen) + _apply(s0[:, Ht:], m0c)], -1)
-    x1 = _apply(hs0, mmid) + _apply(s1.reshape(R, H), m1)
-    h1d = _apply(hs1, m_out)
-    sg = _gate((_dot(h1d, Wh) + bh)[..., :2].to(cdt), False).float()
+    xtot = _note_xtot(ht, chosen, s0, m_in, m0t, m0c)
+    x1 = _note_x1(hs0, s1, mmid, m1)
+    h1d, _, sg = _note_heads(hs1, Wh, bh, m_out)
     d = rows(dout.float())
     dzh = torch.cat([d[..., :2] * sg * (1.0 - sg), d[..., 2:]], -1)
     ext1 = _apply(_dot(dzh.to(cdt), Wh.t()), f32(m_out))
@@ -583,10 +659,12 @@ _SIGNATURES = {
         "biax_time_ds": [_I, _P, _I, _I, _I, _I, _I, _P, _P],
     },
     "biax_note": {
-        "biax_note_fwd": [_I] + [_P] * 17 + [_I] * 7 + [_U, _U, _F, _I, _I,
-                                                       _P],
-        "biax_note_bwd_prologue": [_I] + [_P] * 14 + [_I] * 7
+        "biax_note_prologue": [_I, _I] + [_P] * 14 + [_I] * 7
         + [_U, _U, _F, _I, _P],
+        "biax_note_fwd_in": [_I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+        "biax_note_fwd_scan": [_I, _I] + [_P] * 4 + [_I] * 6 + [_P, _P],
+        "biax_note_heads": [_I] + [_P] * 4 + [_I] * 5 + [_U, _U, _F, _I,
+                                                        _P],
         "biax_note_bwd_preact": [_I, _P, _I, _I] + [_P] * 5 + [_I] * 3
         + [_P],
         "biax_note_bwd_scan": [_I, _I] + [_P] * 4 + [_I] * 6 + [_P, _P],
@@ -596,7 +674,9 @@ _SIGNATURES = {
     },
 }
 _WGRAD = [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]
-_PRO_XTOT, _PRO_X1 = 1, 2   # the halves of biax_time_prologue
+# The parts of the prologues (biax_time_prologue: xtot, x1;
+# biax_note_prologue: xtot, x1, the heads' backward).
+_PRO_XTOT, _PRO_X1, _PRO_HEADS = 1, 2, 4
 WGRAD_CHUNKS = 32           # row chunks of the weight-gradient reduction
 
 
@@ -711,6 +791,37 @@ def _marker(marks):
     return mark
 
 
+def _fwd_layers(lib, kind: str, stack, cdt, pre, M: int, dims, hard: bool,
+                scan_prof, mark):
+    """run(i, xin, K, w, b, u, hs, cs): passes 2-3 (layer 0) or 5-6 (layer
+    1) of a stack's forward, `biax_{kind}_fwd_in` into `pre` and
+    `biax_{kind}_fwd_scan` on `scan_route(cdt)`, marked "in{i}" and
+    "scan{i}"; dims = (T, N, B, H, k).  Counts `stack.fwd_cluster_scans`
+    or `.fwd_streamed_scans`."""
+    fwd_in = getattr(lib, f"biax_{kind}_fwd_in")
+    fwd_scan = getattr(lib, f"biax_{kind}_fwd_scan")
+    route = scan_route(cdt)
+    bf, st, H = _is_bf16(cdt), _stream(pre.device), dims[3]
+
+    def run(i, xin, K, w, b, u, hs, cs):
+        _check(fwd_in(bf, xin.data_ptr(), xin.shape[-1], K, w.data_ptr(),
+                      b.data_ptr(), pre.data_ptr(), M, H, st),
+               f"biax_{kind}_fwd_in")
+        mark(f"in{i}")
+        prof = None if scan_prof is None else scan_prof[i]
+        _check(fwd_scan(bf, int(route == "cluster"), pre.data_ptr(),
+                        hs.data_ptr(), _ptr(cs), u.data_ptr(), *dims,
+                        int(hard), _ptr(prof), st),
+               f"biax_{kind}_fwd_scan ({route})")
+        mark(f"scan{i}")
+        if route == "cluster":
+            stack.fwd_cluster_scans += 1
+        else:
+            stack.fwd_streamed_scans += 1
+
+    return run
+
+
 def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
                   seed: int = 0, compute_dtype=torch.float32,
                   recurrent_activation: str = "sigmoid", tapes: bool = True,
@@ -738,7 +849,6 @@ def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
     x, s0, s1, w0, b0, b1, u0, w1, u1 = (
         t.to(cdt).contiguous() for t in (x, s0, s1, w0, b0.reshape(-1),
                                          b1.reshape(-1), u0, w1, u1))
-    route = scan_route(cdt)
     e = lambda *shape: torch.empty(*shape, dtype=cdt, device=dev)
     # Rows padded to 8 values (zeros): 16-byte rows for the products.
     xtot, x1 = e(T, N, B, _pad8(F)), e(T, N, B, _pad8(H))
@@ -751,6 +861,8 @@ def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
     dims = (T, N, B, F, H, k)
     drop = _mask_args(dropout_p, seed, cdt)
     mark = _marker(marks)
+    run_layer = _fwd_layers(lib, "time", biax_time_stack, cdt, pre, M,
+                            (T, N, B, H, k), hard, scan_prof, mark)
 
     def prologue(halves, name):
         _check(lib.biax_time_prologue(
@@ -758,22 +870,6 @@ def biax_time_fwd(x, s0, s1, w0, b0, b1, u0, w1, u1, dropout_p: float = 0.0,
             hs0.data_ptr(), xtot.data_ptr(), x1.data_ptr(), *dims, *drop,
             st), "biax_time_prologue")
         mark(name)
-
-    def run_layer(i, xin, K, w, b, u, hs, cs):
-        _check(lib.biax_time_fwd_in(
-            bf, xin.data_ptr(), xin.shape[-1], K, w.data_ptr(), b.data_ptr(),
-            pre.data_ptr(), M, H, st), "biax_time_fwd_in")
-        mark(f"in{i}")
-        prof = None if scan_prof is None else scan_prof[i]
-        _check(lib.biax_time_fwd_scan(
-            bf, int(route == "cluster"), pre.data_ptr(), hs.data_ptr(),
-            _ptr(cs), u.data_ptr(), T, N, B, H, k, int(hard), _ptr(prof),
-            st), f"biax_time_fwd_scan ({route})")
-        mark(f"scan{i}")
-        if route == "cluster":
-            biax_time_stack.fwd_cluster_scans += 1
-        else:
-            biax_time_stack.fwd_streamed_scans += 1
 
     with torch.cuda.device(dev):
         mark("start")
@@ -910,35 +1006,67 @@ class _TimeStack(torch.autograd.Function):
 def biax_note_fwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead,
                   dropout_p: float = 0.0, seed: int = 0,
                   compute_dtype=torch.float32,
-                  recurrent_activation: str = "sigmoid", tapes: bool = True):
-    """The note stack's forward kernel on CUDA tensors: (out [N, T, B, 3]
+                  recurrent_activation: str = "sigmoid", tapes: bool = True,
+                  marks=None, scan_prof: Optional[torch.Tensor] = None):
+    """The note stack's forward kernels on CUDA tensors: (out [N, T, B, 3]
     float32, hs0, cs0, hs1, cs1 [N, T, B, H] in the compute dtype (h after
-    pitch n, c before it)), the four tapes None when `tapes` is False.
-    Counts `biax_note_stack.fwd_launches`."""
+    pitch n, c before it)), the four tapes None when `tapes` is False, by
+    the seven passes of `biax_note_fwd_staged` (csrc/biax_note.cu).  The
+    scans take `scan_route(compute_dtype)`; without tapes hs0 and hs1 are
+    scratch and cs0, cs1 are not written.  `marks` and `scan_prof` as for
+    `biax_time_fwd` (the passes xtot, in0, scan0, x1, in1, scan1, heads).
+    Counts `biax_note_stack.fwd_launches`, and `.fwd_cluster_scans` or
+    `.fwd_streamed_scans` once per scan."""
     cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
     dev = _on_cuda("biax_note_stack", ht, chosen, s0, s1, w0, b0, b1, u0, w1,
                    u1, whead, bhead)
     T, N, B, Ht = ht.shape
     C = chosen.shape[-1]
     H = u0.shape[0]
+    D, M = Ht + C, N * T * B
     k, _ = _row_tiling(T, B)
-    xs = [t.to(cdt).contiguous() for t in (ht, chosen, s0, s1)]
-    w0, b0, b1, u0, w1, u1, wh = (t.to(cdt).contiguous() for t in (
-        w0, b0.reshape(-1), b1.reshape(-1), u0, w1, u1, whead))
+    ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, wh = (
+        t.to(cdt).contiguous() for t in (ht, chosen, s0, s1, w0,
+                                         b0.reshape(-1), b1.reshape(-1), u0,
+                                         w1, u1, whead))
     bh = bhead.reshape(-1).float().contiguous()
+    e = lambda *shape: torch.empty(*shape, dtype=cdt, device=dev)
+    # Rows padded to 8 values (zeros): 16-byte rows for the products.
+    xtot, x1 = e(N, T, B, _pad8(D)), e(N, T, B, _pad8(H))
+    pre = e(N, T, B, 4 * H)            # P of layer 0, then of layer 1
+    hs0, hs1 = e(N, T, B, H), e(N, T, B, H)
+    cs0, cs1 = (e(N, T, B, H), e(N, T, B, H)) if tapes else (None, None)
     out = torch.empty(N, T, B, 3, dtype=torch.float32, device=dev)
-    tp = [torch.empty(N, T, B, H, dtype=cdt, device=dev)
-          for _ in range(4)] if tapes else [None] * 4
-    mats = [_layout(w0), b0, b1, _layout(u0), _layout(w1), _layout(u1), wh]
+    w0, u0, w1, u1 = (_layout(w) for w in (w0, u0, w1, u1))
     lib = _library("biax_note")
+    bf, st = _is_bf16(cdt), _stream(dev)
+    drop = _mask_args(dropout_p, seed, cdt)
+    mark = _marker(marks)
+    run_layer = _fwd_layers(lib, "note", biax_note_stack, cdt, pre, M,
+                            (T, N, B, H, k), hard, scan_prof, mark)
+
+    def prologue(part, name):
+        _check(lib.biax_note_prologue(
+            bf, part, *(_ptr(t) for t in (ht, chosen, s0, s1, hs0, None, None,
+                                          None, None, xtot, x1, None, None,
+                                          None)),
+            T, N, B, Ht, C, H, k, *drop, st), "biax_note_prologue")
+        mark(name)
+
     with torch.cuda.device(dev):
-        _check(lib.biax_note_fwd(
-            _is_bf16(cdt), *(t.data_ptr() for t in xs + mats),
-            bh.data_ptr(), out.data_ptr(), *(_ptr(t) for t in tp),
-            T, N, B, Ht, C, H, k, *_mask_args(dropout_p, seed, cdt),
-            int(hard), _stream(dev)), "biax_note_fwd")
+        mark("start")
+        prologue(_PRO_XTOT, "xtot")
+        run_layer(0, xtot, D, w0, b0, u0, hs0, cs0)
+        prologue(_PRO_X1, "x1")
+        run_layer(1, x1, H, w1, b1, u1, hs1, cs1)
+        _check(lib.biax_note_heads(
+            bf, hs1.data_ptr(), wh.data_ptr(), bh.data_ptr(), out.data_ptr(),
+            T, N, B, H, k, *drop, st), "biax_note_heads")
+        mark("heads")
     biax_note_stack.fwd_launches += 1
-    return (out, *tp)
+    if not tapes:
+        return out, None, None, None, None
+    return out, hs0, cs0, hs1, cs1
 
 
 def biax_note_bwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead,
@@ -1005,11 +1133,11 @@ def biax_note_bwd(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead, bhead,
 
     with torch.cuda.device(dev):
         mark("start")
-        _check(lib.biax_note_bwd_prologue(
-            bf, *(t.data_ptr() for t in (ht, chosen, s0, s1, hs0, hs1, wh,
-                                         bh, dout, xtot, x1, h1d, dzh,
-                                         ext1)),
-            T, N, B, Ht, C, H, k, *drop, st), "biax_note_bwd_prologue")
+        _check(lib.biax_note_prologue(
+            bf, _PRO_XTOT | _PRO_X1 | _PRO_HEADS,
+            *(t.data_ptr() for t in (ht, chosen, s0, s1, hs0, hs1, wh, bh,
+                                     dout, xtot, x1, h1d, dzh, ext1)),
+            T, N, B, Ht, C, H, k, *drop, st), "biax_note_prologue")
         mark("prologue")
         for xin, K, w, b, hs, u, z in ((xtot, D, mats[0], b0, hs0, mats[1],
                                         z0),
@@ -1121,5 +1249,7 @@ def biax_note_stack(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
 
 biax_note_stack.fwd_launches = 0
 biax_note_stack.bwd_launches = 0
+biax_note_stack.fwd_cluster_scans = 0
+biax_note_stack.fwd_streamed_scans = 0
 biax_note_stack.cluster_scans = 0
 biax_note_stack.streamed_scans = 0
