@@ -20,7 +20,10 @@ Phases (any failure exits non-zero, before the result line):
      (the time stack's six passes, the note stack's seven) against its
      staged plain version, which repeats those passes, with the scan route
      each dtype takes (bfloat16: U resident in a thread-block cluster, one
-     block for the note stack; float32: U streamed); and the lstm2 mask
+     block for the note stack; float32: U streamed); the recurrence's
+     backward (kernel 9: tapes, pre-activation GEMM, scan, dU) against its
+     staged plain version on kernel 8's tapes, at both axes' shapes and
+     small odd widths, with the same scan routes; and the lstm2 mask
      dump (kernel 10) against its plain version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
@@ -46,8 +49,9 @@ Phases (any failure exits non-zero, before the result line):
      fused_biax_v3=False (the fused two-layer stack per axis),
      fused_axis_kernel=False as well (one recurrence per layer) and a
      3 + 3 layer stack, checking the exact launch counts of each step, no
-     plain version and no biaxial launch, finite losses, evaluate() and the
-     checkpoint;
+     plain version and no biaxial launch, every bfloat16 recurrence
+     backward's scan on the cluster route, finite losses, evaluate() and
+     the checkpoint;
   3f. the dropout-0 step of 3d on the two per-axis routes;
   3g. the port's validators as a user runs them (music_generator_tpu_torch/
      tools): validate_lstm2 (the fused stack against the plain recurrence,
@@ -59,13 +63,16 @@ Phases (any failure exits non-zero, before the result line):
      at seeds 0 and 1 (event identity required on every file); every
      kernel must have been launched in 3g-3h;
   4. time the generation step (and, from a profiled bar, the device's
-     share of it), the training step of each route (and its busy share),
+     share of it), the training step of each route, the 3 + 3 layer stack
+     included (and its busy share),
      each kernel and its plain version (the pitch loop's cluster and
      streamed kernels in turns at G = 3, 64 and 256, with the cluster
      kernel's clock cycles per pitch by phase), each pass of the time and
-     note forwards and of the time and note backwards (both scan routes, with
-     the cluster scans' clock cycles per phase and a check that each plan
-     is one wave), cuDNN's LSTM beside the recurrence, and the mask dump.
+     note forwards and of the time and note backwards and of the
+     recurrence's backward at both axes (both scan routes, with the cluster
+     scans' clock cycles per phase and a check that each plan is one wave),
+     cuDNN's LSTM beside the recurrence (and the weight copy it repeats at
+     every bfloat16 call), and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -556,6 +563,69 @@ def check_lstm_kernels(cfg):
     return errs
 
 
+def rec_scan_counts():
+    """(cluster, streamed) scans launched by the recurrence's backward."""
+    from music_generator_tpu_torch.ops import recurrence
+    rec = recurrence.lstm_recurrence
+    return rec.cluster_scans, rec.streamed_scans
+
+
+def check_rec_bwd_staged(cfg):
+    """Kernel 9's passes (`lstm_recurrence_bwd`) against their staged plain
+    version (`lstm_recurrence_bwd_staged`) on the same tapes, those of
+    kernel 8 (`lstm_recurrence_fwd`), with nonzero initial states and
+    cotangents of hs, h_T and c_T: at the time and note axes' shapes (T cut
+    to CHECK_T), at small odd widths (T = 6, B = 8, H = 12) and at
+    (S, R, H) = (5, 37, 12), both dtypes and both gate flavors, with the
+    tolerances of check_biax_kernels on (dxw, dU, dh0, dc0).  Each backward
+    must take its dtype's scan route (one cluster scan in bfloat16, one
+    streamed in float32)."""
+    from music_generator_tpu_torch.ops import recurrence
+    small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
+                        time_axis_units=12, note_axis_units=12)
+    shapes = [(f"{axis} {label}", S, R, F, H)
+              for c, T, label in ((cfg, CHECK_T, "main widths"),
+                                  (small, 6, "small widths"))
+              for axis, S, R, F, H in axis_shapes(c, T)]
+    shapes.append(("odd rows", 5, 37, 12, 12))
+    cases = 0
+    for label, S, R, F, H in shapes:
+        xw, u, h0, c0 = lstm_inputs("lstm_rec", S, R, F, H, 40 + cases)
+        gen = torch.Generator("cuda").manual_seed(cases)
+        cots = [torch.randn(S, R, H, device="cuda", generator=gen),
+                torch.randn(R, H, device="cuda", generator=gen),
+                torch.randn(R, H, device="cuda", generator=gen)]
+        for cdt in (torch.float32, torch.bfloat16):
+            for act in ("sigmoid", "hard_sigmoid"):
+                kw = dict(compute_dtype=cdt, recurrent_activation=act)
+                hs, cs, _, _ = recurrence.lstm_recurrence_fwd(xw, u, h0, c0,
+                                                              **kw)
+                before = rec_scan_counts()
+                got = recurrence.lstm_recurrence_bwd(xw, u, h0, hs, cs,
+                                                     *cots, **kw)
+                torch.cuda.synchronize()
+                ran = tuple(a - b for a, b in zip(rec_scan_counts(), before))
+                want = recurrence.lstm_recurrence_bwd_staged(
+                    xw, u, h0, hs, cs, *cots, **kw)
+                cases += 1
+                err, rel, cos = leaf_stats([g.float() for g in got],
+                                           [w.float() for w in want])
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                dt = "f32" if cdt == torch.float32 else "bf16"
+                log(f"lstm_rec_bwd vs staged {label} (S={S}, R={R}, H={H}) "
+                    f"{dt} {act}: max|d|={err:.3g}, worst rel={rel:.3g}, "
+                    f"worst cos={cos:.6f}; scans (cluster, streamed) {ran}")
+                if cdt == torch.float32:
+                    ok = rel <= F32_GRAD_REL and ran == (0, 1)
+                else:
+                    ok = (rel <= BF16_GRAD_REL and cos >= BF16_COS
+                          and ran == (1, 0))
+                if not ok or not finite:
+                    fail(f"lstm_rec_bwd {label} {dt} {act} disagrees with "
+                         f"its staged version")
+    log(f"lstm_rec_bwd: {cases} cases agree with the staged plain version")
+
+
 def _training_wrappers():
     """(name prefix, wrapper, plain version) of every training kernel."""
     from music_generator_tpu_torch.ops import biax, lstm2, recurrence
@@ -569,13 +639,15 @@ def _training_wrappers():
 
 
 def reset_counts():
-    from music_generator_tpu_torch.ops import biax
+    from music_generator_tpu_torch.ops import biax, recurrence
     for _, fn, plain in _training_wrappers():
         fn.fwd_launches = fn.bwd_launches = 0
         plain.calls = 0
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
         stack.fwd_cluster_scans = stack.fwd_streamed_scans = 0
+    recurrence.lstm_recurrence.cluster_scans = 0
+    recurrence.lstm_recurrence.streamed_scans = 0
 
 
 def scan_counts(kind: str):
@@ -681,15 +753,21 @@ def train_routes(cfg):
         reset_counts()
         hist = trainer.fit(ds, epochs=1)
         launches, plain = read_counts()
+        scans = rec_scan_counts()
         fit_s = time.perf_counter() - t
         steps = hist["steps_per_epoch"][0]
         log(f"route {route}: Trainer.fit {steps} steps, loss {hist['loss']}, "
             f"{fit_s:.1f} s; kernel launches {launches}, plain version "
-            f"calls {plain}")
+            f"calls {plain}; lstm_rec_bwd scans (cluster, streamed) {scans}")
         want = {k: per_step.get(k, 0) * steps for k in launches}
         if launches != want or plain != 0:
             fail(f"route {route}: launches {launches}, expected {want} and "
                  f"no plain call")
+        if (rc.compute_dtype == "bfloat16"
+                and scans != (launches["lstm_rec_bwd"], 0)):
+            fail(f"route {route}: the bfloat16 recurrence backward ran scans "
+                 f"{scans}, not {(launches['lstm_rec_bwd'], 0)} on the "
+                 f"cluster route")
         if not np.isfinite(hist["loss"]).all():
             fail(f"route {route}: non-finite training loss")
         reset_counts()
@@ -819,6 +897,7 @@ def time_biax(cfg, card):
     for kind in ("time", "note"):
         fwd_passes(cfg, card, kind)
         bwd_passes(cfg, card, kind)
+    rec_bwd_passes(cfg, card)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
     lstm = torch.nn.LSTM(feature_dim(cfg), H, num_layers=2).cuda().to(
@@ -841,7 +920,8 @@ def time_biax(cfg, card):
 
 @contextlib.contextmanager
 def forced_scan_route(route: str):
-    """Run the biaxial backwards' scans on `route` whatever the dtype."""
+    """Run the scans of the biaxial stacks and of the recurrence's backward
+    on `route` whatever the dtype."""
     from music_generator_tpu_torch.ops import biax
     saved = biax.scan_route
     biax.scan_route = lambda cdt: route
@@ -960,6 +1040,55 @@ def bwd_passes(cfg, card, kind: str, reps: int = 6):
                 check_plan(f"{kind} cluster scan", R, row)
 
 
+def rec_bwd_passes(cfg, card, reps: int = 6):
+    """ms of each pass of kernel 9 (`lstm_recurrence_bwd`: tapes, preact,
+    scan, wgrad) at the time and note axes' shapes (T = seq_len, bfloat16,
+    sigmoid gates) on kernel 8's tapes: CUDA events between the passes of
+    `reps` backwards queued back to back, the first dropped; on the
+    cluster route (the main path's) and on the streamed route (the float32
+    route's scan, run in bfloat16 for comparison).  Logs the cluster scan's
+    clock cycles per step and phase (block 0) and its plan, and fails
+    unless the plan's clusters are all resident at once (one wave).
+    Returns {axis: {pass: ms}} of the cluster route."""
+    from music_generator_tpu_torch.ops import recurrence
+    kw = dict(compute_dtype=torch.bfloat16, recurrent_activation="sigmoid")
+    out = {}
+    for axis, S, R, F, H in axis_shapes(cfg, cfg.seq_len):
+        xw, u, h0, c0 = lstm_inputs("lstm_rec", S, R, F, H, 7)
+        hs, cs, _, _ = recurrence.lstm_recurrence_fwd(xw, u, h0, c0, **kw)
+        cots = [torch.ones(S, R, H, device="cuda"),
+                torch.ones(R, H, device="cuda"),
+                torch.ones(R, H, device="cuda")]
+        for route in ("cluster", "streamed"):
+            prof = torch.zeros(9, dtype=torch.int64, device="cuda")
+            with forced_scan_route(route):
+                runs = []
+                for _ in range(reps):
+                    marks = []
+                    recurrence.lstm_recurrence_bwd(xw, u, h0, hs, cs, *cots,
+                                                   **kw, marks=marks,
+                                                   scan_prof=prof)
+                    runs.append(marks)
+                torch.cuda.synchronize()
+            per = pass_ms(runs)
+            log(f"lstm_rec_bwd {axis} axis passes, {route} scan (ms, mean "
+                f"of {reps - 1}; S={S}, R={R}, H={H}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+                + f"; sum {sum(per.values()):.4f} ({card})")
+            if route == "cluster":
+                out[axis] = per
+                row = prof.cpu().tolist()
+                log(f"lstm_rec_bwd {axis} cluster scan: clock cycles per "
+                    f"step of block 0: own cell work {row[0] / S:.0f}, dz "
+                    f"exchange and barrier {row[1] / S:.0f}, product "
+                    f"{row[2] / S:.0f}, second barrier {row[3] / S:.0f}; "
+                    f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
+                    f"units a block, {row[7]} K parts, {-(-R // row[5])} "
+                    f"clusters of {row[8]} resident")
+                check_plan(f"lstm_rec_bwd {axis} cluster scan", R, row)
+    return out
+
+
 def lstm_bound_ms(name: str, S: int, R: int, F: int, H: int):
     """Least time of one bfloat16 launch at these shapes: every input read
     once and every output (and tape) written once at HBM rate, or the
@@ -1038,9 +1167,14 @@ def time_lstm(cfg, card):
                         lambda: torch.autograd.grad(
                             y, [x, *cudnn.parameters()], torch.ones_like(y),
                             retain_graph=True), 10))
-                if any("compacted" in str(w.message) for w in caught):
-                    log("cuDNN compacted its weights at every call: its "
-                        "times include that copy")
+                # The copy cuDNN repeats at every call when it compacts:
+                # the 4H (F + H) + 8H weight values into one buffer.
+                flat = torch.empty(sum(p.numel() for p in cudnn.parameters()),
+                                   device="cuda", dtype=bf)
+                copy = cuda_ms(lambda: torch.cat(
+                    [p.detach().reshape(-1) for p in cudnn.parameters()],
+                    out=flat), 10)
+                compacted = any("compacted" in str(w.message) for w in caught)
                 params = torch.nn.Module()
                 for pname, shape in (("kernel", (F, 4 * H)),
                                      ("recurrent", (H, 4 * H)),
@@ -1056,7 +1190,11 @@ def time_lstm(cfg, card):
                 log(f"lstm_scan {axis} axis (S={S}, R={R}, {F}->{H}, "
                     f"bfloat16): port forward {scan[0]:.4f} ms, backward "
                     f"{scan[1]:.4f} ms; cuDNN nn.LSTM forward {lib[0]:.4f} "
-                    f"ms, backward {lib[1]:.4f} ms ({card})")
+                    f"ms, backward {lib[1]:.4f} ms; the weight copy "
+                    f"({flat.numel()} values) {copy:.4f} ms, cuDNN less it "
+                    f"forward {lib[0] - copy:.4f}, backward "
+                    f"{lib[1] - copy:.4f} (cuDNN compacted its weights at "
+                    f"every call: {compacted}; {card})")
                 del y, hs
             else:
                 x = torch.randn(S, R, F, device="cuda", dtype=bf,
@@ -1428,6 +1566,7 @@ def main() -> None:
         check_fwd_staged(cfg, kind)
         check_bwd_staged(cfg, kind)
     lstm_errs = check_lstm_kernels(cfg)
+    check_rec_bwd_staged(cfg)
     mask_err = check_mask_kernel()
 
     # -- 3. main path --------------------------------------------------------
@@ -1507,9 +1646,13 @@ def main() -> None:
 
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
-    for route in ("axis_fused", "per_layer"):
+    for route in ROUTES:
+        rc = cfg.replace(**ROUTES[route][0])
+        # The r4 weights have two layers an axis; deeper stacks start fresh.
+        state = (r4 if route != "depth_3_3"
+                 else build_model(rc, "cpu", seed=0).state_dict())
         log(f"route {route}:")
-        time_train_step(cfg.replace(**ROUTES[route][0]), r4, batch, card)
+        time_train_step(rc, state, batch, card)
     biax_times = time_biax(cfg, card)
     lstm_times = time_lstm(cfg, card)
     sampler = Sampler(model)

@@ -12,9 +12,10 @@
 // The products run over all S R rows at once: tensor-core mma.sync in
 // bfloat16 (128 x 64 tiles, cp.async ring), CUDA-core FMAs in float32.
 // EPI_IN forms a layer's input pre-activations (in W -> T) + b for the
-// forward; EPI_PRE adds the recurrent term the backward recomputes.  The
-// forward scan carries only h U from step to step, the reversed scans only
-// dh <- dz U^T.
+// forward; EPI_PRE adds the recurrent term the backward recomputes;
+// EPI_XW adds it to a given input projection (the single-layer recurrence's
+// backward, lstm_recurrence.cu).  The forward scan carries only h U from
+// step to step, the reversed scans only dh <- dz U^T.
 
 #pragma once
 
@@ -45,7 +46,8 @@ struct Operand {
   int ldb;
 };
 
-enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3, EPI_IN = 4 };
+enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3, EPI_IN = 4,
+       EPI_XW = 5 };
 
 // The parts of a stack's elementwise prologue: the layer-0 input xtot, the
 // layer-1 input x1 and, in the note stack, the heads.
@@ -53,7 +55,7 @@ enum { PRO_XTOT = 1, PRO_X1 = 2, PRO_HEADS = 4 };
 
 template <typename T>
 struct EpiArgs {
-  T* out_t;        // PRE: z [M][N]; IN: P [M][N]; DX0: dx [M][N];
+  T* out_t;        // PRE, XW: z [M][N]; IN: P [M][N]; DX0: dx [M][N];
                    // NOTE_DX: dht
   const T* bias;   // PRE, IN: [N]
   float* out_a;    // DX1: style-1 rows; DX0, NOTE_DX: style-0 rows
@@ -62,11 +64,13 @@ struct EpiArgs {
   Drop drop;
   T* out_c;        // NOTE_DX: dch [M][N - split]
   int split;       // NOTE_DX: the Ht columns of the time stack's output
+  const T* xw;     // XW: the input projection [M][N]
 };
 
 // PRE: z = ((A1 B1 -> T) + b) + (A2 B2 -> T), the cast order of `preact`;
 // `pre_first` forms the first term, exact in T, after the first product.
 // IN: P = (A B -> T) + b, that first term alone.
+// XW: z = xw + (A B -> T), the cast order of the recurrence's `_cell`.
 // DX1: dx1 = A B in float32; style-1 rows dx1 m_style1, mid term dx1 m_mid.
 // DX0: dx = A B rounded to T; style-0 rows (float32 product) dx m_style0.
 // NOTE_DX: the note stack's dx = [dxt | dch] (D = Ht + C columns): dht =
@@ -88,6 +92,8 @@ __device__ __forceinline__ void epilogue(const EpiArgs<T>& e, int N, int m,
     st(e.out_t + o, add_t<T>(v1, rnd<T>(v2)));
   } else if constexpr (MODE == EPI_IN) {
     st(e.out_t + o, pre_first(e, n, v1));
+  } else if constexpr (MODE == EPI_XW) {
+    st(e.out_t + o, add_t<T>(ld(e.xw + o), rnd<T>(v1)));
   } else if constexpr (MODE == EPI_NOTE_DX) {
     const int R = e.d.A * e.d.B, s = m / R, Ht = e.split;
     const RowPos p = row_pos(m % R, e.d.B, e.d.k);
@@ -136,6 +142,10 @@ __device__ __forceinline__ void epilogue_pair(const EpiArgs<bf16>& e, int N,
   } else if constexpr (MODE == EPI_IN) {
     *reinterpret_cast<uint32_t*>(e.out_t + o) =
         pack_bf16(pre_first(e, n, a0), pre_first(e, n + 1, a1));
+  } else if constexpr (MODE == EPI_XW) {
+    *reinterpret_cast<uint32_t*>(e.out_t + o) =
+        pack_bf16(add_t<bf16>(ld(e.xw + o), rnd<bf16>(a0)),
+                  add_t<bf16>(ld(e.xw + o + 1), rnd<bf16>(a1)));
   } else {
     float2 va = make_float2(a0, a1), vb = va;
     if (e.drop.on) {
@@ -389,6 +399,15 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(
 // time stack's layer 1 takes the cotangent of hs1, the note stack's the
 // heads' gradient, and layer 0 of both the mid term.
 //
+// The ends of the scan, all null for the biaxial stacks (dc starts at zero,
+// no product at s = 0, the final carries dropped); the single-layer
+// recurrence's backward (lstm_recurrence.cu) sets all three.
+struct ScanEnds {
+  const float* dcT;   // [R][H]: the dc carry's seed, the cotangent of c_T
+  float* dh0;         // [R][H]: dh after s = 0, dz_0 U^T
+  float* dc0;         // [R][H]: the dc carry after s = 0
+};
+
 // The cell backward of one unit from its gate pre-activations zz[0..3]
 // and previous c: dz (rounded to T) into dz[0..3]; returns the carried dc.
 template <typename T>
@@ -406,7 +425,7 @@ template <typename T, int RB>
 __global__ void __launch_bounds__(1024) scan_streamed_kernel(
     T* z_dz, const T* __restrict__ cs, const T* __restrict__ ext_t,
     const float* __restrict__ ext_f, const T* __restrict__ ut, PassDims d,
-    int hard) {
+    int hard, ScanEnds ends) {
   extern __shared__ float sm[];
   const int H = d.H, H4 = 4 * H, R = d.A * d.B, l4 = padk(H4);
   float* dz = sm;                 // [RB][l4], rows past R stay zero
@@ -416,6 +435,10 @@ __global__ void __launch_bounds__(1024) scan_streamed_kernel(
   const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
   for (int i = tid; i < RB * (l4 + 2 * H); i += nt) sm[i] = 0.f;
   __syncthreads();
+  // dc[i] is read and written by thread i % nt alone, the cells' item.
+  if (ends.dcT)
+    for (int i = tid; i < RB * H; i += nt)
+      if (g0 + i / H < R) dc[i] = ends.dcT[(size_t)(g0 + i / H) * H + i % H];
   for (int t = d.S - 1; t >= 0; --t) {
     for (int i = tid; i < RB * H; i += nt) {
       const int rr = i / H, j = i % H, g = g0 + rr;
@@ -435,9 +458,16 @@ __global__ void __launch_bounds__(1024) scan_streamed_kernel(
       }
     }
     __syncthreads();
-    if (t > 0)
+    if (t > 0 || ends.dh0)
       matvec<T, RB>(dz, l4, H4, ut, H, scr,
                     [&](int rr, int c, float s) { dh[rr * H + c] = s; });
+  }
+  // matvec ended with a barrier, so dh is whole.
+  for (int i = tid; i < RB * H; i += nt) {
+    if (g0 + i / H >= R) continue;
+    const size_t o = (size_t)(g0 + i / H) * H + i % H;
+    if (ends.dh0) ends.dh0[o] = dh[i];
+    if (ends.dc0) ends.dc0[o] = dc[i];
   }
 }
 
@@ -471,7 +501,7 @@ template <int NT>
 __global__ void __launch_bounds__(CL_THREADS, 1) scan_cluster_kernel(
     bf16* z_dz, const bf16* __restrict__ cs, const bf16* __restrict__ ext_t,
     const float* __restrict__ ext_f, const bf16* __restrict__ u, PassDims d,
-    ClusterPlan P, int hard, unsigned long long* prof) {
+    ClusterPlan P, int hard, unsigned long long* prof, ScanEnds ends) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smraw[];
@@ -501,7 +531,12 @@ __global__ void __launch_bounds__(CL_THREADS, 1) scan_cluster_kernel(
   for (int w = 0; w < 2; ++w)
     ok[w] = rr < RT && g0 + rr < R && jp + w < UJ && j0 + jp + w < H;
   const bool pairs = (H % 2 == 0) && (UJ % 2 == 0);
+  const size_t own = (size_t)(g0 + rr) * H + j0 + jp;   // [R][H] offset
   float dc[2] = {0.f, 0.f};
+  if (ends.dcT)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if (ok[w]) dc[w] = ends.dcT[own + w];
   cluster.sync();
   const int lane = tid & 31, warp = tid >> 5;
   const uint32_t sa_us = (uint32_t)__cvta_generic_to_shared(Us);
@@ -568,7 +603,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) scan_cluster_kernel(
     }
     // (b) dh[:, units] = dz U[units, :]^T: warp (mt, p) multiplies m16
     // tile mt of the units by all rows over K part p.
-    if (t > 0) {
+    if (t > 0 || ends.dh0) {
       if (warp < MT * parts) {
         const int mt = warp % MT, p = warp / MT;
         const int ks0 = p * per, ks1 = min(KS, ks0 + per);
@@ -631,6 +666,17 @@ __global__ void __launch_bounds__(CL_THREADS, 1) scan_cluster_kernel(
     cluster.sync();
     if (rec) ck[3] += clock64() - c1;
   }
+  // After the last barrier dhp holds dz_0 U^T for the block's units.
+  if (ends.dh0)
+    for (int i = tid; i < RT * UJ; i += nt) {
+      const int r = i / UJ, jj = i % UJ;
+      if (g0 + r < R && j0 + jj < H)
+        ends.dh0[(size_t)(g0 + r) * H + j0 + jj] = dhp[i];
+    }
+  if (ends.dc0)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if (ok[w]) ends.dc0[own + w] = dc[w];
   if (rec) {
     for (int i = 0; i < 4; ++i) prof[i] = ck[i];
     prof[4] = C;
@@ -706,7 +752,7 @@ int launch_dx(int bf16_, const void* dz, const void* wt, int M, int K,
 template <typename T>
 int scan_streamed(void* z_dz, const void* cs, const void* ext_t,
                   const void* ext_f, const void* ut, PassDims d, int hard,
-                  cudaStream_t st) {
+                  const ScanEnds& ends, cudaStream_t st) {
   const int R = d.A * d.B, H4 = 4 * d.H, RB = SCAN_RB;
   const int nt = threads_for(H4);
   const size_t smem = sizeof(float) * (RB * (padk(H4) + 2 * d.H) + nt * RB);
@@ -715,7 +761,7 @@ int scan_streamed(void* z_dz, const void* cs, const void* ext_t,
                        (int)smem);
   kern<<<(R + RB - 1) / RB, nt, smem, st>>>(
       (T*)z_dz, (const T*)cs, (const T*)ext_t, (const float*)ext_f,
-      (const T*)ut, d, hard);
+      (const T*)ut, d, hard, ends);
   return (int)cudaGetLastError();
 }
 
@@ -733,7 +779,7 @@ inline size_t cluster_smem(const ClusterPlan& p) {
 inline int scan_cluster(void* z_dz, const void* cs, const void* ext_t,
                         const void* ext_f, const void* u, PassDims d,
                         int hard, unsigned long long* prof,
-                        cudaStream_t st) {
+                        const ScanEnds& ends, cudaStream_t st) {
   const int R = d.A * d.B;
   ClusterPlan p;
   p.Kp = (4 * d.H + 63) & ~63;
@@ -758,7 +804,7 @@ inline int scan_cluster(void* z_dz, const void* cs, const void* ext_t,
   // One instantiation per count of n8 row tiles (CL_NTMAX = 4).
   void (*const kerns[])(bf16*, const bf16*, const bf16*, const float*,
                         const bf16*, PassDims, ClusterPlan, int,
-                        unsigned long long*) = {
+                        unsigned long long*, ScanEnds) = {
       scan_cluster_kernel<1>, scan_cluster_kernel<2>, scan_cluster_kernel<3>,
       scan_cluster_kernel<4>};
   cudaError_t err;
@@ -794,7 +840,7 @@ inline int scan_cluster(void* z_dz, const void* cs, const void* ext_t,
   cfg.dynamicSmemBytes = cluster_smem(p);
   err = cudaLaunchKernelEx(&cfg, kerns[p.NT - 1], (bf16*)z_dz, (const bf16*)cs,
                            (const bf16*)ext_t, (const float*)ext_f,
-                           (const bf16*)u, d, p, hard, prof);
+                           (const bf16*)u, d, p, hard, prof, ends);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -804,17 +850,18 @@ inline int scan_cluster(void* z_dz, const void* cs, const void* ext_t,
 // [H][4H] resident in a thread-block cluster; cluster = 0: u is
 // `_layout(U^T)`, streamed.  prof (cluster scan only, may be null): four
 // clock-cycle sums of the first block's steps and its plan, see
-// scan_cluster_kernel.
+// scan_cluster_kernel.  ends: see ScanEnds (the stacks pass none).
 inline int launch_scan(int bf16_, int cluster, void* z_dz, const void* cs,
                        const void* ext_t, const void* ext_f, const void* u,
                        PassDims d, int hard, unsigned long long* prof,
-                       cudaStream_t st) {
+                       cudaStream_t st, const ScanEnds& ends = ScanEnds{}) {
   if (cluster) {
     if (!bf16_) return (int)cudaErrorInvalidValue;
-    return scan_cluster(z_dz, cs, ext_t, ext_f, u, d, hard, prof, st);
+    return scan_cluster(z_dz, cs, ext_t, ext_f, u, d, hard, prof, ends, st);
   }
-  if (bf16_) return scan_streamed<bf16>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
-  return scan_streamed<float>(z_dz, cs, ext_t, ext_f, u, d, hard, st);
+  if (bf16_)
+    return scan_streamed<bf16>(z_dz, cs, ext_t, ext_f, u, d, hard, ends, st);
+  return scan_streamed<float>(z_dz, cs, ext_t, ext_f, u, d, hard, ends, st);
 }
 
 // ---------------------------------------------------------------------------

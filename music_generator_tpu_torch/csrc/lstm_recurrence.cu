@@ -7,11 +7,7 @@
 // `_make_recurrence`).  xw = x W + b comes in already projected, in the
 // compute dtype T (ops/lstm.py::lstm_scan).  The forward writes hs and the
 // previous-c tape cs in T (cs only when the caller will differentiate) and
-// the terminal h_T (not rounded) and c_T in float32.  The backward recomputes
-// the gates from xw and the h_{t-1} / c_{t-1} tapes, carries dh and dc
-// (dc seeded with the cotangent of c_T; the cotangent of h_T arrives folded
-// into dhs[S-1]) and writes dxw = dz in T and the initial-state gradients;
-// biax_wgrad (biax_common.cuh) then reduces dU = sum_t h_{t-1}^T dz_t.
+// the terminal h_T (not rounded) and c_T in float32.
 //
 // What bounds it on this card.  At the flagship shapes the time axis runs
 // S = 128, R = 768, H = 256 and the note axis S = 48, R = 2048, H = 128.  A
@@ -22,17 +18,30 @@
 // each a product with all of U (512 KB bf16 on the time axis, 128 KB on the
 // note axis).
 //
-// Design (simple first, the layout of biax_time.cu).  One block owns RB rows
-// for the whole scan and keeps h, c, the pre-activations and the gates in
-// shared memory; U streams from L2 every step.  bf16 products run on the
+// Forward (simple first, the layout of biax_time.cu).  One block owns RB
+// rows for the whole scan and keeps h, c, the pre-activations and the gates
+// in shared memory; U streams from L2 every step.  bf16 products run on the
 // tensor cores (mma.sync, float32 accumulation, `matvec_mma`), float32 on
-// the CUDA cores (`matvec_fma`).  Blocks never talk to each other, so dU,
-// which the TPU kernel summed in VMEM across its sequential grid, is the
-// second, deterministic reduction over the dz tape.  The note-axis U fits
-// one block's shared memory and the time-axis U does not: keeping U resident
-// (in a block, or across a cluster) is later work.
+// the CUDA cores (`matvec_fma`).
+//
+// Backward, as passes on the machinery of biax_passes.cuh with (S, A, B) =
+// (S, R, 1).  Of the two products a step of the TPU kernel makes, only
+// dh <- dz U^T carries from step to step: the recomputed pre-activations
+// read the h_{t-1} tape, so all S R rows are one bulk product.
+//   1. z = xw + (hs_prev U -> T), one GEMM (EPI_XW) into the dxw buffer;
+//   2. the reversed scan (launch_scan): the cell backward of each step from
+//      z and the c_{t-1} tape, dh = (dz U^T) + dhs, dz written over z; dc
+//      seeded with the cotangent of c_T, and dh0 = dz_0 U^T and the last dc
+//      carry written at its end (ScanEnds).  bfloat16 keeps U resident in a
+//      thread-block cluster (4 blocks at H = 256, one at H = 128); float32
+//      streams U^T from L2;
+//   3. dU = sum_t h_{t-1}^T dz_t, the deterministic reduction biax_wgrad
+//      (biax_common.cuh), which also replaces the TPU kernel's VMEM sum
+//      across its sequential grid.
+// The wrapper forms the tapes before pass 1: hs_prev = [h0 -> T, hs[:-1]]
+// and dhs in float32 with the cotangent of h_T added to its last step.
 
-#include "biax_common.cuh"
+#include "biax_passes.cuh"
 
 namespace biax {
 
@@ -88,76 +97,7 @@ __global__ void __launch_bounds__(1024) rec_fwd_kernel(
   }
 }
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) rec_bwd_kernel(
-    const T* __restrict__ xw, const T* __restrict__ u,
-    const T* __restrict__ ut, const T* __restrict__ hs_prev,
-    const T* __restrict__ cs, const float* __restrict__ dhs,
-    const float* __restrict__ dcT, T* dxw, float* dh0, float* dc0,
-    RecDims d, int hard) {
-  extern __shared__ float sm[];
-  const int H = d.H, H4 = 4 * H, R = d.R, lH = padk(H), l4 = padk(H4);
-  float* hp = sm;             // [RB][lH] h_{t-1} in T, zero padded
-  float* dz = hp + RB * lH;   // [RB][l4] dz in T, zero padded
-  float* z = dz + RB * l4;    // [RB][H4] the pre-activations
-  float* cp = z + RB * H4;    // [RB][H] c_{t-1}
-  float* dh = cp + RB * H;    // [RB][H] the dh carry
-  float* dc = dh + RB * H;    // [RB][H] the dc carry
-  float* scr = dc + RB * H;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * (lH + l4); i += nt) sm[i] = 0.f;
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    dh[i] = 0.f;
-    dc[i] = g < R ? dcT[(size_t)g * H + i % H] : 0.f;
-  }
-  __syncthreads();
-  for (int t = d.S - 1; t >= 0; --t) {
-    const size_t row0 = (size_t)t * R + g0;
-    for (int i = tid; i < RB * H4; i += nt)
-      z[i] = g0 + i / H4 < R ? ld(xw + row0 * H4 + i) : 0.f;
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      const bool in = g0 + rr < R;
-      hp[rr * lH + j] = in ? ld(hs_prev + row0 * H + i) : 0.f;
-      cp[i] = in ? ld(cs + row0 * H + i) : 0.f;
-    }
-    __syncthreads();
-    matvec<T, RB>(hp, lH, H, u, H4, scr, [&](int rr, int col, float s) {
-      z[rr * H4 + col] = add_t<T>(z[rr * H4 + col], rnd<T>(s));
-    });
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float tc = tanh_c<T>(q, cp[i]);
-      float dhv = dh[i];
-      if (g0 + rr < R) dhv += dhs[row0 * H + i];
-      dc[i] = cell_bwd<T>(q, cp[i], tc, dhv, dc[i], hard, dz + rr * l4, H,
-                          j);
-    }
-    __syncthreads();
-    for (int i = tid; i < RB * H4; i += nt)
-      if (g0 + i / H4 < R)
-        st(dxw + row0 * H4 + i, dz[(i / H4) * l4 + i % H4]);
-    matvec<T, RB>(dz, l4, H4, ut, H, scr,
-                  [&](int rr, int col, float s) { dh[rr * H + col] = s; });
-  }
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    if (g < R) {
-      dh0[(size_t)g * H + i % H] = dh[i];
-      dc0[(size_t)g * H + i % H] = dc[i];
-    }
-  }
-}
-
 constexpr int FWD_RB = 8;   // 96 blocks on the time axis, 256 on the note axis
-constexpr int BWD_RB = 6;   // 128 blocks on the time axis: one wave
-
-inline int threads_for(int H4) {
-  const int nt = ((H4 + 31) / 32) * 32;
-  return nt > 1024 ? 1024 : nt;
-}
 
 template <typename T>
 int rec_fwd(const void* xw, const void* u, const float* h0, const float* c0,
@@ -171,23 +111,6 @@ int rec_fwd(const void* xw, const void* u, const float* h0, const float* c0,
                        (int)smem);
   kern<<<(d.R + RB - 1) / RB, nt, smem, st>>>(
       (const T*)xw, (const T*)u, h0, c0, (T*)hs, (T*)cs, hT, cT, d, hard);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int rec_bwd(const void* xw, const void* u, const void* ut,
-            const void* hs_prev, const void* cs, const float* dhs,
-            const float* dcT, void* dxw, float* dh0, float* dc0, RecDims d,
-            int hard, cudaStream_t st) {
-  const int H4 = 4 * d.H, nt = threads_for(H4), RB = BWD_RB;
-  const size_t smem = sizeof(float) *
-      (RB * (padk(d.H) + padk(H4) + H4 + 3 * d.H) + (size_t)nt * RB);
-  auto kern = rec_bwd_kernel<T, BWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(d.R + RB - 1) / RB, nt, smem, st>>>(
-      (const T*)xw, (const T*)u, (const T*)ut, (const T*)hs_prev,
-      (const T*)cs, dhs, dcT, (T*)dxw, dh0, dc0, d, hard);
   return (int)cudaGetLastError();
 }
 
@@ -207,19 +130,44 @@ extern "C" int lstm_rec_fwd(int bf16, const void* xw, const void* u,
   return rec_fwd<float>(xw, u, h0, c0, hs, cs, hT, cT, d, hard, st);
 }
 
-// ut is U^T in the same layouts: [4H][H] for float32, [H][padk(4H)] for bf16.
-extern "C" int lstm_rec_bwd(int bf16, const void* xw, const void* u,
-                            const void* ut, const void* hs_prev,
-                            const void* cs, const float* dhs,
-                            const float* dcT, void* dxw, float* dh0,
-                            float* dc0, int S, int R, int H, int hard,
-                            void* stream) {
+// The backward's passes, launched in order by ops/recurrence.py::
+// lstm_recurrence_bwd.
+// 1. z [M][4H] = xw + (hs_prev U -> T) over all M = S R rows (EPI_XW):
+// hs_prev [M][H] is the h_{t-1} tape (h0 in its first R rows), u the
+// layout of the compute dtype as for lstm_rec_fwd; z must not alias xw.
+extern "C" int lstm_rec_bwd_preact(int bf16, const void* hs_prev,
+                                   const void* u, const void* xw, void* z,
+                                   int M, int H, void* stream) {
   using namespace biax;
-  const RecDims d = {S, R, H};
+  const int H4 = 4 * H;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return rec_bwd<biax::bf16>(xw, u, ut, hs_prev, cs, dhs, dcT, dxw, dh0,
-                               dc0, d, hard, st);
-  return rec_bwd<float>(xw, u, ut, hs_prev, cs, dhs, dcT, dxw, dh0, dc0, d,
-                        hard, st);
+  if (bf16) {
+    const auto op = operand<biax::bf16>(hs_prev, H, 0, H, u, H4);
+    EpiArgs<biax::bf16> e = {(biax::bf16*)z};
+    e.xw = (const biax::bf16*)xw;
+    return gemm<biax::bf16, EPI_XW>(op, op, M, H4, e, st);
+  }
+  const auto op = operand<float>(hs_prev, H, 0, H, u, H4);
+  EpiArgs<float> e = {(float*)z};
+  e.xw = (const float*)xw;
+  return gemm<float, EPI_XW>(op, op, M, H4, e, st);
+}
+
+// 2. The reversed scan over z_dz (z in, dz = dxw out) with the external dh
+// dhs [S][R][H] (float32, the cotangent of h_T folded into step S - 1), the
+// c_{t-1} tape cs, dc seeded from dcT, and the initial-state gradients dh0,
+// dc0 [R][H] written at its end (launch_scan with ScanEnds).  cluster = 1
+// (bfloat16 only): u is U [H][4H], resident in a thread-block cluster;
+// cluster = 0: u is `_layout(U^T)`, streamed.  prof as for the stacks'
+// scans (may be null).
+extern "C" int lstm_rec_bwd_scan(int bf16, int cluster, void* z_dz,
+                                 const void* cs, const float* dhs,
+                                 const void* u, const float* dcT, float* dh0,
+                                 float* dc0, int S, int R, int H, int hard,
+                                 unsigned long long* prof, void* stream) {
+  using namespace biax;
+  const PassDims d = {S, R, 1, H, 1};
+  const ScanEnds ends = {dcT, dh0, dc0};
+  return launch_scan(bf16, cluster, z_dz, cs, nullptr, dhs, u, d, hard, prof,
+                     (cudaStream_t)stream, ends);
 }

@@ -294,18 +294,22 @@ def _gate_grad(s: torch.Tensor, hard: bool) -> torch.Tensor:
 
 
 def _reverse_scan(z: torch.Tensor, cs: torch.Tensor, ext: torch.Tensor,
-                  u: torch.Tensor, hard: bool) -> torch.Tensor:
+                  u: torch.Tensor, hard: bool,
+                  dc: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Passes 3 and 5 of both staged backwards: one layer's cell backward,
     reversed over the scanned axis.  z [S, R, 4H] holds the pre-activations
     in the compute dtype, cs [S, R, H] the previous c, ext [S, R, H] the
     external dh of each step; dh = dz U^T (float32) is the only carried
-    product.  Returns dz [S, R, 4H] rounded to the compute dtype."""
+    product.  The dc carry starts at `dc` [R, H] (float32; zeros when None).
+    Returns dz [S, R, 4H] rounded to the compute dtype and the carries after
+    the first step, (dz[0] U^T, dc), in float32."""
     cdt = z.dtype
     S, R, H4 = z.shape
     H = H4 // 4
     dz = torch.empty_like(z)
     dh_carry = torch.zeros(R, H, device=z.device)
-    dc = torch.zeros(R, H, device=z.device)
+    dc = torch.zeros(R, H, device=z.device) if dc is None else dc.float()
     for t in reversed(range(S)):
         i, f, o = (_gate(z[t, :, a * H:(a + 1) * H], hard)
                    for a in (0, 1, 3))
@@ -321,7 +325,7 @@ def _reverse_scan(z: torch.Tensor, cs: torch.Tensor, ext: torch.Tensor,
                            dh * tc * _gate_grad(o, hard)], -1).to(cdt)
         dc = dc * f
         dh_carry = _dot(dz[t], u.t())
-    return dz
+    return dz, (dh_carry, dc)
 
 
 def _forward_scan(pre: torch.Tensor, u: torch.Tensor,
@@ -450,10 +454,10 @@ def biax_time_bwd_staged(x, s0, s1, w0, b0, b1, u0, w1, u1, hs0, cs0, hs1,
     z1 = (_dot(x1, W1).to(cdt) + B1) + _dot(hp1, U1).to(cdt)
 
     # 3. - 6.
-    dz1 = _reverse_scan(z1, rows(cs1), rows(dhs1), U1, hard)
+    dz1, _ = _reverse_scan(z1, rows(cs1), rows(dhs1), U1, hard)
     dx1 = _dot(dz1, W1.t())
     ds1r, dmid = _apply(dx1, f32(m1)), _apply(dx1, f32(mmid))
-    dz0 = _reverse_scan(z0, rows(cs0), dmid, U0, hard)
+    dz0, _ = _reverse_scan(z0, rows(cs0), dmid, U0, hard)
     dxo = _dot(dz0, W0.t())
     ds0r = _apply(dxo, f32(m0))
 
@@ -614,10 +618,10 @@ def biax_note_bwd_staged(ht, chosen, s0, s1, w0, b0, b1, u0, w1, u1, whead,
     z0 = (_dot(xtot, W0).to(cdt) + B0) + _dot(hp0, U0).to(cdt)
     z1 = (_dot(x1, W1).to(cdt) + B1) + _dot(hp1, U1).to(cdt)
     # 3. - 6.
-    dz1 = _reverse_scan(z1, cs1, ext1, U1, hard)
+    dz1, _ = _reverse_scan(z1, cs1, ext1, U1, hard)
     dx1 = _dot(dz1, W1.t())
     ds1r, dmid = _apply(dx1, f32(m1)), _apply(dx1, f32(mmid))
-    dz0 = _reverse_scan(z0, cs0, dmid, U0, hard)
+    dz0, _ = _reverse_scan(z0, cs0, dmid, U0, hard)
     dx = _dot(dz0, W0.t())
     dxt, dxc = dx[..., :Ht], dx[..., Ht:]
     dht = _apply(dxt, f32(m_in)).to(cdt).reshape(N, T, B, Ht).transpose(0, 1)

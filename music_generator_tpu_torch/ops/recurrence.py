@@ -13,37 +13,47 @@ compute dtype (the logistic as 0.5*tanh(0.5x)+0.5, or Keras 2's
 hard_sigmoid), c in float32, h = o * tanh(c cast to the compute dtype).  hs
 leaves in the compute dtype; h_T (not rounded) and c_T in float32.
 
-The backward is `_bwd_rule`'s (pallas_lstm.py:280-347): the cotangent of
-h_T joins that of hs[S-1] in float32, the cotangent of c_T seeds the dc
-carry, the kernel recomputes the gates from xw and the h_{t-1} / c_{t-1}
-tapes and writes dxw (dz in the compute dtype), and dU = sum_t h_{t-1}^T dz_t
-is the deterministic weight-gradient reduction of `csrc/biax_common.cuh`.
-The forward writes its c_{t-1} tape only when autograd will need it (the
-Pallas `tape=False` variant for eval).
+The backward is `_bwd_rule`'s (pallas_lstm.py:280-347), as passes
+(`lstm_recurrence_bwd`): the tapes (h_{t-1}, and the cotangent of h_T
+joined to that of hs[S-1] in float32), one bulk GEMM that recomputes the
+pre-activations z = xw + (h_{t-1} U -> T) of all steps, a reversed scan
+that carries only dh <- dz U^T (dc seeded with the cotangent of c_T; U
+resident in a thread-block cluster in bfloat16, streamed in float32, by
+`biax.scan_route`) and writes dxw (dz in the compute dtype) and the
+initial-state gradients, then dU = sum_t h_{t-1}^T dz_t by the
+deterministic weight-gradient reduction of `csrc/biax_common.cuh`.
+`lstm_recurrence_bwd_staged` is those passes in plain PyTorch, the
+yardstick of the CUDA passes (tests, chip_smoke.py).  The forward writes
+its c_{t-1} tape only when autograd will need it (the Pallas `tape=False`
+variant for eval).
 
 On a CPU tensor the wrapper runs the plain version
 (`lstm_recurrence_reference`, a loop over the scan whose autograd gives
 the reference gradient); on a CUDA tensor it launches the kernels or
 raises.  Launch counters: `lstm_recurrence.fwd_launches` /
-`.bwd_launches`; the plain version counts `.calls`.
+`.bwd_launches`, and the backward's scans by route `.cluster_scans` /
+`.streamed_scans`; the plain version counts `.calls`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from music_generator_tpu_torch.ops import _build
+from music_generator_tpu_torch.ops import _build, biax
 from music_generator_tpu_torch.ops.biax import (WGRAD_CHUNKS, _P, _I, _WGRAD,
-                                                _cell, _check, _is_bf16,
-                                                _layout, _on_cuda, _ptr,
-                                                _stream, _wgrad)
+                                                _cell, _check, _dot,
+                                                _is_bf16, _layout, _marker,
+                                                _on_cuda, _ptr,
+                                                _reverse_scan, _stream,
+                                                _wgrad)
 from music_generator_tpu_torch.ops.lstm import check_recurrent_activation
 
 _SIGNATURES = {
     "lstm_rec_fwd": [_I] + [_P] * 8 + [_I] * 4 + [_P],
-    "lstm_rec_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "lstm_rec_bwd_preact": [_I] + [_P] * 4 + [_I, _I, _P],
+    "lstm_rec_bwd_scan": [_I, _I] + [_P] * 7 + [_I] * 4 + [_P, _P],
     "biax_wgrad": _WGRAD,
 }
 
@@ -65,57 +75,136 @@ def lstm_recurrence_reference(xw, u, h0, c0, compute_dtype=torch.float32,
 lstm_recurrence_reference.calls = 0
 
 
+def lstm_recurrence_bwd_staged(xw, u, h0, hs, cs, dhs, dhT, dcT,
+                               compute_dtype=torch.float32,
+                               recurrent_activation: str = "sigmoid"):
+    """The backward as the CUDA passes compute it, in plain PyTorch (no
+    autograd), with their cast points.  xw [S, R, 4H] and u [H, 4H] are
+    the forward's inputs, h0 [R, H] its initial h, hs and cs [S, R, H] its
+    tapes (h after step t, c before it, in the compute dtype), dhs, dhT and
+    dcT the cotangents of hs, h_T and c_T.
+
+      0. the tapes: hs_prev = [h0 -> T, hs[:-1]], and dhs in float32 with
+         dhT added to its last step;
+      1. z = xw + (hs_prev U -> T) over all S R rows at once;
+      2. the reversed scan (`biax._reverse_scan`): dc seeded with dcT, dh =
+         dz U^T (float32) the only carried product;
+      3. dU = sum_t hs_prev_t^T dz_t in float32.
+
+    Returns (dxw in the compute dtype, dU, dh0, dc0 float32)."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    S, R, H4 = xw.shape
+    H = H4 // 4
+    xw, U, hs, cs = (t.to(cdt) for t in (xw, u, hs, cs))
+    # 0. the tapes
+    hs_prev = torch.cat([h0.to(cdt)[None], hs[:-1]])
+    ext = dhs.float().clone()
+    ext[-1] += dhT.float()
+    # 1. - 3.
+    z = xw + _dot(hs_prev, U).to(cdt)
+    dz, (dh0, dc0) = _reverse_scan(z, cs, ext, U, hard, dc=dcT.float())
+    du = _dot(hs_prev.reshape(S * R, H).t(), dz.reshape(S * R, H4))
+    return dz, du, dh0, dc0
+
+
+def lstm_recurrence_fwd(xw, u, h0, c0, compute_dtype=torch.float32,
+                        recurrent_activation: str = "sigmoid",
+                        tapes: bool = True):
+    """Kernel 8 on CUDA tensors (`lstm_rec_fwd`): (hs, cs [S, R, H] in the
+    compute dtype, h after step t and c before it; h_T, c_T [R, H]
+    float32).  cs is None without `tapes`.  Counts
+    `lstm_recurrence.fwd_launches`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("lstm_recurrence", xw, u, h0, c0)
+    S, R, H4 = xw.shape
+    H = H4 // 4
+    xw, uc = xw.to(cdt).contiguous(), u.to(cdt).contiguous()
+    h0f, c0f = h0.float().contiguous(), c0.float().contiguous()
+    hs = torch.empty(S, R, H, dtype=cdt, device=dev)
+    cs = torch.empty_like(hs) if tapes else None
+    hT, cT = (torch.empty(R, H, device=dev) for _ in range(2))
+    lib = _build.bind("lstm_recurrence", _SIGNATURES)
+    with torch.cuda.device(dev):
+        _check(lib.lstm_rec_fwd(
+            _is_bf16(cdt), xw.data_ptr(), _layout(uc).data_ptr(),
+            h0f.data_ptr(), c0f.data_ptr(), hs.data_ptr(), _ptr(cs),
+            hT.data_ptr(), cT.data_ptr(), S, R, H, int(hard),
+            _stream(dev)), "lstm_rec_fwd")
+    lstm_recurrence.fwd_launches += 1
+    return hs, cs, hT, cT
+
+
+def lstm_recurrence_bwd(xw, u, h0, hs, cs, dhs, dhT, dcT,
+                        compute_dtype=torch.float32,
+                        recurrent_activation: str = "sigmoid", marks=None,
+                        scan_prof: Optional[torch.Tensor] = None):
+    """Kernel 9 on CUDA tensors: the arguments and results of
+    `lstm_recurrence_bwd_staged`, whose passes it runs
+    (csrc/lstm_recurrence.cu): the tapes, `lstm_rec_bwd_preact`,
+    `lstm_rec_bwd_scan` on `biax.scan_route(compute_dtype)` and the dU
+    reduction `biax_wgrad`.  With a list `marks`, a recorded CUDA event is
+    appended after each pass, as (name, event), behind ("start", event):
+    "tapes", "preact", "scan", "wgrad".  With an int64 tensor `scan_prof`
+    [9] on the card, the cluster scan writes its first block's clock cycles
+    per phase and its plan, as the biaxial backwards' scans do.  Counts
+    `lstm_recurrence.bwd_launches`, and `.cluster_scans` or
+    `.streamed_scans`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    dev = _on_cuda("lstm_recurrence", xw, u, h0, hs, cs, dhs, dhT, dcT)
+    S, R, H4 = xw.shape
+    H = H4 // 4
+    xw, uc, hs, cs = (t.to(cdt).contiguous() for t in (xw, u, hs, cs))
+    route = biax.scan_route(cdt)
+    lib = _build.bind("lstm_recurrence", _SIGNATURES)
+    bf, st = _is_bf16(cdt), _stream(dev)
+    mark = _marker(marks)
+    with torch.cuda.device(dev):
+        mark("start")
+        hs_prev = torch.cat([h0.to(cdt)[None], hs[:-1]])
+        ext = dhs.to(torch.float32, memory_format=torch.contiguous_format,
+                     copy=True)
+        ext[-1] += dhT.float()
+        dcT = dcT.float().contiguous()
+        mark("tapes")
+        dxw = torch.empty_like(xw)              # z in, dz out
+        _check(lib.lstm_rec_bwd_preact(
+            bf, hs_prev.data_ptr(), _layout(uc).data_ptr(), xw.data_ptr(),
+            dxw.data_ptr(), S * R, H, st), "lstm_rec_bwd_preact")
+        mark("preact")
+        dh0, dc0 = (torch.empty(R, H, device=dev) for _ in range(2))
+        scan_u = uc if route == "cluster" else _layout(uc.t())
+        _check(lib.lstm_rec_bwd_scan(
+            bf, int(route == "cluster"), dxw.data_ptr(), cs.data_ptr(),
+            ext.data_ptr(), scan_u.data_ptr(), dcT.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(), S, R, H, int(hard),
+            _ptr(scan_prof), st), f"lstm_rec_bwd_scan ({route})")
+        if route == "cluster":
+            lstm_recurrence.cluster_scans += 1
+        else:
+            lstm_recurrence.streamed_scans += 1
+        mark("scan")
+        ws = torch.empty(WGRAD_CHUNKS * H * H4, device=dev)
+        du = _wgrad(lib, hs_prev, 0, dxw, H, ws)
+        mark("wgrad")
+    lstm_recurrence.bwd_launches += 1
+    return dxw, du, dh0, dc0
+
+
 class _Recurrence(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xw, u, h0, c0, cdt, hard):
-        dev = _on_cuda("lstm_recurrence", xw, u, h0, c0)
-        S, R, H4 = xw.shape
-        H = H4 // 4
-        uc = u.to(cdt).contiguous()
-        h0f, c0f = h0.float().contiguous(), c0.float().contiguous()
+    def forward(ctx, xw, u, h0, c0, cdt, act):
         tapes = any(ctx.needs_input_grad)
-        hs = torch.empty(S, R, H, dtype=cdt, device=dev)
-        cs = torch.empty_like(hs) if tapes else None
-        hT, cT = (torch.empty(R, H, device=dev) for _ in range(2))
-        lib = _build.bind("lstm_recurrence", _SIGNATURES)
-        with torch.cuda.device(dev):
-            _check(lib.lstm_rec_fwd(
-                _is_bf16(cdt), xw.data_ptr(), _layout(uc).data_ptr(),
-                h0f.data_ptr(), c0f.data_ptr(), hs.data_ptr(), _ptr(cs),
-                hT.data_ptr(), cT.data_ptr(), S, R, H, int(hard),
-                _stream(dev)), "lstm_rec_fwd")
-        lstm_recurrence.fwd_launches += 1
+        hs, cs, hT, cT = lstm_recurrence_fwd(xw, u, h0, c0, cdt, act, tapes)
         if tapes:
-            ctx.save_for_backward(xw, uc, h0f, hs, cs)
-            ctx.cfg = (cdt, hard)
+            ctx.save_for_backward(xw, u, h0, hs, cs)
+            ctx.cfg = (cdt, act)
             ctx.dtypes = (u.dtype, h0.dtype, c0.dtype)
         return hs, hT, cT
 
     @staticmethod
     def backward(ctx, dhs, dhT, dcT):
-        xw, uc, h0f, hs, cs = ctx.saved_tensors
-        cdt, hard = ctx.cfg
-        dev = xw.device
-        S, R, H4 = xw.shape
-        H = H4 // 4
-        # Terminal cotangents: dh_T joins the last step's in float32.
-        dhs = dhs.to(torch.float32, memory_format=torch.contiguous_format,
-                     copy=True)
-        dhs[-1] += dhT.float()
-        dcT = dcT.float().contiguous()
-        hs_prev = torch.cat([h0f.to(cdt)[None], hs[:-1]])
-        dxw = torch.empty_like(xw)
-        dh0, dc0 = (torch.empty(R, H, device=dev) for _ in range(2))
-        lib = _build.bind("lstm_recurrence", _SIGNATURES)
-        with torch.cuda.device(dev):
-            _check(lib.lstm_rec_bwd(
-                _is_bf16(cdt), *(t.data_ptr() for t in (
-                    xw, _layout(uc), _layout(uc.t()), hs_prev, cs, dhs, dcT,
-                    dxw, dh0, dc0)),
-                S, R, H, int(hard), _stream(dev)), "lstm_rec_bwd")
-            ws = torch.empty(WGRAD_CHUNKS * H * H4, device=dev)
-            du = _wgrad(lib, hs_prev, 0, dxw, H, ws)
-        lstm_recurrence.bwd_launches += 1
+        dxw, du, dh0, dc0 = lstm_recurrence_bwd(*ctx.saved_tensors, dhs, dhT,
+                                                dcT, *ctx.cfg)
         return (dxw, du.to(ctx.dtypes[0]), dh0.to(ctx.dtypes[1]),
                 dc0.to(ctx.dtypes[2]), None, None)
 
@@ -138,9 +227,11 @@ def lstm_recurrence(xw, u, h0, c0, compute_dtype=torch.float32,
                          f"got {xw.device}")
     _is_bf16(compute_dtype)
     hs, hT, cT = _Recurrence.apply(xw.contiguous(), u, h0, c0, compute_dtype,
-                                   recurrent_activation == "hard_sigmoid")
+                                   recurrent_activation)
     return hs, (hT, cT)
 
 
 lstm_recurrence.fwd_launches = 0
 lstm_recurrence.bwd_launches = 0
+lstm_recurrence.cluster_scans = 0
+lstm_recurrence.streamed_scans = 0
