@@ -5,8 +5,9 @@ the per-axis training steps.
     python3 chip_ab.py --compare A.json B.json ...
 
 The first form, run from the root of a checkout (with that root on
-PYTHONPATH), hashes (sha256) the tapes of both biaxial forwards and the
-outputs of both biaxial backwards on seeded inputs at the training shapes:
+PYTHONPATH), hashes (sha256) the results of both biaxial forwards (the
+tapes, and the note forward's output) and the outputs of both biaxial
+backwards on seeded inputs at the training shapes:
 bfloat16 at T = seq_len (the cluster scans) and float32 at T = CHECK_T
 (the streamed scans). It then times the per-layer route's and the
 3 + 3 layer stack's training step on fresh weights (seed 0) with
@@ -36,9 +37,10 @@ def hashes() -> dict:
             args = cs.stack_inputs(kind, cfg, T, 5)
             kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=cdt,
                       recurrent_activation="sigmoid")
-            tapes = getattr(biax, f"biax_{kind}_fwd")(*args, **kw)
+            fwd = getattr(biax, f"biax_{kind}_fwd")(*args, **kw)
+            tapes = fwd
             if kind == "note":
-                tapes = tapes[1:]
+                tapes = fwd[1:]
                 shape = (cfg.num_notes, T, cfg.batch_size, 3)
             else:
                 shape = (T, cfg.num_notes, cfg.batch_size,
@@ -48,7 +50,7 @@ def hashes() -> dict:
             got = getattr(biax, f"biax_{kind}_bwd")(*args, *tapes, cot, **kw)
             torch.cuda.synchronize()
             h = hashlib.sha256()
-            for t in (*tapes, *got):
+            for t in (*fwd, *got):
                 h.update(t.detach().contiguous().view(torch.uint8).cpu()
                          .numpy().tobytes())
             out[f"{kind} {cdt}"] = h.hexdigest()

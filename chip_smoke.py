@@ -21,10 +21,13 @@ Phases (any failure exits non-zero, before the result line):
      staged plain version, which repeats those passes, with the scan route
      each dtype takes (bfloat16: U resident in a thread-block cluster, one
      block for the note stack; float32: U streamed); the recurrence's
-     backward (kernel 9: tapes, pre-activation GEMM, scan, dU) against its
-     staged plain version on kernel 8's tapes, at both axes' shapes and
-     small odd widths, with the same scan routes; and the lstm2 mask
-     dump (kernel 10) against its plain version, bit for bit;
+     forward (kernel 8: the stacks' forward scan with initial and terminal
+     states) against its staged plain version with nonzero h0 and c0 (hs,
+     the c tape with tapes on and off, h_T, c_T) and its backward (kernel
+     9: tapes, pre-activation GEMM, scan, dU) against its staged plain
+     version on kernel 8's tapes, at both axes' shapes and small odd
+     widths, with the same scan routes; and the lstm2 mask dump (kernel
+     10) against its plain version, bit for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -50,8 +53,8 @@ Phases (any failure exits non-zero, before the result line):
      fused_axis_kernel=False as well (one recurrence per layer) and a
      3 + 3 layer stack, checking the exact launch counts of each step, no
      plain version and no biaxial launch, every bfloat16 recurrence
-     backward's scan on the cluster route, finite losses, evaluate() and
-     the checkpoint;
+     forward's and backward's scan on the cluster route, finite losses,
+     evaluate() and the checkpoint;
   3f. the dropout-0 step of 3d on the two per-axis routes;
   3g. the port's validators as a user runs them (music_generator_tpu_torch/
      tools): validate_lstm2 (the fused stack against the plain recurrence,
@@ -69,8 +72,9 @@ Phases (any failure exits non-zero, before the result line):
      streamed kernels in turns at G = 3, 64 and 256, with the cluster
      kernel's clock cycles per pitch by phase), each pass of the time and
      note forwards and of the time and note backwards and of the
-     recurrence's backward at both axes (both scan routes, with the cluster
-     scans' clock cycles per phase and a check that each plan is one wave),
+     recurrence's backward at both axes, and the recurrence's forward scan
+     a launch at both axes (both scan routes, with the cluster scans' clock
+     cycles per phase and a check that each plan is one wave),
      cuDNN's LSTM beside the recurrence (and the weight copy it repeats at
      every bfloat16 call), and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
@@ -570,26 +574,87 @@ def rec_scan_counts():
     return rec.cluster_scans, rec.streamed_scans
 
 
-def check_rec_bwd_staged(cfg):
-    """Kernel 9's passes (`lstm_recurrence_bwd`) against their staged plain
-    version (`lstm_recurrence_bwd_staged`) on the same tapes, those of
-    kernel 8 (`lstm_recurrence_fwd`), with nonzero initial states and
-    cotangents of hs, h_T and c_T: at the time and note axes' shapes (T cut
-    to CHECK_T), at small odd widths (T = 6, B = 8, H = 12) and at
-    (S, R, H) = (5, 37, 12), both dtypes and both gate flavors, with the
-    tolerances of check_biax_kernels on (dxw, dU, dh0, dc0).  Each backward
-    must take its dtype's scan route (one cluster scan in bfloat16, one
-    streamed in float32)."""
+def rec_fwd_scan_counts():
+    """(cluster, streamed) scans launched by the recurrence's forward."""
     from music_generator_tpu_torch.ops import recurrence
+    rec = recurrence.lstm_recurrence
+    return rec.fwd_cluster_scans, rec.fwd_streamed_scans
+
+
+def rec_check_shapes(cfg):
+    """(label, S, R, F, H) of the recurrence's staged checks: the time and
+    note axes' shapes (T cut to CHECK_T), small odd widths (T = 6, B = 8,
+    H = 12) and (S, R, H) = (5, 37, 12)."""
     small = cfg.replace(batch_size=8, octave_units=8, style_units=8,
                         time_axis_units=12, note_axis_units=12)
     shapes = [(f"{axis} {label}", S, R, F, H)
               for c, T, label in ((cfg, CHECK_T, "main widths"),
                                   (small, 6, "small widths"))
               for axis, S, R, F, H in axis_shapes(c, T)]
-    shapes.append(("odd rows", 5, 37, 12, 12))
+    return shapes + [("odd rows", 5, 37, 12, 12)]
+
+
+def check_rec_fwd_staged(cfg):
+    """Kernel 8 (`lstm_recurrence_fwd`) against its staged plain version
+    (`lstm_recurrence_fwd_staged`) with nonzero initial states, at
+    rec_check_shapes, both dtypes, both gate flavors, tapes on and off: hs,
+    cs, h_T and c_T, max |d| relative to the result's largest magnitude
+    where that exceeds 1 (c grows past 1) within F32_ATOL in float32 and
+    BF16_ATOL in bfloat16.  Each forward must take its dtype's scan route
+    (one cluster scan in bfloat16, one streamed in float32)."""
+    from music_generator_tpu_torch.ops import recurrence
     cases = 0
-    for label, S, R, F, H in shapes:
+    for label, S, R, F, H in rec_check_shapes(cfg):
+        xw, u, h0, c0 = lstm_inputs("lstm_rec", S, R, F, H, 60 + cases)
+        for cdt in (torch.float32, torch.bfloat16):
+            for act in ("sigmoid", "hard_sigmoid"):
+                for tapes in (True, False):
+                    kw = dict(compute_dtype=cdt, recurrent_activation=act,
+                              tapes=tapes)
+                    before = rec_fwd_scan_counts()
+                    got = recurrence.lstm_recurrence_fwd(xw, u, h0, c0, **kw)
+                    torch.cuda.synchronize()
+                    ran = tuple(a - b for a, b in zip(rec_fwd_scan_counts(),
+                                                      before))
+                    want = recurrence.lstm_recurrence_fwd_staged(
+                        xw, u, h0, c0, **kw)
+                    cases += 1
+                    pairs = [(a, b) for a, b in zip(got, want)
+                             if b is not None]
+                    same = ((got[1] is None) != tapes and all(
+                        a.shape == b.shape and a.dtype == b.dtype
+                        for a, b in pairs))
+                    err = max(float((a.float() - b.float()).abs().max())
+                              / max(1.0, float(b.float().abs().max()))
+                              for a, b in pairs)
+                    finite = all(bool(torch.isfinite(a).all())
+                                 for a, _ in pairs)
+                    dt = "f32" if cdt == torch.float32 else "bf16"
+                    log(f"lstm_rec_fwd vs staged {label} (S={S}, R={R}, "
+                        f"H={H}) {dt} {act} tapes={tapes}: hs, cs, h_T, c_T "
+                        f"max|d| (scaled)={err:.3g}; scans (cluster, "
+                        f"streamed) {ran}")
+                    if cdt == torch.float32:
+                        ok = err <= F32_ATOL and ran == (0, 1)
+                    else:
+                        ok = err <= BF16_ATOL and ran == (1, 0)
+                    if not ok or not finite or not same:
+                        fail(f"lstm_rec_fwd {label} {dt} {act} tapes={tapes} "
+                             f"disagrees with its staged version")
+    log(f"lstm_rec_fwd: {cases} cases agree with the staged plain version")
+
+
+def check_rec_bwd_staged(cfg):
+    """Kernel 9's passes (`lstm_recurrence_bwd`) against their staged plain
+    version (`lstm_recurrence_bwd_staged`) on the same tapes, those of
+    kernel 8 (`lstm_recurrence_fwd`), with nonzero initial states and
+    cotangents of hs, h_T and c_T, at rec_check_shapes, both dtypes and
+    both gate flavors, with the tolerances of check_biax_kernels on (dxw,
+    dU, dh0, dc0).  Each backward must take its dtype's scan route (one
+    cluster scan in bfloat16, one streamed in float32)."""
+    from music_generator_tpu_torch.ops import recurrence
+    cases = 0
+    for label, S, R, F, H in rec_check_shapes(cfg):
         xw, u, h0, c0 = lstm_inputs("lstm_rec", S, R, F, H, 40 + cases)
         gen = torch.Generator("cuda").manual_seed(cases)
         cots = [torch.randn(S, R, H, device="cuda", generator=gen),
@@ -646,8 +711,9 @@ def reset_counts():
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
         stack.fwd_cluster_scans = stack.fwd_streamed_scans = 0
-    recurrence.lstm_recurrence.cluster_scans = 0
-    recurrence.lstm_recurrence.streamed_scans = 0
+    rec = recurrence.lstm_recurrence
+    rec.cluster_scans = rec.streamed_scans = 0
+    rec.fwd_cluster_scans = rec.fwd_streamed_scans = 0
 
 
 def scan_counts(kind: str):
@@ -753,21 +819,22 @@ def train_routes(cfg):
         reset_counts()
         hist = trainer.fit(ds, epochs=1)
         launches, plain = read_counts()
-        scans = rec_scan_counts()
+        scans = {"fwd": rec_fwd_scan_counts(), "bwd": rec_scan_counts()}
         fit_s = time.perf_counter() - t
         steps = hist["steps_per_epoch"][0]
         log(f"route {route}: Trainer.fit {steps} steps, loss {hist['loss']}, "
             f"{fit_s:.1f} s; kernel launches {launches}, plain version "
-            f"calls {plain}; lstm_rec_bwd scans (cluster, streamed) {scans}")
+            f"calls {plain}; lstm_rec scans (cluster, streamed) {scans}")
         want = {k: per_step.get(k, 0) * steps for k in launches}
         if launches != want or plain != 0:
             fail(f"route {route}: launches {launches}, expected {want} and "
                  f"no plain call")
-        if (rc.compute_dtype == "bfloat16"
-                and scans != (launches["lstm_rec_bwd"], 0)):
-            fail(f"route {route}: the bfloat16 recurrence backward ran scans "
-                 f"{scans}, not {(launches['lstm_rec_bwd'], 0)} on the "
-                 f"cluster route")
+        for d, ran in scans.items():
+            if (rc.compute_dtype == "bfloat16"
+                    and ran != (launches[f"lstm_rec_{d}"], 0)):
+                fail(f"route {route}: the bfloat16 recurrence {d} ran scans "
+                     f"{ran}, not {(launches[f'lstm_rec_{d}'], 0)} on the "
+                     f"cluster route")
         if not np.isfinite(hist["loss"]).all():
             fail(f"route {route}: non-finite training loss")
         reset_counts()
@@ -897,6 +964,7 @@ def time_biax(cfg, card):
     for kind in ("time", "note"):
         fwd_passes(cfg, card, kind)
         bwd_passes(cfg, card, kind)
+    rec_fwd_scans(cfg, card)
     rec_bwd_passes(cfg, card)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
@@ -1087,6 +1155,40 @@ def rec_bwd_passes(cfg, card, reps: int = 6):
                     f"clusters of {row[8]} resident")
                 check_plan(f"lstm_rec_bwd {axis} cluster scan", R, row)
     return out
+
+
+def rec_fwd_scans(cfg, card, reps: int = 10):
+    """ms a launch of kernel 8 (`lstm_recurrence_fwd`: one forward scan
+    with its ends) at the time and note axes' shapes (T = seq_len, xw in
+    bfloat16 as lstm_scan gives it, sigmoid gates, tapes on): CUDA events
+    around `reps` launches after a warm-up, on the cluster route (the main
+    path's) and on the streamed route (the float32 route's scan, run in
+    bfloat16 for comparison).  Logs the cluster scan's clock cycles per
+    step and phase (block 0) and its plan, and fails unless the plan's
+    clusters are all resident at once (one wave)."""
+    from music_generator_tpu_torch.ops import recurrence
+    kw = dict(compute_dtype=torch.bfloat16, recurrent_activation="sigmoid")
+    for axis, S, R, F, H in axis_shapes(cfg, cfg.seq_len):
+        xw, u, h0, c0 = lstm_inputs("lstm_rec", S, R, F, H, 7)
+        xw = xw.to(torch.bfloat16)
+        bound, by = lstm_bound_ms("lstm_rec_fwd", S, R, F, H)
+        for route in ("cluster", "streamed"):
+            prof = torch.zeros(9, dtype=torch.int64, device="cuda")
+            with forced_scan_route(route):
+                ms = cuda_ms(lambda: recurrence.lstm_recurrence_fwd(
+                    xw, u, h0, c0, **kw, scan_prof=prof), reps)
+            log(f"lstm_rec_fwd {axis} axis, {route} scan: {ms:.4f} ms a "
+                f"launch (mean of {reps}; S={S}, R={R}, H={H}, bfloat16; "
+                f"bound {bound:.6f} ms by {by}; {card})")
+            if route == "cluster":
+                row = prof.cpu().tolist()
+                log(f"lstm_rec_fwd {axis} cluster scan: clock cycles per "
+                    f"step of block 0: product with block barrier "
+                    f"{row[0] / S:.0f}, own cell work {row[1] / S:.0f}, "
+                    f"cluster barrier {row[2] / S:.0f}; cluster {row[4]} "
+                    f"blocks, {row[5]} rows, {row[6]} units a block, "
+                    f"{-(-R // row[5])} clusters of {row[8]} resident")
+                check_plan(f"lstm_rec_fwd {axis} cluster scan", R, row)
 
 
 def lstm_bound_ms(name: str, S: int, R: int, F: int, H: int):
@@ -1566,6 +1668,7 @@ def main() -> None:
         check_fwd_staged(cfg, kind)
         check_bwd_staged(cfg, kind)
     lstm_errs = check_lstm_kernels(cfg)
+    check_rec_fwd_staged(cfg)
     check_rec_bwd_staged(cfg)
     mask_err = check_mask_kernel()
 

@@ -408,6 +408,18 @@ struct ScanEnds {
   float* dc0;         // [R][H]: the dc carry after s = 0
 };
 
+// The ends of a forward scan (fwd_scan_*), all null for the biaxial stacks
+// (h[-1] = 0 with no product at s = 0, c starts at zero, the final carries
+// dropped); the single-layer recurrence's forward (lstm_recurrence.cu) sets
+// all four.
+struct FwdEnds {
+  const float* h0;    // [R][H]: h[-1], rounded to T when read; the product
+                      // then runs at s = 0 too
+  const float* c0;    // [R][H]: the c carry's seed
+  float* hT;          // [R][H]: h after s = S - 1, not rounded to T
+  float* cT;          // [R][H]: the c carry after s = S - 1
+};
+
 // The cell backward of one unit from its gate pre-activations zz[0..3]
 // and previous c: dz (rounded to T) into dz[0..3]; returns the carried dc.
 template <typename T>
@@ -865,13 +877,22 @@ inline int launch_scan(int bf16_, int cluster, void* z_dz, const void* cs,
 }
 
 // ---------------------------------------------------------------------------
-// The forward of one layer (both forwards' passes 3 and 6), forward
-// over s: z = add_t(P[s], rnd_T(h[s-1] U)) with h[-1] = 0 (no product at
-// s = 0), the gates in T, c carried in float32, h = o tanh(c -> T) rounded
-// to T.  P [M][4H] holds the layer's input pre-activations (EPI_IN); the
-// scan writes hs [M][H] and, when cs is not null, cs [M][H] (the previous
-// c, in T).  u is `_layout(U)` in both routes.
+// The forward of one layer (both forwards' passes 3 and 6, and the
+// single-layer recurrence's forward), forward over s: z = add_t(P[s],
+// rnd_T(h[s-1] U)), the gates in T, c carried in float32, h = o tanh(c ->
+// T) rounded to T.  P [M][4H] holds the layer's input pre-activations
+// (EPI_IN; the recurrence's xw); the scan writes hs [M][H] and, when cs is
+// not null, cs [M][H] (the previous c, in T).  u is `_layout(U)` in both
+// routes.  With null ends h[-1] = 0 and the product is skipped at s = 0;
+// see FwdEnds.
 // ---------------------------------------------------------------------------
+
+// The unrounded h and the c carry after the last step into the ends.
+__device__ __forceinline__ void fwd_terminal(const FwdEnds& ends, size_t o,
+                                             float hT, float cT) {
+  if (ends.hT) ends.hT[o] = hT;
+  if (ends.cT) ends.cT[o] = cT;
+}
 
 // Streamed (the float32 route; chip_smoke.py also times it in bfloat16
 // beside the cluster scan): a block owns RB rows; h U streams U from L2 at
@@ -879,7 +900,7 @@ inline int launch_scan(int bf16_, int cluster, void* z_dz, const void* cs,
 template <typename T, int RB>
 __global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
     const T* __restrict__ pre, T* __restrict__ hs, T* __restrict__ cs,
-    const T* __restrict__ u, PassDims d, int hard) {
+    const T* __restrict__ u, PassDims d, int hard, FwdEnds ends) {
   extern __shared__ float sm[];
   const int H = d.H, H4 = 4 * H, R = d.A * d.B, lH = padk(H);
   float* h = sm;                  // [RB][lH], zero past H and past R
@@ -889,8 +910,19 @@ __global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
   const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
   for (int i = tid; i < RB * (lH + H4 + H); i += nt) sm[i] = 0.f;
   __syncthreads();
+  // c[i] is read and written by thread i % nt alone, the cells' item.
+  if (ends.h0 || ends.c0) {
+    for (int i = tid; i < RB * H; i += nt) {
+      const int rr = i / H, j = i % H, g = g0 + rr;
+      if (g >= R) continue;
+      if (ends.h0) h[rr * lH + j] = rnd<T>(ends.h0[(size_t)g * H + j]);
+      if (ends.c0) c[i] = ends.c0[(size_t)g * H + j];
+    }
+    __syncthreads();
+  }
   for (int s = 0; s < d.S; ++s) {
-    if (s > 0)
+    const bool prod = s > 0 || ends.h0;
+    if (prod)
       matvec<T, RB>(h, lH, H, u, H4, scr, [&](int rr, int col, float v) {
         z[rr * H4 + col] = rnd<T>(v);
       });
@@ -902,14 +934,18 @@ __global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         zz[a] = ld(pre + m * H4 + a * H + j);
-        if (s > 0) zz[a] = add_t<T>(zz[a], z[rr * H4 + a * H + j]);
+        if (prod) zz[a] = add_t<T>(zz[a], z[rr * H4 + a * H + j]);
       }
       const float cp = c[i];
+      const Gates q = gates<T>(zz, 1, 0, hard);
       float hn;
-      c[i] = cell<T>(gates<T>(zz, 1, 0, hard), cp, &hn);
+      c[i] = cell<T>(q, cp, &hn);
       h[rr * lH + j] = hn;
       st(hs + m * H + j, hn);
       if (cs) st(cs + m * H + j, cp);
+      if (s == d.S - 1)
+        fwd_terminal(ends, (size_t)g * H + j,
+                     __fmul_rn(q.o, tanh_t<T>(rnd<T>(c[i]))), c[i]);
     }
     __syncthreads();
   }
@@ -933,14 +969,18 @@ __global__ void __launch_bounds__(1024) fwd_scan_streamed_kernel(
 // their latency hides behind it.  The time stack (H = 256) takes C = 4;
 // the note stack's H = 128 fits one block (C = 1, the [512][128] tile is
 // 128 KB), whose "peers" are itself: h goes to its own next tile and the
-// cluster barrier is a barrier of one block.
+// cluster barrier is a barrier of one block.  With ends.h0 each block
+// writes h0 of all its cluster's rows into its own tile 0 before the first
+// barrier (from device memory: no exchange), and step 0 runs the product.
+// The ends are compiled in only when ENDS: the stacks' instantiation keeps
+// the registers of its cells (64 a thread at 1024 threads) without them.
 struct FwdPlan { int C, UJ, G4p, Kp, RT, RTp, NT, active; };
 
-template <int NT>
+template <int NT, bool ENDS>
 __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
     const bf16* __restrict__ pre, bf16* __restrict__ hs,
     bf16* __restrict__ cs, const bf16* __restrict__ u, PassDims d,
-    FwdPlan P, int hard, unsigned long long* prof) {
+    FwdPlan P, int hard, unsigned long long* prof, FwdEnds ends) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smraw[];
@@ -962,6 +1002,15 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
                             : zero;
   }
   for (int i = tid; i < 2 * P.RTp * Kp; i += nt) hb[i] = zero;
+  if (ENDS && ends.h0) {
+    __syncthreads();
+    for (int i = tid; i < RT * H; i += nt) {
+      const int r = i / H, j = i % H;
+      if (g0 + r < R)
+        hb[swz(r, j, Kp)] =
+            __float2bfloat16(ends.h0[(size_t)(g0 + r) * H + j]);
+    }
+  }
   // The thread's item of (b): row rr, units jp, jp + 1 (RT ceil(UJ / 2) <=
   // blockDim).  Paired columns move as one 4-byte load or store when H and
   // UJ are even.
@@ -971,7 +1020,12 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
   for (int w = 0; w < 2; ++w)
     ok[w] = rr < RT && g0 + rr < R && jp + w < UJ && j0 + jp + w < H;
   const bool pairs = (H % 2 == 0) && (UJ % 2 == 0);
+  const size_t own = (size_t)(g0 + rr) * H + j0 + jp;   // [R][H] offset
   float c[2] = {0.f, 0.f};
+  if (ENDS && ends.c0)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if (ok[w]) c[w] = ends.c0[own + w];
   cluster.sync();
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const uint32_t sa_us = (uint32_t)__cvta_generic_to_shared(Us);
@@ -984,6 +1038,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
   unsigned long long ck[3] = {0, 0, 0}, c0 = 0, c1 = 0;
   for (int s = 0; s < d.S; ++s) {
     if (rec) c0 = clock64();
+    const bool prod = s > 0 || (ENDS && ends.h0);
     const size_t m = (size_t)s * R + g0 + rr;
     float pz[2][4];
     if (ok[0]) {
@@ -1002,7 +1057,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
       }
     }
     // (a) the gate sums h[s-1] U[:, the block's gate columns].
-    if (s > 0) {
+    if (prod) {
       const uint32_t hbase = sa_h + (uint32_t)((s & 1) * P.RTp * Kp) * 2;
       for (int mt = warp; mt < MT; mt += nwarps) {
         float acc[NT][4];
@@ -1056,14 +1111,18 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fwd_scan_cluster_kernel(
         float zz[4];
 #pragma unroll
         for (int a = 0; a < 4; ++a)
-          zz[a] = s > 0 ? add_t<bf16>(pz[w][a], rnd<bf16>(
-                              zs[rr * ZLD + a * UJ + jp + w]))
-                        : pz[w][a];
+          zz[a] = prod ? add_t<bf16>(pz[w][a], rnd<bf16>(
+                             zs[rr * ZLD + a * UJ + jp + w]))
+                       : pz[w][a];
         const float cp = c[w];
-        c[w] = cell<bf16>(gates<bf16>(zz, 1, 0, hard), cp, &hn[w]);
+        const Gates q = gates<bf16>(zz, 1, 0, hard);
+        c[w] = cell<bf16>(q, cp, &hn[w]);
         const size_t o = m * H + j0 + jp + w;
         st(hs + o, hn[w]);
         if (cs) st(cs + o, cp);
+        if (ENDS && s == d.S - 1)
+          fwd_terminal(ends, own + w,
+                       __fmul_rn(q.o, tanh_t<bf16>(rnd<bf16>(c[w]))), c[w]);
       }
       bf16* nxt = hb + ((s + 1) & 1) * P.RTp * Kp;
       const int j = j0 + jp;
@@ -1111,7 +1170,8 @@ inline size_t fwd_cluster_smem(const FwdPlan& p) {
 // A refused launch returns its error.
 inline int fwd_scan_cluster(const void* pre, void* hs, void* cs,
                             const void* u, PassDims d, int hard,
-                            unsigned long long* prof, cudaStream_t st) {
+                            unsigned long long* prof, const FwdEnds& ends,
+                            cudaStream_t st) {
   const int R = d.A * d.B;
   FwdPlan p;
   p.Kp = (d.H + 63) & ~63;
@@ -1132,12 +1192,19 @@ inline int fwd_scan_cluster(const void* pre, void* hs, void* cs,
   int rt_max = 8 * CL_NTMAX;
   while (rt_max > 0 && !fits(rt_max)) --rt_max;
   if (rt_max == 0) return (int)cudaErrorInvalidConfiguration;
-  void (*const kerns[])(const bf16*, bf16*, bf16*, const bf16*, PassDims,
-                        FwdPlan, int, unsigned long long*) = {
-      fwd_scan_cluster_kernel<1>, fwd_scan_cluster_kernel<2>,
-      fwd_scan_cluster_kernel<3>, fwd_scan_cluster_kernel<4>};
+  // One instantiation per count of n8 row tiles (CL_NTMAX = 4), without and
+  // with the ends.
+  using Kern = void (*)(const bf16*, bf16*, bf16*, const bf16*, PassDims,
+                        FwdPlan, int, unsigned long long*, FwdEnds);
+  const Kern all[2][CL_NTMAX] = {
+      {fwd_scan_cluster_kernel<1, false>, fwd_scan_cluster_kernel<2, false>,
+       fwd_scan_cluster_kernel<3, false>, fwd_scan_cluster_kernel<4, false>},
+      {fwd_scan_cluster_kernel<1, true>, fwd_scan_cluster_kernel<2, true>,
+       fwd_scan_cluster_kernel<3, true>, fwd_scan_cluster_kernel<4, true>}};
+  const Kern* kerns = all[ends.h0 || ends.c0 || ends.hT || ends.cT];
   cudaError_t err;
-  for (auto kern : kerns) {
+  for (int i = 0; i < CL_NTMAX; ++i) {
+    const Kern kern = kerns[i];
     if (p.C > 8 && (err = cudaFuncSetAttribute(
                         kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
                         1)) != cudaSuccess)
@@ -1169,14 +1236,15 @@ inline int fwd_scan_cluster(const void* pre, void* hs, void* cs,
   cfg.dynamicSmemBytes = fwd_cluster_smem(p);
   err = cudaLaunchKernelEx(&cfg, kerns[p.NT - 1], (const bf16*)pre,
                            (bf16*)hs, (bf16*)cs, (const bf16*)u, d, p, hard,
-                           prof);
+                           prof, ends);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int fwd_scan_streamed(const void* pre, void* hs, void* cs, const void* u,
-                      PassDims d, int hard, cudaStream_t st) {
+                      PassDims d, int hard, const FwdEnds& ends,
+                      cudaStream_t st) {
   const int R = d.A * d.B, H4 = 4 * d.H, RB = SCAN_RB;
   const int nt = threads_for(H4);
   const size_t smem =
@@ -1185,7 +1253,7 @@ int fwd_scan_streamed(const void* pre, void* hs, void* cs, const void* u,
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kern<<<(R + RB - 1) / RB, nt, smem, st>>>((const T*)pre, (T*)hs, (T*)cs,
-                                            (const T*)u, d, hard);
+                                            (const T*)u, d, hard, ends);
   return (int)cudaGetLastError();
 }
 
@@ -1209,16 +1277,18 @@ inline int launch_in(int bf16_, const void* xin, int ldx, int K,
 // 1 (bfloat16 only): U resident in a thread-block cluster; cluster = 0:
 // streamed.  prof (cluster scan only, may be null): three clock-cycle sums
 // of the first block's steps and its plan, see fwd_scan_cluster_kernel.
+// ends: see FwdEnds (the stacks pass none).
 inline int launch_fwd_scan(int bf16_, int cluster, const void* pre,
                            void* hs, void* cs, const void* u, PassDims d,
                            int hard, unsigned long long* prof,
-                           cudaStream_t st) {
+                           cudaStream_t st, const FwdEnds& ends = FwdEnds{}) {
   if (cluster) {
     if (!bf16_) return (int)cudaErrorInvalidValue;
-    return fwd_scan_cluster(pre, hs, cs, u, d, hard, prof, st);
+    return fwd_scan_cluster(pre, hs, cs, u, d, hard, prof, ends, st);
   }
-  if (bf16_) return fwd_scan_streamed<bf16>(pre, hs, cs, u, d, hard, st);
-  return fwd_scan_streamed<float>(pre, hs, cs, u, d, hard, st);
+  if (bf16_)
+    return fwd_scan_streamed<bf16>(pre, hs, cs, u, d, hard, ends, st);
+  return fwd_scan_streamed<float>(pre, hs, cs, u, d, hard, ends, st);
 }
 
 }  // namespace biax

@@ -18,11 +18,15 @@
 // each a product with all of U (512 KB bf16 on the time axis, 128 KB on the
 // note axis).
 //
-// Forward (simple first, the layout of biax_time.cu).  One block owns RB
-// rows for the whole scan and keeps h, c, the pre-activations and the gates
-// in shared memory; U streams from L2 every step.  bf16 products run on the
-// tensor cores (mma.sync, float32 accumulation, `matvec_mma`), float32 on
-// the CUDA cores (`matvec_fma`).
+// Forward: one launch of the biaxial forwards' scan (launch_fwd_scan of
+// biax_passes.cuh) with (S, A, B) = (S, R, 1) and its ends set (FwdEnds):
+// h0 rounded to T is h[-1], so the product runs at s = 0 too; c is seeded
+// from c0; h_T (not rounded) and c_T are written at the last step.  xw takes
+// the place of the stacks' input pre-activations.  bfloat16 keeps U's gate
+// columns resident in a thread-block cluster (4 blocks at H = 256, one at
+// H = 128), each step one product from shared memory and h exchanged
+// through distributed shared memory into double-buffered tiles, one cluster
+// barrier a step; float32 streams U from L2 at every step.
 //
 // Backward, as passes on the machinery of biax_passes.cuh with (S, A, B) =
 // (S, R, 1).  Of the two products a step of the TPU kernel makes, only
@@ -43,91 +47,21 @@
 
 #include "biax_passes.cuh"
 
-namespace biax {
-
-struct RecDims { int S, R, H; };
-
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) rec_fwd_kernel(
-    const T* __restrict__ xw, const T* __restrict__ u,
-    const float* __restrict__ h0, const float* __restrict__ c0, T* hs, T* cs,
-    float* hT, float* cT, RecDims d, int hard) {
-  extern __shared__ float sm[];
-  const int H = d.H, H4 = 4 * H, R = d.R, lH = padk(H);
-  float* h = sm;              // [RB][lH] the previous h in T, zero padded
-  float* c = h + RB * lH;     // [RB][H]
-  float* z = c + RB * H;      // [RB][H4]
-  float* scr = z + RB * H4;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * lH; i += nt) {
-    const int j = i % lH, g = g0 + i / lH;
-    h[i] = (j < H && g < R) ? rnd<T>(h0[(size_t)g * H + j]) : 0.f;
-  }
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    c[i] = g < R ? c0[(size_t)g * H + i % H] : 0.f;
-  }
-  for (int t = 0; t < d.S; ++t) {
-    const T* xt = xw + ((size_t)t * R + g0) * H4;
-    for (int i = tid; i < RB * H4; i += nt)
-      z[i] = g0 + i / H4 < R ? ld(xt + i) : 0.f;
-    __syncthreads();
-    matvec<T, RB>(h, lH, H, u, H4, scr, [&](int rr, int col, float s) {
-      z[rr * H4 + col] = add_t<T>(z[rr * H4 + col], rnd<T>(s));
-    });
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float cp = c[i];
-      float hn;
-      const float cn = cell<T>(q, cp, &hn);
-      c[i] = cn;
-      h[rr * lH + j] = hn;
-      if (g < R) {
-        const size_t o = ((size_t)t * R + g) * H + j;
-        st(hs + o, hn);
-        if (cs) st(cs + o, cp);
-        if (t == d.S - 1) {
-          hT[(size_t)g * H + j] = __fmul_rn(q.o, tanh_t<T>(rnd<T>(cn)));
-          cT[(size_t)g * H + j] = cn;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int FWD_RB = 8;   // 96 blocks on the time axis, 256 on the note axis
-
-template <typename T>
-int rec_fwd(const void* xw, const void* u, const float* h0, const float* c0,
-            void* hs, void* cs, float* hT, float* cT, RecDims d, int hard,
-            cudaStream_t st) {
-  const int H4 = 4 * d.H, nt = threads_for(H4), RB = FWD_RB;
-  const size_t smem =
-      sizeof(float) * (RB * (padk(d.H) + d.H + H4) + (size_t)nt * RB);
-  auto kern = rec_fwd_kernel<T, FWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(d.R + RB - 1) / RB, nt, smem, st>>>(
-      (const T*)xw, (const T*)u, h0, c0, (T*)hs, (T*)cs, hT, cT, d, hard);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace biax
-
-// u is the recurrent matrix in the layout of the compute dtype (see
-// matvec in biax_common.cuh): [H][4H] for float32, [4H][padk(H)] for bf16.
-extern "C" int lstm_rec_fwd(int bf16, const void* xw, const void* u,
-                            const float* h0, const float* c0, void* hs,
-                            void* cs, float* hT, float* cT, int S, int R,
-                            int H, int hard, void* stream) {
+// u is the recurrent matrix `_layout(U)` of the compute dtype (see matvec in
+// biax_common.cuh): [H][4H] for float32, [4H][padk(H)] for bf16; h0, c0,
+// hT, cT are [R][H] float32.  cluster = 1 (bfloat16 only): U resident in a
+// thread-block cluster; cluster = 0: streamed.  prof as for the stacks'
+// forward scans (may be null).
+extern "C" int lstm_rec_fwd(int bf16, int cluster, const void* xw,
+                            const void* u, const float* h0, const float* c0,
+                            void* hs, void* cs, float* hT, float* cT, int S,
+                            int R, int H, int hard, unsigned long long* prof,
+                            void* stream) {
   using namespace biax;
-  const RecDims d = {S, R, H};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return rec_fwd<biax::bf16>(xw, u, h0, c0, hs, cs, hT, cT, d, hard, st);
-  return rec_fwd<float>(xw, u, h0, c0, hs, cs, hT, cT, d, hard, st);
+  const PassDims d = {S, R, 1, H, 1};
+  const FwdEnds ends = {h0, c0, hT, cT};
+  return launch_fwd_scan(bf16, cluster, xw, hs, cs, u, d, hard, prof,
+                         (cudaStream_t)stream, ends);
 }
 
 // The backward's passes, launched in order by ops/recurrence.py::

@@ -328,22 +328,29 @@ def _reverse_scan(z: torch.Tensor, cs: torch.Tensor, ext: torch.Tensor,
     return dz, (dh_carry, dc)
 
 
-def _forward_scan(pre: torch.Tensor, u: torch.Tensor,
-                  hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Passes 3 and 6 of the staged time forward: one layer's cell over the
-    scanned axis.  pre [S, R, 4H] holds the input pre-activations
-    ((in W -> T) + b) in the compute dtype; h[s-1] U (float32, cast to
-    T) is the only carried product, h[-1] = 0.  Returns hs, cs [S, R, H]
-    in the compute dtype (h after step s, c before it)."""
+def _forward_scan(pre: torch.Tensor, u: torch.Tensor, hard: bool,
+                  h0: Optional[torch.Tensor] = None,
+                  c0: Optional[torch.Tensor] = None,
+                  ends: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Passes 3 and 6 of the staged forwards, and the recurrence's forward:
+    one layer's cell over the scanned axis.  pre [S, R, 4H] holds the input
+    pre-activations ((in W -> T) + b, or the recurrence's xw) in the compute
+    dtype; h[s-1] U (float32, cast to T) is the only carried product.
+    h[-1] = h0 and the c carry starts at c0 ([R, H], zeros when None).
+    Returns hs, cs [S, R, H] in the compute dtype (h after step s, c before
+    it) and, with `ends`, the last h (not rounded) and c in float32."""
     cdt = pre.dtype
     S, R, H4 = pre.shape
-    h = c = torch.zeros(R, H4 // 4, device=pre.device)
+    zeros = torch.zeros(R, H4 // 4, device=pre.device)
+    h = zeros if h0 is None else h0.float()
+    c = zeros if c0 is None else c0.float()
     hs, cs = [], []
     for s in range(S):
         cs.append(c.to(cdt))
         h, c = _cell(pre[s], h, c, u, hard)
         hs.append(h.to(cdt))
-    return torch.stack(hs), torch.stack(cs)
+    out = (torch.stack(hs), torch.stack(cs))
+    return out + (h, c) if ends else out
 
 
 def _time_masks(seed, T, N, B, F, H, dropout_p, cdt, dev):

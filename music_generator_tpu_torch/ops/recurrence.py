@@ -1,5 +1,5 @@
 """The single-layer LSTM recurrence over a precomputed input projection: the
-JAX package's `ops/pallas_lstm.py` (`pallas_lstm_recurrence`) as a pair of
+JAX package's `ops/pallas_lstm.py` (`pallas_lstm_recurrence`) as
 hand-written CUDA kernels (`csrc/lstm_recurrence.cu`) inside a
 `torch.autograd.Function`, beside its plain PyTorch version.
 
@@ -12,6 +12,13 @@ the arithmetic of `_fwd_kernel` (pallas_lstm.py:95-136): z = xw_t +
 compute dtype (the logistic as 0.5*tanh(0.5x)+0.5, or Keras 2's
 hard_sigmoid), c in float32, h = o * tanh(c cast to the compute dtype).  hs
 leaves in the compute dtype; h_T (not rounded) and c_T in float32.
+
+The forward (`lstm_recurrence_fwd`) is one launch of the biaxial stacks'
+forward scan with its ends set: h0 and c0 seed the carries (the product
+runs at s = 0 too) and h_T, c_T are written at the last step; U is
+resident in a thread-block cluster in bfloat16 and streamed in float32, by
+`biax.scan_route`.  `lstm_recurrence_fwd_staged` is that scan in plain
+PyTorch, its yardstick (tests, chip_smoke.py).
 
 The backward is `_bwd_rule`'s (pallas_lstm.py:280-347), as passes
 (`lstm_recurrence_bwd`): the tapes (h_{t-1}, and the cotangent of h_T
@@ -31,7 +38,8 @@ On a CPU tensor the wrapper runs the plain version
 (`lstm_recurrence_reference`, a loop over the scan whose autograd gives
 the reference gradient); on a CUDA tensor it launches the kernels or
 raises.  Launch counters: `lstm_recurrence.fwd_launches` /
-`.bwd_launches`, and the backward's scans by route `.cluster_scans` /
+`.bwd_launches`, the forward's scans by route `.fwd_cluster_scans` /
+`.fwd_streamed_scans` and the backward's `.cluster_scans` /
 `.streamed_scans`; the plain version counts `.calls`.
 """
 
@@ -44,6 +52,7 @@ import torch
 from music_generator_tpu_torch.ops import _build, biax
 from music_generator_tpu_torch.ops.biax import (WGRAD_CHUNKS, _P, _I, _WGRAD,
                                                 _cell, _check, _dot,
+                                                _forward_scan,
                                                 _is_bf16, _layout, _marker,
                                                 _on_cuda, _ptr,
                                                 _reverse_scan, _stream,
@@ -51,7 +60,7 @@ from music_generator_tpu_torch.ops.biax import (WGRAD_CHUNKS, _P, _I, _WGRAD,
 from music_generator_tpu_torch.ops.lstm import check_recurrent_activation
 
 _SIGNATURES = {
-    "lstm_rec_fwd": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    "lstm_rec_fwd": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P, _P],
     "lstm_rec_bwd_preact": [_I] + [_P] * 4 + [_I, _I, _P],
     "lstm_rec_bwd_scan": [_I, _I] + [_P] * 7 + [_I] * 4 + [_P, _P],
     "biax_wgrad": _WGRAD,
@@ -73,6 +82,22 @@ def lstm_recurrence_reference(xw, u, h0, c0, compute_dtype=torch.float32,
 
 
 lstm_recurrence_reference.calls = 0
+
+
+def lstm_recurrence_fwd_staged(xw, u, h0, c0, compute_dtype=torch.float32,
+                               recurrent_activation: str = "sigmoid",
+                               tapes: bool = True):
+    """The forward as the CUDA kernel computes it, in plain PyTorch (no
+    autograd): the forward scan of the biaxial stacks
+    (`biax._forward_scan`) over xw [S, R, 4H] in the compute dtype with
+    h[-1] = h0 and c seeded from c0 [R, H].  Returns (hs, cs [S, R, H] in
+    the compute dtype, h after step t and c before it; h_T (not rounded),
+    c_T [R, H] float32); cs is None without `tapes`."""
+    cdt = compute_dtype
+    hs, cs, hT, cT = _forward_scan(
+        xw.to(cdt), u.to(cdt), recurrent_activation == "hard_sigmoid",
+        h0=h0, c0=c0, ends=True)
+    return hs, cs if tapes else None, hT, cT
 
 
 def lstm_recurrence_bwd_staged(xw, u, h0, hs, cs, dhs, dhT, dcT,
@@ -109,11 +134,17 @@ def lstm_recurrence_bwd_staged(xw, u, h0, hs, cs, dhs, dhT, dcT,
 
 def lstm_recurrence_fwd(xw, u, h0, c0, compute_dtype=torch.float32,
                         recurrent_activation: str = "sigmoid",
-                        tapes: bool = True):
-    """Kernel 8 on CUDA tensors (`lstm_rec_fwd`): (hs, cs [S, R, H] in the
-    compute dtype, h after step t and c before it; h_T, c_T [R, H]
-    float32).  cs is None without `tapes`.  Counts
-    `lstm_recurrence.fwd_launches`."""
+                        tapes: bool = True,
+                        scan_prof: Optional[torch.Tensor] = None):
+    """Kernel 8 on CUDA tensors (`lstm_rec_fwd`, the forward scan on
+    `biax.scan_route(compute_dtype)`): the results of
+    `lstm_recurrence_fwd_staged`, (hs, cs [S, R, H] in the compute dtype,
+    h after step t and c before it; h_T, c_T [R, H] float32).  cs is None
+    without `tapes`.  With an int64 tensor `scan_prof` [9] on the card, the
+    cluster scan writes its first block's clock cycles per phase and its
+    plan, as the biaxial forwards' scans do.  Counts
+    `lstm_recurrence.fwd_launches`, and `.fwd_cluster_scans` or
+    `.fwd_streamed_scans`."""
     cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
     dev = _on_cuda("lstm_recurrence", xw, u, h0, c0)
     S, R, H4 = xw.shape
@@ -123,13 +154,19 @@ def lstm_recurrence_fwd(xw, u, h0, c0, compute_dtype=torch.float32,
     hs = torch.empty(S, R, H, dtype=cdt, device=dev)
     cs = torch.empty_like(hs) if tapes else None
     hT, cT = (torch.empty(R, H, device=dev) for _ in range(2))
+    route = biax.scan_route(cdt)
     lib = _build.bind("lstm_recurrence", _SIGNATURES)
     with torch.cuda.device(dev):
         _check(lib.lstm_rec_fwd(
-            _is_bf16(cdt), xw.data_ptr(), _layout(uc).data_ptr(),
-            h0f.data_ptr(), c0f.data_ptr(), hs.data_ptr(), _ptr(cs),
-            hT.data_ptr(), cT.data_ptr(), S, R, H, int(hard),
-            _stream(dev)), "lstm_rec_fwd")
+            _is_bf16(cdt), int(route == "cluster"), xw.data_ptr(),
+            _layout(uc).data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
+            hs.data_ptr(), _ptr(cs), hT.data_ptr(), cT.data_ptr(), S, R, H,
+            int(hard), _ptr(scan_prof), _stream(dev)),
+            f"lstm_rec_fwd ({route})")
+    if route == "cluster":
+        lstm_recurrence.fwd_cluster_scans += 1
+    else:
+        lstm_recurrence.fwd_streamed_scans += 1
     lstm_recurrence.fwd_launches += 1
     return hs, cs, hT, cT
 
@@ -233,5 +270,7 @@ def lstm_recurrence(xw, u, h0, c0, compute_dtype=torch.float32,
 
 lstm_recurrence.fwd_launches = 0
 lstm_recurrence.bwd_launches = 0
+lstm_recurrence.fwd_cluster_scans = 0
+lstm_recurrence.fwd_streamed_scans = 0
 lstm_recurrence.cluster_scans = 0
 lstm_recurrence.streamed_scans = 0
