@@ -26,8 +26,14 @@ Phases (any failure exits non-zero, before the result line):
      the c tape with tapes on and off, h_T, c_T) and its backward (kernel
      9: tapes, pre-activation GEMM, scan, dU) against its staged plain
      version on kernel 8's tapes, at both axes' shapes and small odd
-     widths, with the same scan routes; and the lstm2 mask dump (kernel
-     10) against its plain version, bit for bit;
+     widths, with the same scan routes; the fused stack's backward
+     (kernel 7: tapes, prologue, two pre-activation GEMMs, two reversed
+     scans with initial and terminal states, dx1 with the mask, dx0,
+     reductions) against its staged plain version on kernel 6's tapes,
+     with nonzero initial states, dropout 0 and 0.5, every result, at
+     both axes' shapes and small odd widths, with the same scan routes;
+     and the lstm2 mask dump (kernel 10) against its plain version, bit
+     for bit;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -53,8 +59,9 @@ Phases (any failure exits non-zero, before the result line):
      fused_axis_kernel=False as well (one recurrence per layer) and a
      3 + 3 layer stack, checking the exact launch counts of each step, no
      plain version and no biaxial launch, every bfloat16 recurrence
-     forward's and backward's scan on the cluster route, finite losses,
-     evaluate() and the checkpoint;
+     forward's and backward's scan and both scans of every bfloat16
+     fused-stack backward on the cluster route, finite losses, evaluate()
+     and the checkpoint;
   3f. the dropout-0 step of 3d on the two per-axis routes;
   3g. the port's validators as a user runs them (music_generator_tpu_torch/
      tools): validate_lstm2 (the fused stack against the plain recurrence,
@@ -72,9 +79,10 @@ Phases (any failure exits non-zero, before the result line):
      streamed kernels in turns at G = 3, 64 and 256, with the cluster
      kernel's clock cycles per pitch by phase), each pass of the time and
      note forwards and of the time and note backwards and of the
-     recurrence's backward at both axes, and the recurrence's forward scan
-     a launch at both axes (both scan routes, with the cluster scans' clock
-     cycles per phase and a check that each plan is one wave),
+     recurrence's and the fused stack's backwards at both axes, and the
+     recurrence's forward scan a launch at both axes (both scan routes,
+     with the cluster scans' clock cycles per phase and a check that each
+     plan is one wave),
      cuDNN's LSTM beside the recurrence (and the weight copy it repeats at
      every bfloat16 call), and the mask dump.
 The line before the last holds the per-kernel JSON; the last line is
@@ -691,6 +699,77 @@ def check_rec_bwd_staged(cfg):
     log(f"lstm_rec_bwd: {cases} cases agree with the staged plain version")
 
 
+def lstm2_scan_counts():
+    """(cluster, streamed) scans launched by the fused stack's backward."""
+    from music_generator_tpu_torch.ops import lstm2
+    return lstm2.lstm2_stack.cluster_scans, lstm2.lstm2_stack.streamed_scans
+
+
+def lstm2_bwd_args(S: int, R: int, F: int, H: int, seed: int, ones=False):
+    """The inputs of kernel 7 that are not tapes: (x0, s1m, w0, b0, b1, u0,
+    w1, u1, h00, h10) of lstm_inputs("lstm2", ...), its c00 and c10 for
+    the forward, and the cotangents of hs1, h1T, c0T, c1T (random, or all
+    ones with `ones`)."""
+    args = lstm_inputs("lstm2", S, R, F, H, seed)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    shapes = [(S, R, H)] + [(R, H)] * 3
+    cots = [torch.ones(*s, device="cuda") if ones else
+            torch.randn(*s, device="cuda", generator=gen) for s in shapes]
+    return args[:9] + args[10:11], (args[9], args[11]), cots
+
+
+def check_lstm2_bwd_staged(cfg):
+    """Kernel 7's passes (`lstm2_bwd`) against their staged plain version
+    (`lstm2_bwd_staged`) on the same tapes, those of kernel 6
+    (`lstm2_fwd`), with nonzero initial states and cotangents of hs1, h1T,
+    c0T and c1T, at rec_check_shapes (the odd one with F = 13), both
+    dtypes, both gate flavors, dropout 0 and 0.5, with the tolerances of
+    check_biax_kernels on all twelve results.  Each backward must take its
+    dtype's scan route (two cluster scans in bfloat16, two streamed in
+    float32)."""
+    from music_generator_tpu_torch.ops import lstm2
+    cases = 0
+    for label, S, R, F, H in rec_check_shapes(cfg):
+        F = 13 if label == "odd rows" else F
+        args, (c00, c10), cots = lstm2_bwd_args(S, R, F, H, 80 + cases)
+        x0, s1m, w0, b0, b1, u0, w1, u1, h00, h10 = args
+        for cdt in (torch.float32, torch.bfloat16):
+            for act in ("sigmoid", "hard_sigmoid"):
+                for p in (0.0, 0.5):
+                    kw = dict(dropout_p=p, seed=4321, compute_dtype=cdt,
+                              recurrent_activation=act)
+                    hs0, cs0, hs1, cs1, *_ = lstm2.lstm2_fwd(
+                        x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00, h10, c10,
+                        **kw)
+                    tapes = (hs0, cs0, hs1, cs1)
+                    before = lstm2_scan_counts()
+                    got = lstm2.lstm2_bwd(*args, *tapes, *cots, **kw)
+                    torch.cuda.synchronize()
+                    ran = tuple(a - b for a, b in zip(lstm2_scan_counts(),
+                                                      before))
+                    want = lstm2.lstm2_bwd_staged(*args, *tapes, *cots, **kw)
+                    cases += 1
+                    same = all(a.shape == b.shape and a.dtype == b.dtype
+                               for a, b in zip(got, want))
+                    err, rel, cos = leaf_stats([g.float() for g in got],
+                                               [w.float() for w in want])
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    dt = "f32" if cdt == torch.float32 else "bf16"
+                    log(f"lstm2_bwd vs staged {label} (S={S}, R={R}, F={F}, "
+                        f"H={H}) {dt} {act} p={p}: max|d|={err:.3g}, worst "
+                        f"rel={rel:.3g}, worst cos={cos:.6f}; scans "
+                        f"(cluster, streamed) {ran}")
+                    if cdt == torch.float32:
+                        ok = rel <= F32_GRAD_REL and ran == (0, 2)
+                    else:
+                        ok = (rel <= BF16_GRAD_REL and cos >= BF16_COS
+                              and ran == (2, 0))
+                    if not ok or not finite or not same:
+                        fail(f"lstm2_bwd {label} {dt} {act} p={p} disagrees "
+                             f"with its staged version")
+    log(f"lstm2_bwd: {cases} cases agree with the staged plain version")
+
+
 def _training_wrappers():
     """(name prefix, wrapper, plain version) of every training kernel."""
     from music_generator_tpu_torch.ops import biax, lstm2, recurrence
@@ -704,10 +783,11 @@ def _training_wrappers():
 
 
 def reset_counts():
-    from music_generator_tpu_torch.ops import biax, recurrence
+    from music_generator_tpu_torch.ops import biax, lstm2, recurrence
     for _, fn, plain in _training_wrappers():
         fn.fwd_launches = fn.bwd_launches = 0
         plain.calls = 0
+    lstm2.lstm2_stack.cluster_scans = lstm2.lstm2_stack.streamed_scans = 0
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
         stack.fwd_cluster_scans = stack.fwd_streamed_scans = 0
@@ -820,11 +900,13 @@ def train_routes(cfg):
         hist = trainer.fit(ds, epochs=1)
         launches, plain = read_counts()
         scans = {"fwd": rec_fwd_scan_counts(), "bwd": rec_scan_counts()}
+        stack_scans = lstm2_scan_counts()
         fit_s = time.perf_counter() - t
         steps = hist["steps_per_epoch"][0]
         log(f"route {route}: Trainer.fit {steps} steps, loss {hist['loss']}, "
             f"{fit_s:.1f} s; kernel launches {launches}, plain version "
-            f"calls {plain}; lstm_rec scans (cluster, streamed) {scans}")
+            f"calls {plain}; lstm_rec scans (cluster, streamed) {scans}; "
+            f"lstm2_bwd scans {stack_scans}")
         want = {k: per_step.get(k, 0) * steps for k in launches}
         if launches != want or plain != 0:
             fail(f"route {route}: launches {launches}, expected {want} and "
@@ -835,6 +917,10 @@ def train_routes(cfg):
                 fail(f"route {route}: the bfloat16 recurrence {d} ran scans "
                      f"{ran}, not {(launches[f'lstm_rec_{d}'], 0)} on the "
                      f"cluster route")
+        want = (2 * launches["lstm2_bwd"], 0)
+        if rc.compute_dtype == "bfloat16" and stack_scans != want:
+            fail(f"route {route}: the bfloat16 lstm2 backwards ran scans "
+                 f"{stack_scans}, not {want} on the cluster route")
         if not np.isfinite(hist["loss"]).all():
             fail(f"route {route}: non-finite training loss")
         reset_counts()
@@ -966,6 +1052,7 @@ def time_biax(cfg, card):
         bwd_passes(cfg, card, kind)
     rec_fwd_scans(cfg, card)
     rec_bwd_passes(cfg, card)
+    lstm2_bwd_passes(cfg, card)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
     lstm = torch.nn.LSTM(feature_dim(cfg), H, num_layers=2).cuda().to(
@@ -988,8 +1075,8 @@ def time_biax(cfg, card):
 
 @contextlib.contextmanager
 def forced_scan_route(route: str):
-    """Run the scans of the biaxial stacks and of the recurrence's backward
-    on `route` whatever the dtype."""
+    """Run the scans of the biaxial stacks, of the recurrence and of the
+    fused stack's backward on `route` whatever the dtype."""
     from music_generator_tpu_torch.ops import biax
     saved = biax.scan_route
     biax.scan_route = lambda cdt: route
@@ -1155,6 +1242,53 @@ def rec_bwd_passes(cfg, card, reps: int = 6):
                     f"clusters of {row[8]} resident")
                 check_plan(f"lstm_rec_bwd {axis} cluster scan", R, row)
     return out
+
+
+def lstm2_bwd_passes(cfg, card, reps: int = 6):
+    """ms of each pass of kernel 7 (`lstm2_bwd`: tapes, prologue, preact,
+    scan1, dx1, scan0, dx0, wgrad) at the time and note axes' shapes (T =
+    seq_len, bfloat16, sigmoid gates, the configured dropout) on kernel
+    6's tapes: CUDA events between the passes of `reps` backwards queued
+    back to back, the first dropped; on the cluster route (the main
+    path's) and on the streamed route (the float32 route's scans, run in
+    bfloat16 for comparison).  Logs both cluster scans' clock cycles per
+    step and phase (block 0) and their plans, and fails unless each plan's
+    clusters are all resident at once (one wave)."""
+    from music_generator_tpu_torch.ops import lstm2
+    kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
+              recurrent_activation="sigmoid")
+    for axis, S, R, F, H in axis_shapes(cfg, cfg.seq_len):
+        args, (c00, c10), cots = lstm2_bwd_args(S, R, F, H, 7, ones=True)
+        x0, s1m, w0, b0, b1, u0, w1, u1, h00, h10 = args
+        tapes = lstm2.lstm2_fwd(x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00,
+                                h10, c10, **kw)[:4]
+        for route in ("cluster", "streamed"):
+            prof = torch.zeros(2, 9, dtype=torch.int64, device="cuda")
+            with forced_scan_route(route):
+                runs = []
+                for _ in range(reps):
+                    marks = []
+                    lstm2.lstm2_bwd(*args, *tapes, *cots, **kw, marks=marks,
+                                    scan_prof=prof)
+                    runs.append(marks)
+                torch.cuda.synchronize()
+            per = pass_ms(runs)
+            log(f"lstm2_bwd {axis} axis passes, {route} scans (ms, mean of "
+                f"{reps - 1}; S={S}, R={R}, F={F}, H={H}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+                + f"; sum {sum(per.values()):.4f} ({card})")
+            if route == "cluster":
+                for layer, row in zip((1, 0), prof.cpu().tolist()):
+                    log(f"lstm2_bwd {axis} cluster scan layer {layer}: clock "
+                        f"cycles per step of block 0: own cell work "
+                        f"{row[0] / S:.0f}, dz exchange and barrier "
+                        f"{row[1] / S:.0f}, product {row[2] / S:.0f}, second "
+                        f"barrier {row[3] / S:.0f}; cluster {row[4]} blocks, "
+                        f"{row[5]} rows, {row[6]} units a block, {row[7]} K "
+                        f"parts, {-(-R // row[5])} clusters of {row[8]} "
+                        f"resident")
+                    check_plan(f"lstm2_bwd {axis} cluster scan layer {layer}",
+                               R, row)
 
 
 def rec_fwd_scans(cfg, card, reps: int = 10):
@@ -1670,6 +1804,7 @@ def main() -> None:
     lstm_errs = check_lstm_kernels(cfg)
     check_rec_fwd_staged(cfg)
     check_rec_bwd_staged(cfg)
+    check_lstm2_bwd_staged(cfg)
     mask_err = check_mask_kernel()
 
     # -- 3. main path --------------------------------------------------------

@@ -47,7 +47,7 @@ struct Operand {
 };
 
 enum { EPI_PRE = 0, EPI_DX1 = 1, EPI_DX0 = 2, EPI_NOTE_DX = 3, EPI_IN = 4,
-       EPI_XW = 5 };
+       EPI_XW = 5, EPI_STACK_DX1 = 6, EPI_STACK_DX0 = 7 };
 
 // The parts of a stack's elementwise prologue: the layer-0 input xtot, the
 // layer-1 input x1 and, in the note stack, the heads.
@@ -55,11 +55,11 @@ enum { PRO_XTOT = 1, PRO_X1 = 2, PRO_HEADS = 4 };
 
 template <typename T>
 struct EpiArgs {
-  T* out_t;        // PRE, XW: z [M][N]; IN: P [M][N]; DX0: dx [M][N];
-                   // NOTE_DX: dht
+  T* out_t;        // PRE, XW: z [M][N]; IN: P [M][N]; DX0, STACK_DX0: dx
+                   // [M][N]; STACK_DX1: ds1m [M][N]; NOTE_DX: dht
   const T* bias;   // PRE, IN: [N]
   float* out_a;    // DX1: style-1 rows; DX0, NOTE_DX: style-0 rows
-  float* out_b;    // DX1: the mid term added to layer 0's dh
+  float* out_b;    // DX1, STACK_DX1: the mid term added to layer 0's dh
   PassDims d;
   Drop drop;
   T* out_c;        // NOTE_DX: dch [M][N - split]
@@ -78,6 +78,9 @@ struct EpiArgs {
 // dch = dch rounded to T, no mask, [M][C]; style-0 rows dxt m_style0 over
 // the Ht columns (width Ht) and dch m_style0c over the C columns (width C,
 // column n - Ht).
+// The fused two-layer stack's (lstm2.cu; PassDims {S, 1, R, H, 1}, so row
+// g of a step is tile 0, row g): STACK_DX1: ds1m = dx1 rounded to T, mid
+// term dx1 m_stack_mid in float32; STACK_DX0: dx = A B rounded to T alone.
 template <typename T>
 __device__ __forceinline__ float pre_first(const EpiArgs<T>& e, int n,
                                            float v) {
@@ -94,6 +97,17 @@ __device__ __forceinline__ void epilogue(const EpiArgs<T>& e, int N, int m,
     st(e.out_t + o, pre_first(e, n, v1));
   } else if constexpr (MODE == EPI_XW) {
     st(e.out_t + o, add_t<T>(ld(e.xw + o), rnd<T>(v1)));
+  } else if constexpr (MODE == EPI_STACK_DX0) {
+    st(e.out_t + o, v1);
+  } else if constexpr (MODE == EPI_STACK_DX1) {
+    st(e.out_t + o, v1);
+    float mb = 1.f;
+    if (e.drop.on) {
+      const int R = e.d.A * e.d.B, s = m / R;
+      const RowPos p = row_pos(m % R, e.d.B, e.d.k);
+      mb = mval(e.drop, S_STACK_MID, p.j, s, p.r, N, n);
+    }
+    e.out_b[o] = e.drop.on ? __fmul_rn(v1, mb) : v1;
   } else if constexpr (MODE == EPI_NOTE_DX) {
     const int R = e.d.A * e.d.B, s = m / R, Ht = e.split;
     const RowPos p = row_pos(m % R, e.d.B, e.d.k);
@@ -146,6 +160,18 @@ __device__ __forceinline__ void epilogue_pair(const EpiArgs<bf16>& e, int N,
     *reinterpret_cast<uint32_t*>(e.out_t + o) =
         pack_bf16(add_t<bf16>(ld(e.xw + o), rnd<bf16>(a0)),
                   add_t<bf16>(ld(e.xw + o + 1), rnd<bf16>(a1)));
+  } else if constexpr (MODE == EPI_STACK_DX0) {
+    *reinterpret_cast<uint32_t*>(e.out_t + o) = pack_bf16(a0, a1);
+  } else if constexpr (MODE == EPI_STACK_DX1) {
+    float2 vb = make_float2(a0, a1);
+    if (e.drop.on) {
+      const int R = e.d.A * e.d.B, s = m / R;
+      const RowPos p = row_pos(m % R, e.d.B, e.d.k);
+      vb.x = __fmul_rn(a0, mval(e.drop, S_STACK_MID, p.j, s, p.r, N, n));
+      vb.y = __fmul_rn(a1, mval(e.drop, S_STACK_MID, p.j, s, p.r, N, n + 1));
+    }
+    *reinterpret_cast<uint32_t*>(e.out_t + o) = pack_bf16(a0, a1);
+    *reinterpret_cast<float2*>(e.out_b + o) = vb;
   } else {
     float2 va = make_float2(a0, a1), vb = va;
     if (e.drop.on) {

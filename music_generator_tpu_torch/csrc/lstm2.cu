@@ -1,6 +1,6 @@
 // One DeepJ axis as a fused two-layer LSTM stack, as CUDA kernels for Hopper
 // (sm_90a): forward and backward of two stacked layers scanning S steps over
-// R rows, both input projections inside the kernel.
+// R rows, both input projections inside the stack.
 //
 // Replaces music_generator_tpu/ops/pallas_lstm2.py: `_forward_impl` (kernel
 // `_make_fwd_kernel`) and `_bwd_impl` (kernel `_make_bwd_kernel`, custom VJP
@@ -8,10 +8,8 @@
 // (h U0 -> T)) -> x1 = h0 * mask + s1m in T -> layer 1 (z = (x1 W1 -> T) +
 // b1 + (h U1 -> T)) -> hs1.  Tapes hs0, cs0 (the previous c), cs1 in T, only
 // when the caller will differentiate; the terminal states in float32 (h not
-// rounded).  The backward recomputes both cells from the tapes, regenerates
-// the mask, and writes dx0, ds1m, the layer-1 input tape x1 and the dz tapes;
-// biax_wgrad (biax_common.cuh) then reduces dW0, db0, dU0, dW1, dU1, db1.
-// The cotangent of h0T is not an input: the TPU kernel ignores it too.
+// rounded).  The cotangent of h0T is not an input of the backward: the TPU
+// kernel ignores it too.
 //
 // The inter-layer mask.  The TPU kernel draws it from the TPU's hardware
 // PRNG per (batch tile, step); no other device gives those bits.  Here an
@@ -27,17 +25,43 @@
 // operations (the Pallas CostEstimate): 174 GFLOP on the time axis, 0.18 ms
 // at 989 TFLOP/s bf16, against some 0.06 ms for its bytes at 3.35 TB/s.  The
 // backward does 3x the products.  The real floor is the chain of S
-// dependent steps, each a product with all 1.8 MB (time) or 0.6 MB (note)
-// of the stack's bf16 weights.
+// dependent steps, each a product with U (one layer's 512 KB bf16 at the
+// time axis, 128 KB at the note axis).
 //
-// Design (simple first): biax_time.cu's.  One block owns RB rows for the
-// whole scan and keeps h, c, the gates and the layer inputs in shared
-// memory; the weights stream from L2 every step.  bf16 products run on the
-// tensor cores (mma.sync, float32 accumulation), float32 on the CUDA cores.
-// The weight gradients, which the TPU kernel summed in VMEM across its
-// sequential grid, are the second, deterministic reduction over the tapes.
+// Forward (simple first, biax_time.cu's design before its passes): one
+// block owns RB rows for the whole scan and keeps h, c, the gates and the
+// layer inputs in shared memory; the weights stream from L2 every step.
+// bf16 products run on the tensor cores (mma.sync, float32 accumulation),
+// float32 on the CUDA cores.
+//
+// Backward, as passes on the machinery of biax_passes.cuh with (S, A, B) =
+// (S, 1, R): row g of a step is tile 0, row g of `row_pos`, the indexing of
+// the mask.  Of the eight products a step of the TPU kernel makes, only
+// dh1 <- dz1 U1^T and dh0 <- dz0 U0^T carry from step to step; the rest
+// depend on tapes the forward wrote, so they run over all S R rows at once:
+//   1. the prologue (a warp a row): xp = x0 with rows padded to 8 values,
+//      x1 = (hs0 * mask -> T) + s1m -> T, rows padded to 8;
+//   2. both layers' pre-activations z = ((in W -> T) + b) + (h_{t-1} U ->
+//      T), two GEMMs (EPI_PRE); the h_{t-1} tapes hold h0 in their first R
+//      rows, so their operand takes no shift;
+//   3. layer 1's reversed scan (launch_scan): the cell backward from z1 and
+//      the c tape, dh = (dz1 U1^T) + dhs1, dz1 written over z1; dc seeded
+//      with the cotangent of c1_T, and dh10 = dz1_0 U1^T and the last dc
+//      carry written at its end (ScanEnds);
+//   4. dx1 = dz1 W1^T (EPI_STACK_DX1): ds1m = dx1 -> T and the mid term
+//      dx1 * mask in float32;
+//   5. layer 0's reversed scan, as 3. with the mid term for dhs;
+//   6. dx0 = dz0 W0^T -> T (EPI_STACK_DX0);
+//   7. the weight gradients, the deterministic reduction biax_wgrad
+//      (biax_common.cuh) over the dz tapes, which also replaces the TPU
+//      kernel's VMEM sums across its sequential grid.
+// bfloat16 scans keep U resident in a thread-block cluster (4 blocks at
+// H = 256, one at H = 128); float32 scans stream U^T from L2.  The wrapper
+// (ops/lstm2.py::lstm2_bwd) forms the tapes before pass 1: the h_{t-1}
+// tapes, and dhs1 with the cotangent of h1_T added to its last step in
+// float32, then rounded to T.
 
-#include "biax_common.cuh"
+#include "biax_passes.cuh"
 
 namespace biax {
 
@@ -135,169 +159,7 @@ __global__ void __launch_bounds__(1024) stack_fwd_kernel(
   }
 }
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) stack_bwd_kernel(
-    const T* __restrict__ x0, const T* __restrict__ s1m,
-    const T* __restrict__ w0, const T* __restrict__ b0,
-    const T* __restrict__ b1, const T* __restrict__ u0,
-    const T* __restrict__ w1, const T* __restrict__ u1,
-    const T* __restrict__ w0t, const T* __restrict__ u0t,
-    const T* __restrict__ w1t, const T* __restrict__ u1t,
-    const T* __restrict__ hs0p, const T* __restrict__ cs0,
-    const T* __restrict__ hs1p, const T* __restrict__ cs1,
-    const T* __restrict__ hs0, const T* __restrict__ dhs1,
-    const float* __restrict__ dc0T, const float* __restrict__ dc1T, T* dx0,
-    T* ds1m, T* x1tape, T* dz0t, T* dz1t, float* dh00, float* dc00,
-    float* dh10, float* dc10, StackDims d, Drop drop, int hard) {
-  extern __shared__ float sm[];
-  const int F = d.F, H = d.H, H4 = 4 * H, R = d.R;
-  const int lF = padk(F), lH = padk(H), l4 = padk(H4);
-  // Product inputs (rows padded to 32 with zeros): xin, x1, hp0, hp1, dz.
-  float* xin = sm;
-  float* x1 = xin + RB * lF;
-  float* hp0 = x1 + RB * lH;
-  float* hp1 = hp0 + RB * lH;
-  float* dz = hp1 + RB * lH;
-  float* cp0 = dz + RB * l4;
-  float* cp1 = cp0 + RB * H;
-  float* tc0 = cp1 + RB * H;
-  float* tc1 = tc0 + RB * H;
-  float* dh0 = tc1 + RB * H;
-  float* dc0 = dh0 + RB * H;
-  float* dh1 = dc0 + RB * H;
-  float* dc1 = dh1 + RB * H;
-  float* dx1 = dc1 + RB * H;
-  float* z0 = dx1 + RB * H;
-  float* z1 = z0 + RB * H4;
-  float* dxo = z1 + RB * H4;
-  float* scr = dxo + RB * F;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * (lF + 3 * lH + l4 + 9 * H + 2 * H4); i += nt)
-    sm[i] = 0.f;
-  __syncthreads();
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    dc0[i] = g < R ? dc0T[(size_t)g * H + i % H] : 0.f;
-    dc1[i] = g < R ? dc1T[(size_t)g * H + i % H] : 0.f;
-  }
-  for (int t = d.S - 1; t >= 0; --t) {
-    const size_t row0 = (size_t)t * R + g0;
-    // Recompute the forward of step t from the tapes.
-    for (int i = tid; i < RB * F; i += nt) {
-      const int rr = i / F, f = i % F;
-      xin[rr * lF + f] = g0 + rr < R ? ld(x0 + row0 * F + i) : 0.f;
-    }
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      const bool in = g0 + rr < R;
-      hp0[rr * lH + j] = in ? ld(hs0p + row0 * H + i) : 0.f;
-      hp1[rr * lH + j] = in ? ld(hs1p + row0 * H + i) : 0.f;
-      cp0[i] = in ? ld(cs0 + row0 * H + i) : 0.f;
-      cp1[i] = in ? ld(cs1 + row0 * H + i) : 0.f;
-    }
-    __syncthreads();
-    preact<T, RB>(xin, lF, F, w0, b0, hp0, lH, H, u0, z0, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      float* zr = z0 + rr * H4;
-      const Gates q = gates<T>(zr, H, j, hard);
-      zr[j] = q.i;
-      zr[H + j] = q.f;
-      zr[2 * H + j] = q.g;
-      zr[3 * H + j] = q.o;
-      tc0[i] = tanh_c<T>(q, cp0[i]);
-      float xv = 0.f;
-      if (g < R) {
-        const size_t o = row0 * H + i;
-        float hv = ld(hs0 + o);
-        if (drop.on) hv = mul_t<T>(hv, mval(drop, S_STACK_MID, 0, t, g, H, j));
-        xv = add_t<T>(hv, ld(s1m + o));
-        st(x1tape + o, xv);
-      }
-      x1[rr * lH + j] = xv;
-    }
-    __syncthreads();
-    preact<T, RB>(x1, lH, H, w1, b1, hp1, lH, H, u1, z1, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      float* zr = z1 + rr * H4;
-      const Gates q = gates<T>(zr, H, j, hard);
-      zr[j] = q.i;
-      zr[H + j] = q.f;
-      zr[2 * H + j] = q.g;
-      zr[3 * H + j] = q.o;
-      tc1[i] = tanh_c<T>(q, cp1[i]);
-    }
-    __syncthreads();
-
-    // Layer 1 backward.
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      const float* zr = z1 + rr * H4;
-      const Gates q = {zr[j], zr[H + j], zr[2 * H + j], zr[3 * H + j]};
-      float dh = dh1[i];
-      if (g0 + rr < R) dh += ld(dhs1 + row0 * H + i);
-      dc1[i] = cell_bwd<T>(q, cp1[i], tc1[i], dh, dc1[i], hard,
-                           dz + rr * l4, H, j);
-    }
-    __syncthreads();
-    for (int i = tid; i < RB * H4; i += nt)
-      if (g0 + i / H4 < R)
-        st(dz1t + row0 * H4 + i, dz[(i / H4) * l4 + i % H4]);
-    matvec<T, RB>(dz, l4, H4, u1t, H, scr,
-                  [&](int rr, int c, float s) { dh1[rr * H + c] = s; });
-    matvec<T, RB>(dz, l4, H4, w1t, H, scr,
-                  [&](int rr, int c, float s) { dx1[rr * H + c] = s; });
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      float m = 1.f;
-      if (g < R) {
-        st(ds1m + row0 * H + i, dx1[i]);
-        if (drop.on) m = mval(drop, S_STACK_MID, 0, t, g, H, j);
-      }
-      dh0[i] += drop.on ? dx1[i] * m : dx1[i];
-    }
-    __syncthreads();
-
-    // Layer 0 backward.
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H;
-      const float* zr = z0 + rr * H4;
-      const Gates q = {zr[j], zr[H + j], zr[2 * H + j], zr[3 * H + j]};
-      dc0[i] = cell_bwd<T>(q, cp0[i], tc0[i], dh0[i], dc0[i], hard,
-                           dz + rr * l4, H, j);
-    }
-    __syncthreads();
-    for (int i = tid; i < RB * H4; i += nt)
-      if (g0 + i / H4 < R)
-        st(dz0t + row0 * H4 + i, dz[(i / H4) * l4 + i % H4]);
-    matvec<T, RB>(dz, l4, H4, u0t, H, scr,
-                  [&](int rr, int c, float s) { dh0[rr * H + c] = s; });
-    matvec<T, RB>(dz, l4, H4, w0t, F, scr,
-                  [&](int rr, int c, float s) { dxo[rr * F + c] = s; });
-    for (int i = tid; i < RB * F; i += nt)
-      if (g0 + i / F < R) st(dx0 + row0 * F + i, dxo[i]);
-    __syncthreads();
-  }
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    if (g < R) {
-      const size_t o = (size_t)g * H + i % H;
-      dh00[o] = dh0[i];
-      dc00[o] = dc0[i];
-      dh10[o] = dh1[i];
-      dc10[o] = dc1[i];
-    }
-  }
-}
-
 constexpr int FWD_RB = 8;   // 96 blocks on the time axis, 256 on the note axis
-constexpr int BWD_RB = 6;   // 128 blocks on the time axis: one wave
-
-inline int threads_for(int H4) {
-  const int nt = ((H4 + 31) / 32) * 32;
-  return nt > 1024 ? 1024 : nt;
-}
 
 template <typename T>
 int stack_fwd(void* const* p, StackDims d, Drop drop, int hard,
@@ -318,27 +180,31 @@ int stack_fwd(void* const* p, StackDims d, Drop drop, int hard,
   return (int)cudaGetLastError();
 }
 
+// Backward 1.: the layer inputs of every (t, row g) m = t R + g, a warp a
+// row: xp[m] = x0[m] and x1[m] = (hs0[m] * mask -> T) + s1m[m] -> T (the cast
+// order of the forward), each row padded to 8 values with zeros.
+constexpr int PRO_ROWS = 8;   // rows (warps) a block
+
 template <typename T>
-int stack_bwd(void* const* p, StackDims d, Drop drop, int hard,
-              cudaStream_t st) {
-  const int H4 = 4 * d.H, nt = threads_for(H4), RB = BWD_RB;
-  const size_t smem =
-      sizeof(float) * (RB * (padk(d.F) + 3 * padk(d.H) + padk(H4) +
-                             9 * d.H + 2 * H4 + d.F) +
-                       (size_t)nt * RB);
-  auto kern = stack_bwd_kernel<T, BWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(d.R + RB - 1) / RB, nt, smem, st>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const T*)p[8], (const T*)p[9], (const T*)p[10], (const T*)p[11],
-      (const T*)p[12], (const T*)p[13], (const T*)p[14], (const T*)p[15],
-      (const T*)p[16], (const T*)p[17], (const float*)p[18],
-      (const float*)p[19], (T*)p[20], (T*)p[21], (T*)p[22], (T*)p[23],
-      (T*)p[24], (float*)p[25], (float*)p[26], (float*)p[27], (float*)p[28],
-      d, drop, hard);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(32 * PRO_ROWS) stack_prologue_kernel(
+    const T* __restrict__ x0, const T* __restrict__ s1m,
+    const T* __restrict__ hs0, T* __restrict__ xp, T* __restrict__ x1,
+    StackDims d, Drop drop) {
+  const int F = d.F, H = d.H, R = d.R, lx = pad8(F), l1 = pad8(H);
+  const size_t m = (size_t)blockIdx.x * PRO_ROWS + threadIdx.x / 32;
+  if (m >= (size_t)d.S * R) return;
+  const int t = (int)(m / R), g = (int)(m % R), lane = threadIdx.x % 32;
+  for (int c = lane; c < lx; c += 32)
+    st(xp + m * lx + c, c < F ? ld(x0 + m * F + c) : 0.f);
+  for (int j = lane; j < l1; j += 32) {
+    float v = 0.f;
+    if (j < H) {
+      float hv = ld(hs0 + m * H + j);
+      if (drop.on) hv = mul_t<T>(hv, mval(drop, S_STACK_MID, 0, t, g, H, j));
+      v = add_t<T>(hv, ld(s1m + m * H + j));
+    }
+    st(x1 + m * l1 + j, v);
+  }
 }
 
 }  // namespace biax
@@ -363,24 +229,92 @@ extern "C" int lstm2_fwd(
   return stack_fwd<float>(p, d, drop, hard, st);
 }
 
-// Pointers, in order: x0 s1m w0 b0 b1 u0 w1 u1 w0t u0t w1t u1t hs0prev cs0
-// hs1prev cs1 hs0 dhs1 dc0T dc1T | dx0 ds1m x1 dz0 dz1 dh00 dc00 dh10 dc10.
-extern "C" int lstm2_bwd(
-    int bf16, void* x0, void* s1m, void* w0, void* b0, void* b1, void* u0,
-    void* w1, void* u1, void* w0t, void* u0t, void* w1t, void* u1t,
-    void* hs0p, void* cs0, void* hs1p, void* cs1, void* hs0, void* dhs1,
-    void* dc0T, void* dc1T, void* dx0, void* ds1m, void* x1, void* dz0,
-    void* dz1, void* dh00, void* dc00, void* dh10, void* dc10, int S, int R,
-    int F, int H, unsigned seed, unsigned thr, float scale, int dropout,
-    int hard, void* stream) {
+
+// The backward's passes, launched in order by ops/lstm2.py::lstm2_bwd.
+// 1. The prologue over M = S R rows: xp [M][pad8(F)] = x0 [M][F] padded
+// with zeros, x1 [M][pad8(H)] = (hs0 * mask -> T) + s1m -> T padded with
+// zeros.
+extern "C" int lstm2_bwd_prologue(int bf16, const void* x0, const void* s1m,
+                                  const void* hs0, void* xp, void* x1, int S,
+                                  int R, int F, int H, unsigned seed,
+                                  unsigned thr, float scale, int dropout,
+                                  void* stream) {
   using namespace biax;
-  void* const p[] = {x0,   s1m,  w0,   b0,   b1,   u0,  w1,   u1,
-                     w0t,  u0t,  w1t,  u1t,  hs0p, cs0, hs1p, cs1,
-                     hs0,  dhs1, dc0T, dc1T, dx0,  ds1m, x1,  dz0,
-                     dz1,  dh00, dc00, dh10, dc10};
   const StackDims d = {S, R, F, H};
   const Drop drop = {seed, thr, scale, dropout};
+  const int blocks = (int)(((size_t)S * R + PRO_ROWS - 1) / PRO_ROWS);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) return stack_bwd<biax::bf16>(p, d, drop, hard, st);
-  return stack_bwd<float>(p, d, drop, hard, st);
+  if (bf16)
+    stack_prologue_kernel<biax::bf16><<<blocks, 32 * PRO_ROWS, 0, st>>>(
+        (const biax::bf16*)x0, (const biax::bf16*)s1m,
+        (const biax::bf16*)hs0, (biax::bf16*)xp, (biax::bf16*)x1, d, drop);
+  else
+    stack_prologue_kernel<float><<<blocks, 32 * PRO_ROWS, 0, st>>>(
+        (const float*)x0, (const float*)s1m, (const float*)hs0, (float*)xp,
+        (float*)x1, d, drop);
+  return (int)cudaGetLastError();
+}
+
+// 2. One layer's pre-activations z [M][4H] = ((xin W -> T) + bias) + (hp U
+// -> T) over all M rows (EPI_PRE): xin [M][ldx] with K columns, hp [M][H]
+// the h_{t-1} tape (no shift: its first R rows hold the initial h), w and u
+// in the layout of T.
+extern "C" int lstm2_bwd_preact(int bf16, const void* xin, int ldx, int K,
+                                const void* w, const void* bias,
+                                const void* hp, const void* u, void* z, int M,
+                                int H, void* stream) {
+  using namespace biax;
+  const int H4 = 4 * H;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    const EpiArgs<biax::bf16> e = {(biax::bf16*)z, (const biax::bf16*)bias};
+    return gemm<biax::bf16, EPI_PRE>(
+        operand<biax::bf16>(xin, ldx, 0, K, w, H4),
+        operand<biax::bf16>(hp, H, 0, H, u, H4), M, H4, e, st);
+  }
+  const EpiArgs<float> e = {(float*)z, (const float*)bias};
+  return gemm<float, EPI_PRE>(operand<float>(xin, ldx, 0, K, w, H4),
+                              operand<float>(hp, H, 0, H, u, H4), M, H4, e,
+                              st);
+}
+
+// 3., 5. One layer's reversed scan over z_dz (z in, dz out) with the
+// external dh ext_t (T) or ext_f (float32) [S][R][H], the c_{t-1} tape cs,
+// dc seeded from dcT, and the initial-state gradients dh0, dc0 [R][H]
+// written at its end (launch_scan with ScanEnds).  cluster = 1 (bfloat16
+// only): u is U [H][4H], resident in a thread-block cluster; cluster = 0: u
+// is `_layout(U^T)`, streamed.  prof as for the stacks' scans (may be
+// null).
+extern "C" int lstm2_bwd_scan(int bf16, int cluster, void* z_dz,
+                              const void* cs, const void* ext_t,
+                              const float* ext_f, const void* u,
+                              const float* dcT, float* dh0, float* dc0,
+                              int S, int R, int H, int hard,
+                              unsigned long long* prof, void* stream) {
+  using namespace biax;
+  const PassDims d = {S, 1, R, H, 1};
+  const ScanEnds ends = {dcT, dh0, dc0};
+  return launch_scan(bf16, cluster, z_dz, cs, ext_t, ext_f, u, d, hard, prof,
+                     (cudaStream_t)stream, ends);
+}
+
+// 4., 6. The product dz [M][4H] W^T (wt = `_layout(W^T)`, an Nout-wide
+// result).  layer 1 (EPI_STACK_DX1): out_t = ds1m (T), out_b = the mid term
+// (float32); layer 0 (EPI_STACK_DX0): out_t = dx0 (T).
+extern "C" int lstm2_bwd_dx(int bf16, int layer, const void* dz,
+                            const void* wt, int S, int R, int H, int Nout,
+                            void* out_t, float* out_b, unsigned seed,
+                            unsigned thr, float scale, int dropout,
+                            void* stream) {
+  using namespace biax;
+  const PassDims d = {S, 1, R, H, 1};
+  const Drop drop = {seed, thr, scale, dropout};
+  const int M = S * R, H4 = 4 * H;
+  cudaStream_t st = (cudaStream_t)stream;
+  return layer ? launch_dx<EPI_STACK_DX1>(bf16, dz, wt, M, H4, Nout, out_t,
+                                          nullptr, out_b, nullptr, 0, d, drop,
+                                          st)
+               : launch_dx<EPI_STACK_DX0>(bf16, dz, wt, M, H4, Nout, out_t,
+                                          nullptr, nullptr, nullptr, 0, d,
+                                          drop, st);
 }
