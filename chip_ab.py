@@ -11,9 +11,12 @@ backwards on seeded inputs at the training shapes:
 bfloat16 at T = seq_len (the cluster scans) and float32 at T = CHECK_T
 (the streamed scans); and, at the time and note axes' shapes in both
 dtypes, the fused stack's forward (kernel 6: hs1, its tapes hs0, cs0,
-cs1 and the four terminal states) and the recurrence's forward and
-backward (kernels 8 and 9). It then times the axis-fused, per-layer and
-3 + 3 layer routes' training step on fresh weights (seed 0) with
+cs1 and the four terminal states), its backward (kernel 7) on fixed tapes
+drawn from `lstm_inputs` (not kernel 6's, so that a change to kernel 6
+leaves kernel 7's hash as it was), the recurrence's forward and backward
+(kernels 8 and 9), and the mask dump (kernel 10, whose device time a
+launch it reads with the profiler). It then times the axis-fused,
+per-layer and 3 + 3 layer routes' training step on fresh weights (seed 0) with
 chip_smoke.py's `time_train_step`, and writes the hashes to OUT.json.
 Run it in turns in two checkouts (parent, change, change, parent); the
 second form prints whether each hash is equal across the files it is
@@ -39,9 +42,9 @@ def digest(tensors) -> str:
 
 def axis_hashes(cfg) -> dict:
     """Kernel 6's outputs and tapes (through lstm2_stack's autograd
-    Function, which saves them for its backward) and kernels 8 and 9's
-    results, at the time and note axes' shapes (T = CHECK_T), on seeded
-    inputs, bfloat16 and float32."""
+    Function, which saves them for its backward), kernel 7's results on
+    fixed tapes and kernels 8 and 9's results, at the time and note axes'
+    shapes (T = CHECK_T), on seeded inputs, bfloat16 and float32."""
     import torch
     import chip_smoke as cs
     from music_generator_tpu_torch.ops import lstm2, recurrence
@@ -55,6 +58,16 @@ def axis_hashes(cfg) -> dict:
                 recurrent_activation="sigmoid")
             tapes = hs1.grad_fn.saved_tensors[-4:]
             out[f"lstm2_fwd {axis} {cdt}"] = digest((hs1, *fin, *tapes))
+            args7, _, cots7 = cs.lstm2_bwd_args(S, R, F, H, 5)
+            xw = cs.lstm_inputs("lstm_rec", S, R, F, H, 6)[0]
+            hs0, cs0, hs1, cs1 = xw.chunk(4, dim=-1)
+            tapes7 = (torch.tanh(hs0), cs0, torch.tanh(hs1), cs1)
+            bwd7 = lstm2.lstm2_bwd(*args7, *tapes7, *cots7,
+                                   dropout_p=cfg.dropout, seed=99,
+                                   compute_dtype=cdt,
+                                   recurrent_activation="sigmoid")
+            torch.cuda.synchronize()
+            out[f"lstm2_bwd {axis} {cdt}"] = digest(bwd7)
             xw, u, h0, c0 = cs.lstm_inputs("lstm_rec", S, R, F, H, 5)
             kw = dict(compute_dtype=cdt, recurrent_activation="sigmoid")
             fwd = recurrence.lstm_recurrence_fwd(xw, u, h0, c0, **kw)
@@ -102,6 +115,37 @@ def hashes() -> dict:
     return out
 
 
+def mask_hashes_and_times(card) -> dict:
+    """Kernel 10 (`dump_masks`) at the time and note axes' shapes in both
+    dtypes: the hash of its output, and its device ms a launch from the
+    profiler (mean of 20 launches after a warm-up; the wrapper's call is
+    mostly the host's time at these sizes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    from music_generator_tpu_torch.ops import lstm2
+    out = {}
+    for axis, (S, R, H) in (("time", (128, 768, 256)),
+                            ("note", (48, 2048, 128))):
+        for dt in (torch.float32, torch.bfloat16):
+            fn = lambda: lstm2.dump_masks(7, S, R, H, 0.5, dt, "cuda")
+            out[f"lstm2_masks {axis} {dt}"] = digest((fn(),))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "stack_masks" in e.key]
+            n = sum(e.count for e in evs)
+            ms = sum(e.self_device_time_total for e in evs) / n / 1e3
+            cs.log(f"lstm2_masks {axis} axis (S={S}, R={R}, H={H}, {dt}): "
+                   f"{ms:.4f} ms a launch on the device (profiler, {n} "
+                   f"launches; {card})")
+    return out
+
+
 def steps() -> None:
     import torch
     import chip_smoke as cs
@@ -132,7 +176,9 @@ def main(argv) -> int:
         return 2
     from music_generator_tpu_torch.device import full_f32
     full_f32()
+    import chip_smoke as cs
     out = hashes()
+    out.update(mask_hashes_and_times(cs.card_line()))
     steps()
     with open(argv[0], "w") as f:
         json.dump(out, f)

@@ -26,7 +26,12 @@ Phases (any failure exits non-zero, before the result line):
      the c tape with tapes on and off, h_T, c_T) and its backward (kernel
      9: tapes, pre-activation GEMM, scan, dU) against its staged plain
      version on kernel 8's tapes, at both axes' shapes and small odd
-     widths, with the same scan routes; the fused stack's backward
+     widths, with the same scan routes; the fused stack's forward (kernel
+     6: x0 padded, two input GEMMs, two forward scans with initial and
+     terminal states, x1 with the mask) against its staged plain version
+     with nonzero initial states, dropout 0 and 0.5, tapes on and off, all
+     eight results, at both axes' shapes and small odd widths, on both
+     scan routes in bfloat16; the fused stack's backward
      (kernel 7: tapes, prologue, two pre-activation GEMMs, two reversed
      scans with initial and terminal states, dx1 with the mask, dx0,
      reductions) against its staged plain version on kernel 6's tapes,
@@ -60,7 +65,8 @@ Phases (any failure exits non-zero, before the result line):
      3 + 3 layer stack, checking the exact launch counts of each step, no
      plain version and no biaxial launch, every bfloat16 recurrence
      forward's and backward's scan and both scans of every bfloat16
-     fused-stack backward on the cluster route, finite losses, evaluate()
+     fused-stack forward and backward on the cluster route, finite
+     losses, evaluate()
      and the checkpoint;
   3f. the dropout-0 step of 3d on the two per-axis routes;
   3g. the port's validators as a user runs them (music_generator_tpu_torch/
@@ -79,12 +85,16 @@ Phases (any failure exits non-zero, before the result line):
      streamed kernels in turns at G = 3, 64 and 256, with the cluster
      kernel's clock cycles per pitch by phase), each pass of the time and
      note forwards and of the time and note backwards and of the
-     recurrence's and the fused stack's backwards at both axes, and the
+     recurrence's backward and the fused stack's forward (beside cuDNN's
+     two-layer forward) and backward at both axes, and the
      recurrence's forward scan a launch at both axes (both scan routes,
      with the cluster scans' clock cycles per phase and a check that each
      plan is one wave),
      cuDNN's LSTM beside the recurrence (and the weight copy it repeats at
-     every bfloat16 call), and the mask dump.
+     every bfloat16 call), and the mask dump (its device time a launch
+     from the profiler, bit for bit stack_masks again, against the larger
+     of its bytes and its row loop's instructions, counted from the SASS,
+     at the card's issue rate; the loop must hold no division).
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -93,9 +103,12 @@ CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import re
 import shutil
+import subprocess
 import sys
 import time
 import warnings
@@ -705,6 +718,72 @@ def lstm2_scan_counts():
     return lstm2.lstm2_stack.cluster_scans, lstm2.lstm2_stack.streamed_scans
 
 
+def lstm2_fwd_scan_counts():
+    """(cluster, streamed) scans launched by the fused stack's forward."""
+    from music_generator_tpu_torch.ops import lstm2
+    stack = lstm2.lstm2_stack
+    return stack.fwd_cluster_scans, stack.fwd_streamed_scans
+
+
+def check_lstm2_fwd_staged(cfg):
+    """Kernel 6's passes (`lstm2_fwd`) against their staged plain version
+    (`lstm2_fwd_staged`) with nonzero initial states, at rec_check_shapes
+    (the odd one with F = 13), both dtypes, both gate flavors, dropout 0
+    and 0.5, tapes on and off, on both scan routes in bfloat16 (cluster,
+    the main path's, and streamed) and the streamed route in float32: all
+    eight results (hs0, cs0, hs1, cs1, h0T, c0T, h1T, c1T), max |d|
+    relative to the result's largest magnitude where that exceeds 1 (c
+    grows past 1) within F32_ATOL in float32 and BF16_ATOL in bfloat16,
+    with the relative error and cosine logged.  Each forward must run two
+    scans on its route."""
+    from music_generator_tpu_torch.ops import lstm2
+    cases, worst = 0, {"f32 max|d|": 0.0, "bf16 rel": 0.0, "bf16 cos": 1.0}
+    runs = [(torch.float32, "streamed"), (torch.bfloat16, "cluster"),
+            (torch.bfloat16, "streamed")]
+    for label, S, R, F, H in rec_check_shapes(cfg):
+        F = 13 if label == "odd rows" else F
+        args = lstm_inputs("lstm2", S, R, F, H, 100 + cases)
+        for (cdt, route), act, p, tapes in itertools.product(
+                runs, ("sigmoid", "hard_sigmoid"), (0.0, 0.5), (True, False)):
+            kw = dict(dropout_p=p, seed=4321, compute_dtype=cdt,
+                      recurrent_activation=act, tapes=tapes)
+            before = lstm2_fwd_scan_counts()
+            with forced_scan_route(route):
+                got = lstm2.lstm2_fwd(*args, **kw)
+            torch.cuda.synchronize()
+            ran = tuple(a - b for a, b in zip(lstm2_fwd_scan_counts(),
+                                              before))
+            want = lstm2.lstm2_fwd_staged(*args, **kw)
+            cases += 1
+            pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+            same = ((got[0] is None) != tapes and all(
+                a.shape == b.shape and a.dtype == b.dtype for a, b in pairs))
+            err = max(float((a.float() - b.float()).abs().max())
+                      / max(1.0, float(b.float().abs().max()))
+                      for a, b in pairs)
+            _, rel, cos = leaf_stats([a.float() for a, _ in pairs],
+                                     [b.float() for _, b in pairs])
+            finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+            dt = "f32" if cdt == torch.float32 else "bf16"
+            log(f"lstm2_fwd vs staged {label} (S={S}, R={R}, F={F}, H={H}) "
+                f"{dt} {route} {act} p={p} tapes={tapes}: max|d| (scaled)="
+                f"{err:.3g}, worst rel={rel:.3g}, worst cos={cos:.6f}; scans "
+                f"(cluster, streamed) {ran}")
+            if cdt == torch.float32:
+                ok = err <= F32_ATOL
+                worst["f32 max|d|"] = max(worst["f32 max|d|"], err)
+            else:
+                ok = err <= BF16_ATOL
+                worst["bf16 rel"] = max(worst["bf16 rel"], rel)
+                worst["bf16 cos"] = min(worst["bf16 cos"], cos)
+            want_ran = (2, 0) if route == "cluster" else (0, 2)
+            if not ok or not finite or not same or ran != want_ran:
+                fail(f"lstm2_fwd {label} {dt} {route} {act} p={p} "
+                     f"tapes={tapes} disagrees with its staged version")
+    log(f"lstm2_fwd: {cases} cases agree with the staged plain version; "
+        f"worst {worst}")
+
+
 def lstm2_bwd_args(S: int, R: int, F: int, H: int, seed: int, ones=False):
     """The inputs of kernel 7 that are not tapes: (x0, s1m, w0, b0, b1, u0,
     w1, u1, h00, h10) of lstm_inputs("lstm2", ...), its c00 and c10 for
@@ -788,6 +867,8 @@ def reset_counts():
         fn.fwd_launches = fn.bwd_launches = 0
         plain.calls = 0
     lstm2.lstm2_stack.cluster_scans = lstm2.lstm2_stack.streamed_scans = 0
+    lstm2.lstm2_stack.fwd_cluster_scans = 0
+    lstm2.lstm2_stack.fwd_streamed_scans = 0
     for stack in (biax.biax_time_stack, biax.biax_note_stack):
         stack.cluster_scans = stack.streamed_scans = 0
         stack.fwd_cluster_scans = stack.fwd_streamed_scans = 0
@@ -901,12 +982,14 @@ def train_routes(cfg):
         launches, plain = read_counts()
         scans = {"fwd": rec_fwd_scan_counts(), "bwd": rec_scan_counts()}
         stack_scans = lstm2_scan_counts()
+        stack_fwd_scans = lstm2_fwd_scan_counts()
         fit_s = time.perf_counter() - t
         steps = hist["steps_per_epoch"][0]
         log(f"route {route}: Trainer.fit {steps} steps, loss {hist['loss']}, "
             f"{fit_s:.1f} s; kernel launches {launches}, plain version "
             f"calls {plain}; lstm_rec scans (cluster, streamed) {scans}; "
-            f"lstm2_bwd scans {stack_scans}")
+            f"lstm2_fwd scans {stack_fwd_scans}, lstm2_bwd scans "
+            f"{stack_scans}")
         want = {k: per_step.get(k, 0) * steps for k in launches}
         if launches != want or plain != 0:
             fail(f"route {route}: launches {launches}, expected {want} and "
@@ -917,10 +1000,11 @@ def train_routes(cfg):
                 fail(f"route {route}: the bfloat16 recurrence {d} ran scans "
                      f"{ran}, not {(launches[f'lstm_rec_{d}'], 0)} on the "
                      f"cluster route")
-        want = (2 * launches["lstm2_bwd"], 0)
-        if rc.compute_dtype == "bfloat16" and stack_scans != want:
-            fail(f"route {route}: the bfloat16 lstm2 backwards ran scans "
-                 f"{stack_scans}, not {want} on the cluster route")
+        for d, ran in (("fwd", stack_fwd_scans), ("bwd", stack_scans)):
+            want = (2 * launches[f"lstm2_{d}"], 0)
+            if rc.compute_dtype == "bfloat16" and ran != want:
+                fail(f"route {route}: the bfloat16 lstm2 {d} ran scans "
+                     f"{ran}, not {want} on the cluster route")
         if not np.isfinite(hist["loss"]).all():
             fail(f"route {route}: non-finite training loss")
         reset_counts()
@@ -1052,6 +1136,7 @@ def time_biax(cfg, card):
         bwd_passes(cfg, card, kind)
     rec_fwd_scans(cfg, card)
     rec_bwd_passes(cfg, card)
+    lstm2_fwd_passes(cfg, card)
     lstm2_bwd_passes(cfg, card)
     H, N, B = cfg.time_axis_units, cfg.num_notes, cfg.batch_size
     from music_generator_tpu_torch.models.deepj import feature_dim
@@ -1076,7 +1161,7 @@ def time_biax(cfg, card):
 @contextlib.contextmanager
 def forced_scan_route(route: str):
     """Run the scans of the biaxial stacks, of the recurrence and of the
-    fused stack's backward on `route` whatever the dtype."""
+    fused stack on `route` whatever the dtype."""
     from music_generator_tpu_torch.ops import biax
     saved = biax.scan_route
     biax.scan_route = lambda cdt: route
@@ -1288,6 +1373,55 @@ def lstm2_bwd_passes(cfg, card, reps: int = 6):
                         f"parts, {-(-R // row[5])} clusters of {row[8]} "
                         f"resident")
                     check_plan(f"lstm2_bwd {axis} cluster scan layer {layer}",
+                               R, row)
+
+
+def lstm2_fwd_passes(cfg, card, reps: int = 6):
+    """ms of each pass of kernel 6 (`lstm2_fwd`: xp, in0, scan0, x1, in1,
+    scan1) at the time and note axes' shapes (T = seq_len, bfloat16,
+    sigmoid gates, the configured dropout, tapes on): CUDA events between
+    the passes of `reps` forwards queued back to back, the first dropped;
+    on the cluster route (the main path's) and on the streamed route (the
+    float32 route's scans, run in bfloat16 for comparison), beside cuDNN's
+    two-layer forward at the same shapes (for orientation: no s1m, masks
+    or initial states of its own).  Logs both cluster scans' clock cycles
+    per step and phase (block 0) and their plans, and fails unless each
+    plan's clusters are all resident at once (one wave)."""
+    from music_generator_tpu_torch.ops import lstm2
+    kw = dict(dropout_p=cfg.dropout, seed=99, compute_dtype=torch.bfloat16,
+              recurrent_activation="sigmoid")
+    for axis, S, R, F, H in axis_shapes(cfg, cfg.seq_len):
+        args = lstm_inputs("lstm2", S, R, F, H, 7)
+        cudnn = torch.nn.LSTM(F, H, num_layers=2).cuda().to(torch.bfloat16)
+        cudnn.flatten_parameters()
+        x = torch.randn(S, R, F, device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            lib = cuda_ms(lambda: cudnn(x), 10)
+        for route in ("cluster", "streamed"):
+            prof = torch.zeros(2, 9, dtype=torch.int64, device="cuda")
+            with forced_scan_route(route):
+                runs = []
+                for _ in range(reps):
+                    marks = []
+                    lstm2.lstm2_fwd(*args, **kw, marks=marks, scan_prof=prof)
+                    runs.append(marks)
+                torch.cuda.synchronize()
+            per = pass_ms(runs)
+            log(f"lstm2_fwd {axis} axis passes, {route} scans (ms, mean of "
+                f"{reps - 1}; S={S}, R={R}, F={F}, H={H}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+                + f"; sum {sum(per.values()):.4f}; cuDNN nn.LSTM("
+                f"num_layers=2) forward, no grad, {lib:.4f} ({card})")
+            if route == "cluster":
+                for layer, row in enumerate(prof.cpu().tolist()):
+                    log(f"lstm2_fwd {axis} cluster scan layer {layer}: clock "
+                        f"cycles per step of block 0: product with block "
+                        f"barrier {row[0] / S:.0f}, own cell work "
+                        f"{row[1] / S:.0f}, cluster barrier {row[2] / S:.0f}; "
+                        f"cluster {row[4]} blocks, {row[5]} rows, {row[6]} "
+                        f"units a block, {-(-R // row[5])} clusters of "
+                        f"{row[8]} resident")
+                    check_plan(f"lstm2_fwd {axis} cluster scan layer {layer}",
                                R, row)
 
 
@@ -1703,27 +1837,154 @@ def time_notegen(model, card):
     return times
 
 
+# Kernel 10's instances in the SASS of its library: (dtype, units a 16-byte
+# store, pieces of the mangled name), and the immediates of the hash's
+# per-step base (seed and step multipliers, as unsigned and signed 32-bit
+# values), which must not appear in its row loop.
+MASK_SASS = {torch.float32: (4, ("stack_masks_kernelIfLi4E",)),
+             torch.bfloat16: (8, ("stack_masks_kernelI", "bfloat16",
+                                  "Li8E"))}
+MASK_BASE_IMMEDIATES = ("0x9e3779b1", "-0x61c8864f", "0x27d4eb2f")
+
+
+def sass_functions(lib_path: str) -> dict:
+    """{mangled name: [(address, instruction)]} of a built library, from
+    `cuobjdump -sass` of the toolkit that built it."""
+    from music_generator_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def mask_loop_ops(funcs: dict, dt) -> dict:
+    """Kernel 10's row loop in the SASS of its vector instance for `dt`:
+    the innermost loop (a branch back to a lower address) that holds a
+    16-byte store.  Returns its instructions (NOPs aside), the elements
+    its stores write, instructions an element, and whether it holds an
+    integer division (I2F, MUFU or a CALL) or a multiply by the hash's
+    per-step constants.  Fails when no such loop is found."""
+    units, pieces = MASK_SASS[dt]
+    names = [n for n in funcs if all(p in n for p in pieces)]
+    if len(names) != 1:
+        fail(f"lstm2_masks: found {names} for {dt} in the SASS")
+    code = funcs[names[0]]
+    best = None
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for a, i in code if int(m.group(1), 16) <= a <= addr
+                and not i.startswith("NOP")]
+        stores = sum(1 for i in body if re.search(r"\bSTG\S*\.128\b", i))
+        if stores and (best is None or len(body) < len(best[0])):
+            best = (body, stores)
+    if best is None:
+        fail(f"lstm2_masks: no row loop with a 16-byte store in {names[0]}")
+    body, stores = best
+    elements = stores * units
+    division = any(re.search(r"\b(I2F|MUFU|CALL)", i) for i in body)
+    base = any(c in i.lower() for i in body for c in MASK_BASE_IMMEDIATES)
+    return {"instructions": len(body), "elements": elements,
+            "per_element": len(body) / elements, "division": division,
+            "per_element_base": base}
+
+
+def sm_clock_mhz() -> tuple:
+    """(current, maximum) SM clock in MHz, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
+def device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device ms a launch of the kernel whose name holds `name`, from
+    a profiled run of `reps` calls of `fn` after a warm-up call: the
+    kernel's own time, without the host's time between launches.  The
+    profiler may miss the first launches of a window (18 or 19 of 20 in a
+    full chip_smoke.py run), so the mean is over the launches it shows,
+    at least half of them."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and name in e.key]
+    count = sum(e.count for e in evs)
+    if not reps // 2 <= count <= reps:
+        fail(f"the profile shows {count} launches of {name} for {reps}")
+    return sum(e.self_device_time_total for e in evs) / count / 1e3
+
+
 def time_masks(card):
-    """ms of kernel 10 and of its plain version at the time and note
-    axes' shapes (float32, as the validator dumps, and bfloat16), with the
-    bound: the bytes written at HBM rate.  Returns {(shape label, dtype
-    name): (ms, plain ms, bound ms)}."""
-    from music_generator_tpu_torch.ops import lstm2
+    """ms of kernel 10 (its device time a launch, from the profiler: the
+    wrapper's call, timed by CUDA events and logged beside it, is the
+    host's) and of its plain version at the time and note axes' shapes
+    (float32, as the validator dumps, and bfloat16), with the bound: the
+    larger of the bytes written at HBM rate and the row loop's
+    instructions (counted from the SASS, `mask_loop_ops`) for every
+    element at the card's issue rate, 132 SMs x 4 schedulers x 32 lanes a
+    clock at its maximum SM clock.  Fails if the row loop holds a division
+    or the hash's per-step base.  Returns {(shape label, dtype name): (ms,
+    plain ms, bound ms, "bytes" or "operations")}."""
+    from music_generator_tpu_torch.ops import _build, lstm2
+    funcs = sass_functions(str(_build.library_path("lstm2_masks")))
+    cur, top = sm_clock_mhz()
+    issue = 132 * 4 * 32 * top * 1e6
+    loops = {}
+    for dt in (torch.float32, torch.bfloat16):
+        loops[dt] = mask_loop_ops(funcs, dt)
+        log(f"lstm2_masks {dt} row loop (SASS): {loops[dt]}; SM clock "
+            f"{cur:.0f} MHz now, {top:.0f} MHz at most")
+        if loops[dt]["division"] or loops[dt]["per_element_base"]:
+            fail(f"lstm2_masks: the {dt} row loop holds a division or the "
+                 f"hash's per-step base")
     out = {}
     for label, (S, R, H) in (("time", MASK_SHAPES[1]),
                              ("note", MASK_SHAPES[2])):
         for dt, name in ((torch.float32, "float32"),
                          (torch.bfloat16, "bfloat16")):
-            ms = cuda_ms(lambda: lstm2.dump_masks(7, S, R, H, 0.5, dt,
-                                                  "cuda"), 50)
-            plain = cuda_ms(lambda: lstm2.stack_masks(7, S, R, H, 0.5, dt,
-                                                      "cuda"), 10)
-            bound = S * R * H * (4 if dt == torch.float32 else 2) \
+            dump = lambda: lstm2.dump_masks(7, S, R, H, 0.5, dt, "cuda")
+            plain_fn = lambda: lstm2.stack_masks(7, S, R, H, 0.5, dt,
+                                                 "cuda")
+            call = cuda_ms(dump, 50)
+            ms = device_ms(dump, "stack_masks_kernel")
+            plain = cuda_ms(plain_fn, 10)
+            if not torch.equal(dump(), plain_fn()):
+                fail(f"lstm2_masks {label} {name} differs from stack_masks")
+            n = S * R * H
+            t_bytes = n * (4 if dt == torch.float32 else 2) \
                 / HBM_BYTES_PER_S * 1e3
-            out[(label, name)] = (ms, plain, bound)
+            t_ops = n * loops[dt]["per_element"] / issue * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            out[(label, name)] = (ms, plain, bound, by)
             log(f"lstm2_masks {label} axis (S={S}, R={R}, H={H}, {name}): "
-                f"kernel {ms:.4f} ms/launch, plain version {plain:.4f} ms, "
-                f"bound {bound:.6f} ms by bytes ({card})")
+                f"kernel {ms:.4f} ms/launch on the device (profiler; the "
+                f"wrapper's call {call:.4f} ms by CUDA events, the host's "
+                f"time between launches included), plain version "
+                f"{plain:.4f} ms, "
+                f"bound {bound:.6f} ms by {by} (bytes {t_bytes:.6f}, "
+                f"operations {t_ops:.6f}: "
+                f"{loops[dt]['per_element']:.3f} instructions an element); "
+                f"{bound / ms:.3f} of the bound, bit for bit stack_masks "
+                f"({card})")
     return out
 
 
@@ -1804,6 +2065,7 @@ def main() -> None:
     lstm_errs = check_lstm_kernels(cfg)
     check_rec_fwd_staged(cfg)
     check_rec_bwd_staged(cfg)
+    check_lstm2_fwd_staged(cfg)
     check_lstm2_bwd_staged(cfg)
     mask_err = check_mask_kernel()
 
@@ -1962,13 +2224,13 @@ def main() -> None:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
         })
     mask_times = time_masks(card)
-    ms, plain, bound = mask_times[("time", "float32")]
+    ms, plain, bound, bound_by = mask_times[("time", "float32")]
     name, replaces, source = MASK_KERNEL
     kernels.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": slice_launches[name],
         "max_abs_err": mask_err, "ms": ms, "plain_ms": plain,
-        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
     })
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -297,26 +297,6 @@ __device__ __forceinline__ void matvec(const float* in, int ldi, int K,
     matvec_fma<RB>(in, ldi, K, M, Wd, Wd, scratch, epi);
 }
 
-// z = (in @ W -> T) + b, then z = z + (h @ U -> T): the two products of a
-// layer's pre-activation (`_cell_fwd`), z in shared memory [RB][4H].
-template <typename T, int RB>
-__device__ __forceinline__ void preact(const float* in, int ldi, int K,
-                                       const T* __restrict__ W,
-                                       const T* __restrict__ bias,
-                                       const float* h, int ldh, int H,
-                                       const T* __restrict__ U, float* z,
-                                       float* scratch) {
-  const int H4 = 4 * H;
-  matvec<T, RB>(in, ldi, K, W, H4, scratch,
-                [&](int rr, int c, float s) {
-                  z[rr * H4 + c] = add_t<T>(rnd<T>(s), ld(bias + c));
-                });
-  matvec<T, RB>(h, ldh, H, U, H4, scratch,
-                [&](int rr, int c, float s) {
-                  z[rr * H4 + c] = add_t<T>(z[rr * H4 + c], rnd<T>(s));
-                });
-}
-
 // The gates of pre-activation row zr at unit j: (i, f, g, o) in T.
 struct Gates { float i, f, g, o; };
 template <typename T>

@@ -67,7 +67,7 @@ struct EpiArgs {
   const T* xw;     // XW: the input projection [M][N]
 };
 
-// PRE: z = ((A1 B1 -> T) + b) + (A2 B2 -> T), the cast order of `preact`;
+// PRE: z = ((A1 B1 -> T) + b) + (A2 B2 -> T), the cast order of `_cell_fwd`;
 // `pre_first` forms the first term, exact in T, after the first product.
 // IN: P = (A B -> T) + b, that first term alone.
 // XW: z = xw + (A B -> T), the cast order of the recurrence's `_cell`.
@@ -436,8 +436,8 @@ struct ScanEnds {
 
 // The ends of a forward scan (fwd_scan_*), all null for the biaxial stacks
 // (h[-1] = 0 with no product at s = 0, c starts at zero, the final carries
-// dropped); the single-layer recurrence's forward (lstm_recurrence.cu) sets
-// all four.
+// dropped); the single-layer recurrence's forward (lstm_recurrence.cu) and
+// the fused two-layer stack's (lstm2.cu) set all four.
 struct FwdEnds {
   const float* h0;    // [R][H]: h[-1], rounded to T when read; the product
                       // then runs at s = 0 too
@@ -1303,7 +1303,7 @@ inline int launch_in(int bf16_, const void* xin, int ldx, int K,
 // 1 (bfloat16 only): U resident in a thread-block cluster; cluster = 0:
 // streamed.  prof (cluster scan only, may be null): three clock-cycle sums
 // of the first block's steps and its plan, see fwd_scan_cluster_kernel.
-// ends: see FwdEnds (the stacks pass none).
+// ends: see FwdEnds (the biaxial stacks pass none).
 inline int launch_fwd_scan(int bf16_, int cluster, const void* pre,
                            void* hs, void* cs, const void* u, PassDims d,
                            int hard, unsigned long long* prof,

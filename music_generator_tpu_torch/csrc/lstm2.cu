@@ -28,17 +28,39 @@
 // dependent steps, each a product with U (one layer's 512 KB bf16 at the
 // time axis, 128 KB at the note axis).
 //
-// Forward (simple first, biax_time.cu's design before its passes): one
-// block owns RB rows for the whole scan and keeps h, c, the gates and the
-// layer inputs in shared memory; the weights stream from L2 every step.
-// bf16 products run on the tensor cores (mma.sync, float32 accumulation),
-// float32 on the CUDA cores.
+// Both directions run as passes on the machinery of biax_passes.cuh with
+// (S, A, B) = (S, 1, R): row g of a step is tile 0, row g of `row_pos`, the
+// indexing of the mask.
 //
-// Backward, as passes on the machinery of biax_passes.cuh with (S, A, B) =
-// (S, 1, R): row g of a step is tile 0, row g of `row_pos`, the indexing of
-// the mask.  Of the eight products a step of the TPU kernel makes, only
-// dh1 <- dz1 U1^T and dh0 <- dz0 U0^T carry from step to step; the rest
-// depend on tapes the forward wrote, so they run over all S R rows at once:
+// Forward, in six passes, biax_time.cu's with initial and terminal states
+// and no style terms.  Of the four products a step of the TPU kernel makes,
+// only h0 U0 and h1 U1 carry from step to step: x0 W0 depends on nothing
+// the scan computes, and x1 W1 only on layer 0's h at the same step, which
+// a finished layer-0 scan has written.  So:
+//   1. the prologue's first part (a warp a row): xp = x0 with rows padded
+//      to 8 values (16-byte rows for the GEMM);
+//   2. layer 0's input pre-activations P = (xp W0 -> T) + b0 over all S R
+//      rows, one GEMM (launch_in, EPI_IN);
+//   3. layer 0's forward scan (launch_fwd_scan with FwdEnds): z = P[t] +
+//      (h[t-1] U0 -> T), h[-1] = h00 rounded to T, c seeded from c00; hs0
+//      always (pass 4 reads it), cs0 (the previous c) only with tapes, and
+//      the unrounded h0T and c0T at the last step;
+//   4. the prologue's second part: x1 = (hs0 * mask -> T) + s1m -> T, rows
+//      padded to 8;
+//   5. layer 1's P = (x1 W1 -> T) + b1 into the same P buffer (dead after
+//      pass 3);
+//   6. layer 1's forward scan, as 3. with h10, c10: hs1, cs1 with tapes,
+//      h1T, c1T.
+// bfloat16 scans keep U's gate columns resident in a thread-block cluster
+// (4 blocks at H = 256, one at H = 128), h exchanged through distributed
+// shared memory, one cluster barrier a step; float32 scans stream U from
+// L2.  The GEMMs run on the tensor cores in bfloat16 (mma.sync), on the
+// CUDA cores in float32.
+//
+// Backward, in seven passes.  Of the eight products a step of the TPU
+// kernel makes, only dh1 <- dz1 U1^T and dh0 <- dz0 U0^T carry from step to
+// step; the rest depend on tapes the forward wrote, so they run over all
+// S R rows at once:
 //   1. the prologue (a warp a row): xp = x0 with rows padded to 8 values,
 //      x1 = (hs0 * mask -> T) + s1m -> T, rows padded to 8;
 //   2. both layers' pre-activations z = ((in W -> T) + b) + (h_{t-1} U ->
@@ -67,125 +89,14 @@ namespace biax {
 
 struct StackDims { int S, R, F, H; };
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(1024) stack_fwd_kernel(
-    const T* __restrict__ x0, const T* __restrict__ s1m,
-    const T* __restrict__ w0, const T* __restrict__ b0,
-    const T* __restrict__ b1, const T* __restrict__ u0,
-    const T* __restrict__ w1, const T* __restrict__ u1,
-    const float* __restrict__ h00, const float* __restrict__ c00,
-    const float* __restrict__ h10, const float* __restrict__ c10, T* hs0,
-    T* cs0, T* hs1, T* cs1, float* h0T, float* c0T, float* h1T, float* c1T,
-    StackDims d, Drop drop, int hard) {
-  extern __shared__ float sm[];
-  const int F = d.F, H = d.H, H4 = 4 * H, R = d.R;
-  const int lF = padk(F), lH = padk(H);
-  // Product inputs (rows padded to 32 with zeros): xin, x1, h0, h1.
-  float* xin = sm;
-  float* x1 = xin + RB * lF;
-  float* h0 = x1 + RB * lH;
-  float* h1 = h0 + RB * lH;
-  float* c0 = h1 + RB * lH;
-  float* c1 = c0 + RB * H;
-  float* z = c1 + RB * H;
-  float* scr = z + RB * H4;
-  const int tid = threadIdx.x, nt = blockDim.x, g0 = blockIdx.x * RB;
-  for (int i = tid; i < RB * (lF + lH); i += nt) sm[i] = 0.f;
-  for (int i = tid; i < RB * lH; i += nt) {
-    const int j = i % lH, g = g0 + i / lH;
-    const bool in = j < H && g < R;
-    h0[i] = in ? rnd<T>(h00[(size_t)g * H + j]) : 0.f;
-    h1[i] = in ? rnd<T>(h10[(size_t)g * H + j]) : 0.f;
-  }
-  for (int i = tid; i < RB * H; i += nt) {
-    const int g = g0 + i / H;
-    c0[i] = g < R ? c00[(size_t)g * H + i % H] : 0.f;
-    c1[i] = g < R ? c10[(size_t)g * H + i % H] : 0.f;
-  }
-  __syncthreads();
-  for (int t = 0; t < d.S; ++t) {
-    const size_t row0 = (size_t)t * R + g0;
-    for (int i = tid; i < RB * F; i += nt) {
-      const int rr = i / F, f = i % F;
-      xin[rr * lF + f] = g0 + rr < R ? ld(x0 + row0 * F + i) : 0.f;
-    }
-    __syncthreads();
-    preact<T, RB>(xin, lF, F, w0, b0, h0, lH, H, u0, z, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float cp = c0[i];
-      float hn;
-      const float cn = cell<T>(q, cp, &hn);
-      c0[i] = cn;
-      h0[rr * lH + j] = hn;
-      float xv = 0.f;
-      if (g < R) {
-        const size_t o = row0 * H + i;
-        if (cs0) st(cs0 + o, cp);
-        if (hs0) st(hs0 + o, hn);
-        if (t == d.S - 1) {
-          h0T[(size_t)g * H + j] = __fmul_rn(q.o, tanh_t<T>(rnd<T>(cn)));
-          c0T[(size_t)g * H + j] = cn;
-        }
-        const float hv =
-            drop.on ? mul_t<T>(hn, mval(drop, S_STACK_MID, 0, t, g, H, j))
-                    : hn;
-        xv = add_t<T>(hv, ld(s1m + o));
-      }
-      x1[rr * lH + j] = xv;
-    }
-    __syncthreads();
-    preact<T, RB>(x1, lH, H, w1, b1, h1, lH, H, u1, z, scr);
-    for (int i = tid; i < RB * H; i += nt) {
-      const int rr = i / H, j = i % H, g = g0 + rr;
-      const Gates q = gates<T>(z + rr * H4, H, j, hard);
-      const float cp = c1[i];
-      float hn;
-      const float cn = cell<T>(q, cp, &hn);
-      c1[i] = cn;
-      h1[rr * lH + j] = hn;
-      if (g < R) {
-        const size_t o = row0 * H + i;
-        if (cs1) st(cs1 + o, cp);
-        st(hs1 + o, hn);
-        if (t == d.S - 1) {
-          h1T[(size_t)g * H + j] = __fmul_rn(q.o, tanh_t<T>(rnd<T>(cn)));
-          c1T[(size_t)g * H + j] = cn;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int FWD_RB = 8;   // 96 blocks on the time axis, 256 on the note axis
-
-template <typename T>
-int stack_fwd(void* const* p, StackDims d, Drop drop, int hard,
-              cudaStream_t st) {
-  const int H4 = 4 * d.H, nt = threads_for(H4), RB = FWD_RB;
-  const size_t smem = sizeof(float) *
-      (RB * (padk(d.F) + 3 * padk(d.H) + 2 * d.H + H4) + (size_t)nt * RB);
-  auto kern = stack_fwd_kernel<T, FWD_RB>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<(d.R + RB - 1) / RB, nt, smem, st>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const float*)p[8], (const float*)p[9], (const float*)p[10],
-      (const float*)p[11], (T*)p[12], (T*)p[13], (T*)p[14], (T*)p[15],
-      (float*)p[16], (float*)p[17], (float*)p[18], (float*)p[19], d, drop,
-      hard);
-  return (int)cudaGetLastError();
-}
-
-// Backward 1.: the layer inputs of every (t, row g) m = t R + g, a warp a
-// row: xp[m] = x0[m] and x1[m] = (hs0[m] * mask -> T) + s1m[m] -> T (the cast
-// order of the forward), each row padded to 8 values with zeros.
+// The layer inputs of every (t, row g) m = t R + g, a warp a row: xp[m] =
+// x0[m] (PRO_XTOT) and x1[m] = (hs0[m] * mask -> T) + s1m[m] -> T (PRO_X1;
+// the cast order of `_make_fwd_kernel`), each row padded to 8 values with
+// zeros.  The forward forms xp first (its pass 1) and x1 once layer 0 has
+// run (pass 4), the backward both at once (its pass 1).
 constexpr int PRO_ROWS = 8;   // rows (warps) a block
 
-template <typename T>
+template <typename T, int PARTS>
 __global__ void __launch_bounds__(32 * PRO_ROWS) stack_prologue_kernel(
     const T* __restrict__ x0, const T* __restrict__ s1m,
     const T* __restrict__ hs0, T* __restrict__ xp, T* __restrict__ x1,
@@ -194,46 +105,93 @@ __global__ void __launch_bounds__(32 * PRO_ROWS) stack_prologue_kernel(
   const size_t m = (size_t)blockIdx.x * PRO_ROWS + threadIdx.x / 32;
   if (m >= (size_t)d.S * R) return;
   const int t = (int)(m / R), g = (int)(m % R), lane = threadIdx.x % 32;
-  for (int c = lane; c < lx; c += 32)
-    st(xp + m * lx + c, c < F ? ld(x0 + m * F + c) : 0.f);
-  for (int j = lane; j < l1; j += 32) {
-    float v = 0.f;
-    if (j < H) {
-      float hv = ld(hs0 + m * H + j);
-      if (drop.on) hv = mul_t<T>(hv, mval(drop, S_STACK_MID, 0, t, g, H, j));
-      v = add_t<T>(hv, ld(s1m + m * H + j));
+  if constexpr ((PARTS & PRO_XTOT) != 0)
+    for (int c = lane; c < lx; c += 32)
+      st(xp + m * lx + c, c < F ? ld(x0 + m * F + c) : 0.f);
+  if constexpr ((PARTS & PRO_X1) != 0)
+    for (int j = lane; j < l1; j += 32) {
+      float v = 0.f;
+      if (j < H) {
+        float hv = ld(hs0 + m * H + j);
+        if (drop.on)
+          hv = mul_t<T>(hv, mval(drop, S_STACK_MID, 0, t, g, H, j));
+        v = add_t<T>(hv, ld(s1m + m * H + j));
+      }
+      st(x1 + m * l1 + j, v);
     }
-    st(x1 + m * l1 + j, v);
-  }
+}
+
+template <typename T, int PARTS>
+int stack_prologue(const void* x0, const void* s1m, const void* hs0,
+                   void* xp, void* x1, StackDims d, Drop drop,
+                   cudaStream_t st) {
+  const int blocks = (int)(((size_t)d.S * d.R + PRO_ROWS - 1) / PRO_ROWS);
+  stack_prologue_kernel<T, PARTS><<<blocks, 32 * PRO_ROWS, 0, st>>>(
+      (const T*)x0, (const T*)s1m, (const T*)hs0, (T*)xp, (T*)x1, d, drop);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace biax
 
-// Matrices in the layout of the compute dtype (see matvec in
-// biax_common.cuh); b0, b1 in T; initial states float32.  Pointers, in
-// order: x0 s1m w0 b0 b1 u0 w1 u1 h00 c00 h10 c10 | hs0 cs0 hs1 cs1 (hs0,
-// cs0, cs1 may be null) h0T c0T h1T c1T.
-extern "C" int lstm2_fwd(
-    int bf16, void* x0, void* s1m, void* w0, void* b0, void* b1, void* u0,
-    void* w1, void* u1, void* h00, void* c00, void* h10, void* c10, void* hs0,
-    void* cs0, void* hs1, void* cs1, void* h0T, void* c0T, void* h1T,
-    void* c1T, int S, int R, int F, int H, unsigned seed, unsigned thr,
-    float scale, int dropout, int hard, void* stream) {
+// The forward's passes, launched in order by ops/lstm2.py::lstm2_fwd, with
+// (S, A, B) = (S, 1, R) and M = S R.
+// 1., 4. The prologue's parts (PRO_XTOT or PRO_X1): xp [M][pad8(F)] = x0
+// [M][F] padded with zeros, from x0; x1 [M][pad8(H)] = (hs0 * mask -> T) +
+// s1m -> T padded with zeros, from s1m and hs0 (the others may be null).
+extern "C" int lstm2_fwd_prologue(int bf16, int part, const void* x0,
+                                  const void* s1m, const void* hs0, void* xp,
+                                  void* x1, int S, int R, int F, int H,
+                                  unsigned seed, unsigned thr, float scale,
+                                  int dropout, void* stream) {
   using namespace biax;
-  void* const p[] = {x0,  s1m, w0,  b0,  b1,  u0,  w1,  u1,  h00, c00,
-                     h10, c10, hs0, cs0, hs1, cs1, h0T, c0T, h1T, c1T};
   const StackDims d = {S, R, F, H};
   const Drop drop = {seed, thr, scale, dropout};
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) return stack_fwd<biax::bf16>(p, d, drop, hard, st);
-  return stack_fwd<float>(p, d, drop, hard, st);
+  if (part != PRO_XTOT && part != PRO_X1) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return part == PRO_XTOT
+               ? stack_prologue<biax::bf16, PRO_XTOT>(x0, s1m, hs0, xp, x1, d,
+                                                      drop, st)
+               : stack_prologue<biax::bf16, PRO_X1>(x0, s1m, hs0, xp, x1, d,
+                                                    drop, st);
+  return part == PRO_XTOT
+             ? stack_prologue<float, PRO_XTOT>(x0, s1m, hs0, xp, x1, d, drop,
+                                               st)
+             : stack_prologue<float, PRO_X1>(x0, s1m, hs0, xp, x1, d, drop,
+                                             st);
 }
 
+// 2., 5. One layer's input pre-activations P [M][4H] = (xin W -> T) + bias
+// over all M rows (launch_in, EPI_IN): xin [M][ldx] with K columns, w in
+// the layout of T.
+extern "C" int lstm2_fwd_in(int bf16, const void* xin, int ldx, int K,
+                            const void* w, const void* bias, void* pre, int M,
+                            int H, void* stream) {
+  return biax::launch_in(bf16, xin, ldx, K, w, bias, pre, M, H,
+                         (cudaStream_t)stream);
+}
+
+// 3., 6. One layer's forward scan over P (launch_fwd_scan) with its ends
+// (FwdEnds): h0 rounded to T is h[-1], c seeded from c0, the unrounded h
+// and the c carry after the last step written to hT, cT (all [R][H]
+// float32).  hs [M][H] is always written, cs (the previous c) when not
+// null.  cluster = 1 (bfloat16 only): U resident in a thread-block cluster;
+// cluster = 0: streamed; u is `_layout(U)` in both.  prof as for the
+// stacks' forward scans (may be null).
+extern "C" int lstm2_fwd_scan(int bf16, int cluster, const void* pre,
+                              void* hs, void* cs, const void* u,
+                              const float* h0, const float* c0, float* hT,
+                              float* cT, int S, int R, int H, int hard,
+                              unsigned long long* prof, void* stream) {
+  using namespace biax;
+  const PassDims d = {S, 1, R, H, 1};
+  const FwdEnds ends = {h0, c0, hT, cT};
+  return launch_fwd_scan(bf16, cluster, pre, hs, cs, u, d, hard, prof,
+                         (cudaStream_t)stream, ends);
+}
 
 // The backward's passes, launched in order by ops/lstm2.py::lstm2_bwd.
-// 1. The prologue over M = S R rows: xp [M][pad8(F)] = x0 [M][F] padded
-// with zeros, x1 [M][pad8(H)] = (hs0 * mask -> T) + s1m -> T padded with
-// zeros.
+// 1. The prologue over M = S R rows, both parts.
 extern "C" int lstm2_bwd_prologue(int bf16, const void* x0, const void* s1m,
                                   const void* hs0, void* xp, void* x1, int S,
                                   int R, int F, int H, unsigned seed,
@@ -242,17 +200,12 @@ extern "C" int lstm2_bwd_prologue(int bf16, const void* x0, const void* s1m,
   using namespace biax;
   const StackDims d = {S, R, F, H};
   const Drop drop = {seed, thr, scale, dropout};
-  const int blocks = (int)(((size_t)S * R + PRO_ROWS - 1) / PRO_ROWS);
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    stack_prologue_kernel<biax::bf16><<<blocks, 32 * PRO_ROWS, 0, st>>>(
-        (const biax::bf16*)x0, (const biax::bf16*)s1m,
-        (const biax::bf16*)hs0, (biax::bf16*)xp, (biax::bf16*)x1, d, drop);
-  else
-    stack_prologue_kernel<float><<<blocks, 32 * PRO_ROWS, 0, st>>>(
-        (const float*)x0, (const float*)s1m, (const float*)hs0, (float*)xp,
-        (float*)x1, d, drop);
-  return (int)cudaGetLastError();
+    return stack_prologue<biax::bf16, PRO_XTOT | PRO_X1>(x0, s1m, hs0, xp, x1,
+                                                         d, drop, st);
+  return stack_prologue<float, PRO_XTOT | PRO_X1>(x0, s1m, hs0, xp, x1, d,
+                                                  drop, st);
 }
 
 // 2. One layer's pre-activations z [M][4H] = ((xin W -> T) + bias) + (hp U

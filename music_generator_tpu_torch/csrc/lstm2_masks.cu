@@ -11,33 +11,77 @@
 // kernel calls that same function: element (t, g, j) of the output is 1/keep
 // in T where the stack keeps h0 and 0 where it drops it.
 //
-// One thread per element: grid.y walks the steps, grid.x the R*H elements
-// of a step in 32-bit index math (one division a thread).  The work is the
-// hash and one store per element, so the bound is the bytes written
-// (S R H sizeof(T)).
+// The grid is (row blocks, steps): block (x, t) writes rows g0 = x MASK_ROWS
+// .. of step t.  A thread owns V consecutive units j0 .. j0 + V - 1 of a row
+// (V = 8 in bfloat16, 4 in float32) and writes them with one 16-byte store;
+// threadIdx.x walks the row's V-unit chunks, threadIdx.y the rows, and each
+// thread loops over MASK_ROWS / blockDim.y rows of its block.  No index is
+// divided: the step's part of the hash (seed, site, tile, step) is the same
+// for every element the thread writes, so the compiler hoists it out of
+// the row loop, and an element costs the hash of r W + col alone (an add,
+// three shift-xors, two multiplies, a compare and a select).  Where H is
+// not a multiple of V (the tests' odd widths), the rows are not 16-byte
+// aligned and the launch takes the scalar instance (V = 1).
+//
+// What bounds it.  The bytes written, S R H sizeof(T), at 3.35 TB/s, or the
+// hash's instructions for the S R H elements at the card's issue rate (132
+// SMs x 4 schedulers x 32 lanes a clock): chip_smoke.py counts the
+// instructions an element of the row loop from this kernel's SASS and
+// reports the larger of the two.
 
 #include "biax_common.cuh"
 
 namespace biax {
 
-constexpr int MASK_THREADS = 256;
+constexpr int MASK_THREADS = 256, MASK_ROWS = 32;   // a block
 
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(MASK_THREADS) stack_masks_kernel(
     T* __restrict__ out, int R, int H, Drop drop) {
   const int t = blockIdx.y;
-  const int i = blockIdx.x * MASK_THREADS + threadIdx.x;   // g * H + j
-  if (i >= R * H) return;
-  const int g = i / H;
-  const int j = i - g * H;
-  st<T>(out + (size_t)t * R * H + i,
-        mval(drop, S_STACK_MID, 0, t, g, H, j));
+  const int g0 = blockIdx.x * MASK_ROWS;
+  const int g1 = min(g0 + MASK_ROWS, R);
+  T* step = out + (size_t)t * R * H;
+  for (int j0 = threadIdx.x * V; j0 < H; j0 += blockDim.x * V) {
+#pragma unroll 1
+    for (int g = g0 + threadIdx.y; g < g1; g += blockDim.y) {
+      T* dst = step + (size_t)g * H + j0;
+      if constexpr (V == 1) {
+        const int j = j0;
+        st<T>(dst, mval(drop, S_STACK_MID, 0, t, g, H, j));
+      } else {
+        float v[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int j = j0 + e;
+          v[e] = mval(drop, S_STACK_MID, 0, t, g, H, j);
+        }
+        uint4 q;
+        if constexpr (std::is_same<T, bf16>::value) {
+          q = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        } else {
+          q = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                         __float_as_uint(v[2]), __float_as_uint(v[3]));
+        }
+        *reinterpret_cast<uint4*>(dst) = q;
+      }
+    }
+  }
 }
 
 template <typename T>
 int stack_masks(void* out, int S, int R, int H, Drop drop, cudaStream_t st) {
-  const dim3 grid((R * H + MASK_THREADS - 1) / MASK_THREADS, S);
-  stack_masks_kernel<T><<<grid, MASK_THREADS, 0, st>>>((T*)out, R, H, drop);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = H % V == 0;
+  const int chunks = vec ? H / V : H;
+  const int tx = chunks < 32 ? chunks : 32;
+  const dim3 grid((R + MASK_ROWS - 1) / MASK_ROWS, S);
+  const dim3 block(tx, MASK_THREADS / tx);
+  if (vec)
+    stack_masks_kernel<T, V><<<grid, block, 0, st>>>((T*)out, R, H, drop);
+  else
+    stack_masks_kernel<T, 1><<<grid, block, 0, st>>>((T*)out, R, H, drop);
   return (int)cudaGetLastError();
 }
 

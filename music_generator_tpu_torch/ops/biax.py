@@ -778,6 +778,9 @@ def _pad8(n: int) -> int:
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernels take CUDA tensors, got one "
+                         f"on {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: every tensor must be on {dev}, got "

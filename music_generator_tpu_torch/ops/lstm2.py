@@ -1,6 +1,6 @@
 """One DeepJ axis as a fused two-layer LSTM stack: the JAX package's
 `ops/pallas_lstm2.py` (`pallas_lstm2`) as hand-written CUDA kernels
-(`csrc/lstm2.cu`: a fused forward, a backward in passes) inside a
+(`csrc/lstm2.cu`: forward and backward in passes) inside a
 `torch.autograd.Function`, beside its plain PyTorch version.
 
     lstm2_stack(x0 [S,R,F], s1m [S,R,H], w0 [F,4H], b0, b1 [4H],
@@ -25,6 +25,16 @@ compute dtype.  It is a pure function of (seed, step, row, unit), so it
 does not depend on how any kernel tiles the rows, and the forward and the
 backward regenerate the same mask.
 
+On CUDA tensors the forward runs as passes (`lstm2_fwd`, the biaxial
+stacks' machinery), since only h0 U0 and h1 U1 carry from step to step:
+x0 padded to 16-byte rows, layer 0's input pre-activations (x0 W0 -> T) +
+b0 as one bulk GEMM, layer 0's forward scan from h00, c00 (writing h0T,
+c0T), x1 = (hs0 * mask -> T) + s1m -> T, layer 1's GEMM, and layer 1's
+forward scan from h10, c10 (writing h1T, c1T).  The scans keep U resident
+in a thread-block cluster in bfloat16 and stream it in float32, by
+`biax.scan_route`.  `lstm2_fwd_staged` is those passes in plain PyTorch,
+their yardstick (tests, chip_smoke.py).
+
 The backward is `_bwd_impl`'s (pallas_lstm2.py:357-447): dh1T joins the
 cotangent of hs1[S-1] (summed in float32, then rounded to the compute
 dtype), dc0T and dc1T seed the dc carries, and the cotangent of h0T is
@@ -48,8 +58,9 @@ Pallas `tapes=False` variant).
 On a CPU tensor the wrapper runs the plain version
 (`lstm2_stack_reference`); on a CUDA tensor it launches the kernels or
 raises.  Launch counters: `lstm2_stack.fwd_launches` / `.bwd_launches`,
-the backward's scans by route `.cluster_scans` / `.streamed_scans`; the
-plain version counts `.calls`.
+the forward's scans by route `.fwd_cluster_scans` / `.fwd_streamed_scans`,
+the backward's `.cluster_scans` / `.streamed_scans`; the plain version
+counts `.calls`.
 
 `dump_masks` writes the stack's masks out as one [S, R, H] array (the
 JAX package's `extract_masks` of tools/tpu_validate_lstm2.py) through the
@@ -64,10 +75,11 @@ import torch
 
 from music_generator_tpu_torch.ops import _build, biax
 from music_generator_tpu_torch.ops.biax import (WGRAD_CHUNKS, _F, _P, _I, _U,
-                                                _WGRAD, _apply, _cell, _check,
-                                                _dot, _is_bf16, _keep_bits,
-                                                _keep_scale, _layout,
-                                                _marker, _mask_args,
+                                                _PRO_X1, _PRO_XTOT, _WGRAD,
+                                                _apply, _cell, _check, _dot,
+                                                _forward_scan, _is_bf16,
+                                                _keep_bits, _keep_scale,
+                                                _layout, _marker, _mask_args,
                                                 _on_cuda, _pad8, _ptr,
                                                 _reverse_scan, _stream,
                                                 _wgrad)
@@ -77,7 +89,10 @@ S_STACK_MID = 6     # mask site salt (Site in csrc/biax_common.cuh); 0-5 are
                     # the biaxial stacks' sites
 
 _SIGNATURES = {
-    "lstm2_fwd": [_I] + [_P] * 20 + [_I] * 4 + [_U, _U, _F, _I, _I, _P],
+    "lstm2_fwd_prologue": [_I, _I] + [_P] * 5 + [_I] * 4 + [_U, _U, _F, _I,
+                                                           _P],
+    "lstm2_fwd_in": [_I, _P, _I, _I] + [_P] * 3 + [_I, _I, _P],
+    "lstm2_fwd_scan": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P, _P],
     "lstm2_bwd_prologue": [_I] + [_P] * 5 + [_I] * 4 + [_U, _U, _F, _I, _P],
     "lstm2_bwd_preact": [_I, _P, _I, _I] + [_P] * 5 + [_I, _I, _P],
     "lstm2_bwd_scan": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P, _P],
@@ -175,39 +190,120 @@ def lstm2_stack_reference(x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00, h10,
 lstm2_stack_reference.calls = 0
 
 
+def lstm2_fwd_staged(x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00, h10, c10,
+                     dropout_p: float = 0.0, seed: int = 0,
+                     compute_dtype=torch.float32,
+                     recurrent_activation: str = "sigmoid",
+                     tapes: bool = True):
+    """The forward as the CUDA passes compute it, in plain PyTorch (no
+    autograd), with their cast points and mask:
+
+      1. - 2. layer 0's input pre-activations P0 = (x0 W0 -> T) + b0 over
+         all S R rows at once;
+      3. layer 0's forward scan (`biax._forward_scan`): z = P0[t] + (h[t-1]
+         U0 -> T), h[-1] = h00, c seeded from c00, gates in T, c in
+         float32, h = o tanh(c -> T);
+      4. x1 = (hs0 * mask -> T) + s1m -> T;
+      5. P1 = (x1 W1 -> T) + b1;
+      6. layer 1's forward scan, as 3. with h10, c10.
+
+    Returns the results of `lstm2_fwd`: (hs0, cs0, hs1, cs1 [S, R, H] in
+    the compute dtype, h after step t and c before it; h0T, c0T, h1T, c1T
+    [R, H] float32, h not rounded); hs0, cs0 and cs1 are None without
+    `tapes`."""
+    cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
+    S, R, _ = x0.shape
+    H = u0.shape[0]
+    x0, s1m = x0.to(cdt), s1m.to(cdt)
+    W0, U0, W1, U1 = (w.to(cdt) for w in (w0, u0, w1, u1))
+    B0, B1 = b0.reshape(-1).to(cdt), b1.reshape(-1).to(cdt)
+    masks = stack_masks(seed, S, R, H, 1.0 - dropout_p, cdt, x0.device)
+    # 1. - 3.
+    hs0, cs0, h0T, c0T = _forward_scan(_dot(x0, W0).to(cdt) + B0, U0, hard,
+                                       h0=h00, c0=c00, ends=True)
+    # 4. - 6.
+    x1 = _apply(hs0, masks) + s1m
+    hs1, cs1, h1T, c1T = _forward_scan(_dot(x1, W1).to(cdt) + B1, U1, hard,
+                                       h0=h10, c0=c10, ends=True)
+    if not tapes:
+        hs0 = cs0 = cs1 = None
+    return hs0, cs0, hs1, cs1, h0T, c0T, h1T, c1T
+
+
 def lstm2_fwd(x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00, h10, c10,
               dropout_p: float = 0.0, seed: int = 0,
               compute_dtype=torch.float32,
-              recurrent_activation: str = "sigmoid", tapes: bool = True):
-    """Kernel 6 on CUDA tensors (`lstm2_fwd`): (hs0, cs0, hs1, cs1 [S, R, H]
-    in the compute dtype, h after step t and c before it; h0T, c0T, h1T,
-    c1T [R, H] float32, h not rounded).  hs0, cs0 and cs1 are None without
-    `tapes`.  Counts `lstm2_stack.fwd_launches`."""
+              recurrent_activation: str = "sigmoid", tapes: bool = True,
+              marks=None, scan_prof: Optional[torch.Tensor] = None):
+    """Kernel 6 on CUDA tensors: the arguments and results of
+    `lstm2_fwd_staged`, whose six passes it runs (csrc/lstm2.cu):
+    `lstm2_fwd_prologue` (xp), `lstm2_fwd_in` and `lstm2_fwd_scan` of
+    layer 0, the prologue's x1, then `lstm2_fwd_in` and `lstm2_fwd_scan` of
+    layer 1.  The scans take `biax.scan_route(compute_dtype)`; without
+    tapes hs0 is scratch and cs0, cs1 are not written.  With a list
+    `marks`, a recorded CUDA event is appended after each pass, as (name,
+    event), behind ("start", event): "xp", "in0", "scan0", "x1", "in1",
+    "scan1".  With an int64 tensor `scan_prof` [2, 9] on the card, the
+    cluster scans of layers 0 and 1 write their first block's clock cycles
+    per phase and their plan, as the biaxial forwards' scans do.  Counts
+    `lstm2_stack.fwd_launches`, and `.fwd_cluster_scans` or
+    `.fwd_streamed_scans` once per scan."""
     cdt, hard = compute_dtype, recurrent_activation == "hard_sigmoid"
     dev = _on_cuda("lstm2_stack", x0, s1m, w0, b0, b1, u0, w1, u1, h00, c00,
                    h10, c10)
     S, R, Fin = x0.shape
     H = u0.shape[0]
-    xs = [t.to(cdt).contiguous() for t in (x0, s1m)]
-    ws = [t.to(cdt).contiguous() for t in (w0, b0.reshape(-1),
-                                           b1.reshape(-1), u0, w1, u1)]
-    st = [t.float().contiguous() for t in (h00, c00, h10, c10)]
-    new = lambda: torch.empty(S, R, H, dtype=cdt, device=dev)
-    hs1 = new()
-    hs0, cs0, cs1 = (new(), new(), new()) if tapes else (None,) * 3
+    M = S * R
+    x0, s1m, w0, b0, b1, u0, w1, u1 = (
+        t.to(cdt).contiguous() for t in (x0, s1m, w0, b0.reshape(-1),
+                                         b1.reshape(-1), u0, w1, u1))
+    h00, c00, h10, c10 = (t.float().contiguous()
+                          for t in (h00, c00, h10, c10))
+    e = lambda *shape: torch.empty(*shape, dtype=cdt, device=dev)
+    # Rows padded to 8 values (zeros): 16-byte rows for the products.
+    xp, x1 = e(S, R, _pad8(Fin)), e(S, R, _pad8(H))
+    pre = e(S, R, 4 * H)               # P of layer 0, then of layer 1
+    hs0, hs1 = e(S, R, H), e(S, R, H)
+    cs0, cs1 = (e(S, R, H), e(S, R, H)) if tapes else (None, None)
     fin = [torch.empty(R, H, device=dev) for _ in range(4)]
-    mats = [_layout(ws[0]), ws[1], ws[2], _layout(ws[3]), _layout(ws[4]),
-            _layout(ws[5])]
+    w0, u0, w1, u1 = (_layout(w) for w in (w0, u0, w1, u1))
+    route = biax.scan_route(cdt)
     lib = _build.bind("lstm2", _SIGNATURES)
+    bf, st = _is_bf16(cdt), _stream(dev)
+    drop = _mask_args(dropout_p, seed, cdt)
+    mark = _marker(marks)
+
+    def prologue(part, name):
+        _check(lib.lstm2_fwd_prologue(
+            bf, part, *(t.data_ptr() for t in (x0, s1m, hs0, xp, x1)), S, R,
+            Fin, H, *drop, st), "lstm2_fwd_prologue")
+        mark(name)
+
+    def layer(i, xin, K, w, b, u, hs, cs, h0, c0, hT, cT):
+        _check(lib.lstm2_fwd_in(bf, xin.data_ptr(), xin.shape[-1], K,
+                                w.data_ptr(), b.data_ptr(), pre.data_ptr(),
+                                M, H, st), "lstm2_fwd_in")
+        mark(f"in{i}")
+        prof = None if scan_prof is None else scan_prof[i]
+        _check(lib.lstm2_fwd_scan(
+            bf, int(route == "cluster"), pre.data_ptr(), hs.data_ptr(),
+            _ptr(cs), u.data_ptr(), *(t.data_ptr() for t in (h0, c0, hT,
+                                                             cT)),
+            S, R, H, int(hard), _ptr(prof), st), f"lstm2_fwd_scan ({route})")
+        mark(f"scan{i}")
+        if route == "cluster":
+            lstm2_stack.fwd_cluster_scans += 1
+        else:
+            lstm2_stack.fwd_streamed_scans += 1
+
     with torch.cuda.device(dev):
-        _check(lib.lstm2_fwd(
-            _is_bf16(cdt), *(t.data_ptr() for t in xs + mats + st),
-            _ptr(hs0), _ptr(cs0), hs1.data_ptr(), _ptr(cs1),
-            *(t.data_ptr() for t in fin), S, R, Fin, H,
-            *_mask_args(dropout_p, seed, cdt), int(hard), _stream(dev)),
-            "lstm2_fwd")
+        mark("start")
+        prologue(_PRO_XTOT, "xp")
+        layer(0, xp, Fin, w0, b0, u0, hs0, cs0, h00, c00, *fin[:2])
+        prologue(_PRO_X1, "x1")
+        layer(1, x1, H, w1, b1, u1, hs1, cs1, h10, c10, *fin[2:])
     lstm2_stack.fwd_launches += 1
-    return (hs0, cs0, hs1, cs1, *fin)
+    return ((hs0 if tapes else None), cs0, hs1, cs1, *fin)
 
 
 def lstm2_bwd_staged(x0, s1m, w0, b0, b1, u0, w1, u1, h00, h10, hs0, cs0,
@@ -436,5 +532,7 @@ def lstm2_stack(x0, s1m, w0, b0, b1, u0, w1, u1, h00=None, c00=None,
 
 lstm2_stack.fwd_launches = 0
 lstm2_stack.bwd_launches = 0
+lstm2_stack.fwd_cluster_scans = 0
+lstm2_stack.fwd_streamed_scans = 0
 lstm2_stack.cluster_scans = 0
 lstm2_stack.streamed_scans = 0
