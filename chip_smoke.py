@@ -78,6 +78,16 @@ Phases (any failure exits non-zero, before the result line):
      byte identity reported), a self-consistency run, and check_fidelity
      at seeds 0 and 1 (event identity required on every file); every
      kernel must have been launched in 3g-3h;
+  3i. serving: the HTTP service (music_generator_tpu_torch/serving) at
+     default_config() with the r4 weights, every batch bucket warmed up,
+     over a real socket: /healthz, solo requests, 16 concurrent ones
+     (fewer than 16 device calls), a /generate_batch of 16, two 64-bar
+     requests time-sliced beside 1-bar riders (which must finish first)
+     and a primed request, each response byte-identical to its solo run
+     through the port's Sampler; a burst past max_pending=2 must shed with
+     503 and Retry-After; the cluster pitch-loop kernel launched at every
+     timestep the service ran, the streamed kernel and the plain version
+     never; latencies logged;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -102,7 +112,9 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import io
 import itertools
 import json
 import os
@@ -110,7 +122,10 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 
 import numpy as np
@@ -1773,6 +1788,244 @@ def primed_generation(cfg):
     return report
 
 
+def _post(url: str, payload: dict, path: str = "/generate"):
+    """POST `payload` as JSON; returns (status, headers, body), an HTTP
+    error status included."""
+    req = urllib.request.Request(
+        url + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _in_threads(fn, args_list):
+    """Call fn(*args) for every args in its own thread, all started
+    together; returns the results in order (an exception fails)."""
+    out, errs = [None] * len(args_list), []
+
+    def run(i):
+        try:
+            out[i] = fn(*args_list[i])
+        except Exception as e:      # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(args_list))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or any(t.is_alive() for t in threads):
+        fail(f"serving: requests failed or hung: {errs[:3]}")
+    return out
+
+
+def serving(cfg, card):
+    """Phase 3i: the HTTP service on the card at default_config() with the
+    r4 weights, over a real socket on 127.0.0.1, every bucket warmed up.
+    Every response must equal, byte for byte, its solo run: the port's
+    Sampler.generate([mixture], seed, stream_indices=[index]) written
+    through the service's encoder (computed before the traffic): solo
+    requests, 16 concurrent ones (fewer than 16 device calls), a
+    /generate_batch of 16, two 64-bar requests time-sliced beside 1-bar
+    riders (which must finish before the long pieces), and a primed
+    request; a burst past max_pending=2 must shed with 503 and
+    Retry-After.  The pitch loop must launch the cluster kernel at every
+    timestep the service ran, and nothing else.  Times are logged."""
+    from music_generator_tpu_torch.data.dataset import (compute_genre,
+                                                        decode_prime)
+    from music_generator_tpu_torch.generation.sampler import (Sampler,
+                                                              prepend_prime)
+    from music_generator_tpu_torch.midi import read_midifile
+    from music_generator_tpu_torch.ops import notegen
+    from music_generator_tpu_torch.params import load_params_npz
+    from music_generator_tpu_torch.serving import (DeepJHTTPServer,
+                                                   GenerationService,
+                                                   make_handler)
+    from music_generator_tpu_torch.utils import one_hot
+    t0 = time.perf_counter()
+    service = GenerationService(config=cfg, params=load_params_npz(PARAMS),
+                                warmup_buckets=64)
+    log(f"serving: service built and 7 buckets warmed up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    genre = [compute_genre(g, cfg) for g in range(3)]
+    solo_reqs = [(g, s) for s in (0, 1) for g in range(3)]
+    conc_reqs = [(i % 3, 100 + i) for i in range(16)]
+    riders = [(0, 300 + i) for i in range(4)]
+    longs = [(0, 200), (1, 201)]
+    prime_file = os.path.join(DEMOS, "primed_Baroque.mid")
+    prime = decode_prime(prime_file, 8, config=cfg)
+
+    # The solo runs, before the traffic and its counts.
+    sampler = Sampler(service.model)
+
+    def ref(mix, bars, seed, index=0, prime=None):
+        notes = sampler.generate([mix], num_bars=bars, seed=seed,
+                                 stream_indices=[index], prime=prime).notes
+        if prime is not None:
+            notes = prepend_prime(notes, prime)
+        return service._encode_midi(notes[0])
+
+    want = {
+        "solo": [ref(genre[g], 8, s) for g, s in solo_reqs],
+        "concurrent16": [ref(genre[g], 8, s) for g, s in conc_reqs],
+        "batch16": [ref(one_hot(i, cfg.num_styles), 8, 7, index=i)
+                    for i in range(16)],
+        "longs": [ref(genre[g], 64, s) for g, s in longs],
+        "riders": [ref(genre[g], 1, s) for g, s in riders],
+        "primed": [ref(genre[0], 8, 11, prime=prime)],
+    }
+    prime_b64 = base64.b64encode(open(prime_file, "rb").read()).decode()
+
+    httpd = DeepJHTTPServer(("127.0.0.1", 0), make_handler(service))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    steps = [0]
+    run_chunk = service._sampler._chunk
+
+    def counted_chunk(style_emb, state, num_steps, t0):
+        steps[0] += num_steps
+        return run_chunk(style_emb, state, num_steps, t0)
+
+    service._sampler._chunk = counted_chunk
+    notegen.note_sample.launches = 0
+    notegen.note_sample_streamed.launches = 0
+    notegen.note_sample_reference.calls = 0
+    calls0 = service.device_calls
+    got, times = {}, {}
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                fail("serving: /healthz did not answer ok")
+
+        def timed(payload, path="/generate"):
+            t = time.perf_counter()
+            status, headers, body = _post(url, payload, path)
+            ms = (time.perf_counter() - t) * 1e3
+            if status != 200:
+                fail(f"serving: {path} {payload} answered {status}: "
+                     f"{body[:200]}")
+            return body, ms, time.perf_counter()
+
+        solo = [timed({"genre": g, "bars": 8, "seed": s})
+                for g, s in solo_reqs]
+        got["solo"] = [b for b, _, _ in solo]
+        times["solo"] = [ms for _, ms, _ in solo]
+
+        c0 = service.device_calls
+        t = time.perf_counter()
+        conc = _in_threads(timed, [({"genre": g, "bars": 8, "seed": s},)
+                                   for g, s in conc_reqs])
+        times["concurrent16"] = (time.perf_counter() - t) * 1e3
+        conc_calls = service.device_calls - c0
+        got["concurrent16"] = [b for b, _, _ in conc]
+        if conc_calls >= 16:
+            fail(f"serving: 16 concurrent requests took {conc_calls} "
+                 f"device calls: nothing coalesced")
+
+        body, times["batch16"], _ = timed(
+            {"styles_list": [[i] for i in range(16)], "bars": 8, "seed": 7},
+            "/generate_batch")
+        got["batch16"] = [base64.b64decode(f)
+                          for f in json.loads(body)["files"]]
+
+        long_threads = []
+        long_out = [None, None]
+
+        def long_request(i):
+            long_out[i] = timed({"genre": longs[i][0], "bars": 64,
+                                 "seed": longs[i][1]})
+
+        c0 = service.device_calls
+        for i in range(2):
+            long_threads.append(threading.Thread(target=long_request,
+                                                 args=(i,)))
+            long_threads[-1].start()
+        deadline = time.perf_counter() + 60
+        while service.device_calls == c0 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        if service.device_calls == c0:
+            fail("serving: the 64-bar requests never ran a slice")
+        rider_out = [timed({"genre": g, "bars": 1, "seed": s})
+                     for g, s in riders]
+        for th in long_threads:
+            th.join(timeout=600)
+        if any(o is None for o in long_out):
+            fail("serving: a 64-bar request failed")
+        got["longs"] = [b for b, _, _ in long_out]
+        got["riders"] = [b for b, _, _ in rider_out]
+        times["riders"] = sorted(ms for _, ms, _ in rider_out)
+        last_rider = max(done for _, _, done in rider_out)
+        first_long = min(done for _, _, done in long_out)
+        if last_rider >= first_long:
+            fail("serving: a 1-bar rider finished after a 64-bar job")
+
+        body, times["primed"], _ = timed({
+            "genre": 0, "bars": 8, "seed": 11, "prime_midi": prime_b64,
+            "prime_bars": 8})
+        got["primed"] = [body]
+    finally:
+        service._sampler._chunk = run_chunk
+    launches = notegen.note_sample.launches
+    calls = service.device_calls - calls0
+    log(f"serving: {calls} device calls ran {steps[0]} timesteps: notegen "
+        f"launches {launches}, streamed kernel launches "
+        f"{notegen.note_sample_streamed.launches}, plain version calls "
+        f"{notegen.note_sample_reference.calls}")
+    if (launches != steps[0] or notegen.note_sample_streamed.launches
+            or notegen.note_sample_reference.calls):
+        fail("serving: the service's timesteps did not all go through "
+             "the cluster kernel")
+
+    # A burst past max_pending=2 (outside the counted traffic).
+    service.max_pending = 2
+    try:
+        burst = _in_threads(_post, [(url, {"genre": 0, "bars": 8,
+                                           "seed": 400 + i},)
+                                    for i in range(12)])
+    finally:
+        service.max_pending = 256
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    shed = [h for s, h, _ in burst if s == 503]
+    served = [b for s, _, b in burst if s == 200]
+    if not shed or any(not h.get("Retry-After") for h in shed):
+        fail(f"serving: the burst was not shed with 503 and Retry-After "
+             f"({[s for s, _, _ in burst]})")
+    if len(shed) + len(served) != len(burst):
+        fail(f"serving: the burst got other answers than 200 and 503 "
+             f"({[s for s, _, _ in burst]})")
+    for b in served:
+        read_midifile(io.BytesIO(b))
+    log(f"serving: burst of {len(burst)} past max_pending=2: {len(shed)} "
+        f"shed with 503 + Retry-After, {len(served)} valid .mid")
+
+    n_same = n_all = 0
+    for key, files in want.items():
+        same = [a == b for a, b in zip(got[key], files)]
+        n_same += sum(same)
+        n_all += len(files)
+        log(f"serving {key}: {sum(same)}/{len(files)} byte-identical to "
+            f"their solo runs")
+    if n_same != n_all:
+        fail(f"serving: {n_all - n_same} of {n_all} responses differ from "
+             f"their solo runs")
+    log(f"serving: first solo request {times['solo'][0]:.1f} ms, the "
+        f"other five {', '.join(f'{t:.1f}' for t in times['solo'][1:])} ms "
+        f"(8 bars, G = 1); concurrent16 {times['concurrent16']:.1f} ms "
+        f"wall in {conc_calls} device calls; batch16 "
+        f"{times['batch16']:.1f} ms; riders beside two 64-bar jobs p50 "
+        f"{times['riders'][len(times['riders']) // 2]:.1f} ms, p95 "
+        f"{times['riders'][-1]:.1f} ms; primed (8 + 8 bars) "
+        f"{times['primed']:.1f} ms ({card})")
+    return launches
+
+
 def check_notegen_plans(cfg):
     """Print the cluster pitch-loop kernel's plan at G = 1, 3, 8, 64 and
     256 beside the clusters the card holds at once
@@ -2143,6 +2396,9 @@ def main() -> None:
     if notegen.note_sample_streamed.launches:
         fail("the streamed pitch-loop kernel ran on the validators' and "
              "primed generation's path")
+
+    # -- 3i. the HTTP service on the card -------------------------------------
+    serving(cfg, card)
 
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
