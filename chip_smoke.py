@@ -82,12 +82,24 @@ Phases (any failure exits non-zero, before the result line):
      default_config() with the r4 weights, every batch bucket warmed up,
      over a real socket: /healthz, solo requests, 16 concurrent ones
      (fewer than 16 device calls), a /generate_batch of 16, two 64-bar
-     requests time-sliced beside 1-bar riders (which must finish first)
-     and a primed request, each response byte-identical to its solo run
-     through the port's Sampler; a burst past max_pending=2 must shed with
-     503 and Retry-After; the cluster pitch-loop kernel launched at every
-     timestep the service ran, the streamed kernel and the plain version
-     never; latencies logged;
+     requests time-sliced beside 1-bar riders (which must finish first),
+     a primed request, 32 and 48 requests queued behind the execution
+     lock (each lot one device call at bucket 32 and 64) and
+     /generate_batch of 64 and 24 (buckets 64 and 32), each response
+     byte-identical to its solo run through the port's Sampler; a burst
+     past max_pending=2 must shed with 503 and Retry-After; the cluster
+     pitch-loop kernel launched at every timestep the service ran, the
+     streamed kernel and the plain version never; latencies logged;
+  3j. the Keras 2 interchange, with the port's own HDF5 reader and writer
+     (no h5py): both committed model.h5 files equal to their params.npz
+     bit for bit (the import's host time printed), generate_main
+     --from-keras writing phase 3's bytes on the cluster kernel,
+     train_main --from-keras (1 epoch of the 3c corpus) starting from the
+     file's weights with a fresh Nadam at step 0 and each biaxial kernel
+     launched once a step, tools/export_keras.py of that checkpoint read
+     back bit for bit, a --from-keras service answering with the bytes of
+     a --params one, visualize_main --from-keras writing on the card the
+     TSV text it writes on the CPU, and analyze_main on the 3c corpus;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -142,6 +154,7 @@ from music_generator_tpu_torch.tools.validate_biax import (PARITY_BAR,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAMS = os.path.join(ROOT, "artifacts", "trained_model_r4", "params.npz")
+R4_H5 = os.path.join(ROOT, "artifacts", "trained_model_r4", "model.h5")
 SHORT = os.path.join(ROOT, "artifacts", "short_samples_r4")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -1831,8 +1844,11 @@ def serving(cfg, card):
     through the service's encoder (computed before the traffic): solo
     requests, 16 concurrent ones (fewer than 16 device calls), a
     /generate_batch of 16, two 64-bar requests time-sliced beside 1-bar
-    riders (which must finish before the long pieces), and a primed
-    request; a burst past max_pending=2 must shed with 503 and
+    riders (which must finish before the long pieces), a primed request,
+    32 and 48 requests queued while the test holds the execution lock
+    (each lot one device call, at bucket 32 and 64) and /generate_batch
+    of 64 and 24 (buckets 64 and 32); a burst past max_pending=2 must
+    shed with 503 and
     Retry-After.  The pitch loop must launch the cluster kernel at every
     timestep the service ran, and nothing else.  Times are logged."""
     from music_generator_tpu_torch.data.dataset import (compute_genre,
@@ -1869,6 +1885,13 @@ def serving(cfg, card):
             notes = prepend_prime(notes, prime)
         return service._encode_midi(notes[0])
 
+    # The larger buckets: requests coalesced into one call of 32 (bucket
+    # 32) and of 48 (bucket 64, 16 rows padding), /generate_batch of 64
+    # (bucket 64) and of 24 (bucket 32, 8 rows padding).
+    held = {32: [(i % 3, 500 + i) for i in range(32)],
+            48: [(i % 3, 600 + i) for i in range(48)]}
+    batches = {64: 9, 24: 10}                   # size -> seed
+    t0 = time.perf_counter()
     want = {
         "solo": [ref(genre[g], 8, s) for g, s in solo_reqs],
         "concurrent16": [ref(genre[g], 8, s) for g, s in conc_reqs],
@@ -1878,6 +1901,14 @@ def serving(cfg, card):
         "riders": [ref(genre[g], 1, s) for g, s in riders],
         "primed": [ref(genre[0], 8, 11, prime=prime)],
     }
+    for n, reqs in held.items():
+        want[f"coalesced{n}"] = [ref(genre[g], 8, s) for g, s in reqs]
+    for n, seed in batches.items():
+        want[f"batch{n}"] = [ref(one_hot(i % cfg.num_styles,
+                                         cfg.num_styles), 8, seed, index=i)
+                             for i in range(n)]
+    log(f"serving: {sum(len(v) for v in want.values())} solo reference "
+        f"runs in {time.perf_counter() - t0:.1f} s")
     prime_b64 = base64.b64encode(open(prime_file, "rb").read()).decode()
 
     httpd = DeepJHTTPServer(("127.0.0.1", 0), make_handler(service))
@@ -1885,10 +1916,12 @@ def serving(cfg, card):
     server.start()
     url = f"http://127.0.0.1:{httpd.server_port}"
     steps = [0]
+    buckets = []                # the batch rows of every chunk
     run_chunk = service._sampler._chunk
 
     def counted_chunk(style_emb, state, num_steps, t0):
         steps[0] += num_steps
+        buckets.append(style_emb.shape[0])
         return run_chunk(style_emb, state, num_steps, t0)
 
     service._sampler._chunk = counted_chunk
@@ -1968,6 +2001,46 @@ def serving(cfg, card):
             "genre": 0, "bars": 8, "seed": 11, "prime_midi": prime_b64,
             "prime_bars": 8})
         got["primed"] = [body]
+
+        for n, reqs in held.items():
+            # Hold the execution lock until all n requests are queued, so
+            # the next pass coalesces them into one call at their bucket.
+            c0, b0 = service.device_calls, len(buckets)
+            payloads = [({"genre": g, "bars": 8, "seed": s},)
+                        for g, s in reqs]
+            queued = False
+            with service._lock:
+                traffic = threading.Thread(
+                    target=lambda: got.__setitem__(f"coalesced{n}", [
+                        b for b, _, _ in _in_threads(timed, payloads)]))
+                traffic.start()
+                deadline = time.perf_counter() + 120
+                while not queued and time.perf_counter() < deadline:
+                    time.sleep(0.001)
+                    with service._pending_lock:
+                        queued = len(service._pending) == n
+            traffic.join(timeout=600)
+            if not queued or f"coalesced{n}" not in got:
+                fail(f"serving: {n} requests were not all queued and "
+                     f"served")
+            ran = buckets[b0:]
+            log(f"serving: {n} held requests ran in "
+                f"{service.device_calls - c0} device call(s) at batch "
+                f"rows {ran}")
+            if service.device_calls - c0 != 1 or ran != [
+                    service._bucket(n)]:
+                fail(f"serving: {n} queued requests did not run as one "
+                     f"call at bucket {service._bucket(n)}")
+        for n, seed in batches.items():
+            b0 = len(buckets)
+            body, times[f"batch{n}"], _ = timed(
+                {"styles_list": [[i % cfg.num_styles] for i in range(n)],
+                 "bars": 8, "seed": seed}, "/generate_batch")
+            got[f"batch{n}"] = [base64.b64decode(f)
+                                for f in json.loads(body)["files"]]
+            if buckets[b0:] != [service._bucket(n)]:
+                fail(f"serving: a batch of {n} ran at rows "
+                     f"{buckets[b0:]}, not bucket {service._bucket(n)}")
     finally:
         service._sampler._chunk = run_chunk
     launches = notegen.note_sample.launches
@@ -2022,8 +2095,193 @@ def serving(cfg, card):
         f"{times['batch16']:.1f} ms; riders beside two 64-bar jobs p50 "
         f"{times['riders'][len(times['riders']) // 2]:.1f} ms, p95 "
         f"{times['riders'][-1]:.1f} ms; primed (8 + 8 bars) "
-        f"{times['primed']:.1f} ms ({card})")
+        f"{times['primed']:.1f} ms; batch64 {times['batch64']:.1f} ms, "
+        f"batch24 (bucket 32) {times['batch24']:.1f} ms; buckets run "
+        f"{sorted(set(buckets))} ({card})")
     return launches
+
+
+def keras_slice(cfg, card, short_paths):
+    """Phase 3j: the Keras 2 weight interchange and the inspection entry
+    points on the card, with the port's own HDF5 reader and writer (no
+    h5py on this machine): (a) both committed model.h5 files equal their
+    params.npz bit for bit; (b) generate_main --from-keras writes phase
+    3's bytes, every timestep on the cluster pitch-loop kernel; (c)
+    train_main --from-keras (1 epoch of the 3c corpus) starts from the
+    file's weights with a fresh Nadam at step 0 and runs each biaxial
+    kernel once a step, no plain version; (d) tools/export_keras.py of the
+    checkpoint (c) wrote reads back bit for bit; (e) a service built from
+    the file answers /generate with the bytes of one built from the .npz;
+    (f) visualize_main --from-keras writes on the card the TSV text it
+    writes with --device cpu, and analyze_main runs on the 3c corpus."""
+    from music_generator_tpu_torch.cli import (analyze_main, generate_main,
+                                               train_main, visualize_main)
+    from music_generator_tpu_torch.ops import notegen
+    from music_generator_tpu_torch.params import (load_params_npz,
+                                                  params_from_numpy)
+    from music_generator_tpu_torch.serving import (DeepJHTTPServer,
+                                                   GenerationService,
+                                                   make_handler)
+    from music_generator_tpu_torch.tools import export_keras
+    from music_generator_tpu_torch.training import trainer
+    from music_generator_tpu_torch.training.checkpoint import (
+        CheckpointStore, model_path)
+    from music_generator_tpu_torch.training.keras_import import (
+        load_keras_weights)
+
+    def equal(got, want) -> bool:
+        return sorted(got) == sorted(want) and all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+    # (a) the committed files.
+    for run in ("r4", "r3"):
+        base = os.path.join(ROOT, "artifacts", f"trained_model_{run}")
+        t = time.perf_counter()
+        state = load_keras_weights(os.path.join(base, "model.h5"), cfg)
+        ms = (time.perf_counter() - t) * 1e3
+        if not equal(state, load_params_npz(os.path.join(base,
+                                                         "params.npz"))):
+            fail(f"keras: trained_model_{run}/model.h5 differs from its "
+                 f"params.npz")
+        log(f"keras: trained_model_{run}/model.h5 ("
+            f"{os.path.getsize(os.path.join(base, 'model.h5'))} bytes) "
+            f"imported in {ms:.1f} ms host time, {len(state)} leaves equal "
+            f"to params.npz bit for bit ({card})")
+
+    work = os.path.join(WORK, "keras")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.symlink(os.path.join(TRAIN_WORK, "data"), os.path.join(work, "data"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # (b) generate --from-keras against phase 3's --params files.
+        notegen.note_sample.launches = 0
+        notegen.note_sample_streamed.launches = 0
+        notegen.note_sample_reference.calls = 0
+        same = 0
+        for seed, want in short_paths.items():
+            got = generate_main(["--from-keras", R4_H5, "--bars", "8",
+                                 "--seed", str(seed), "--out",
+                                 f"short_s{seed}"])
+            for p, q in zip(got, want):
+                same += (open(p, "rb").read()
+                         == open(os.path.join(WORK, q), "rb").read())
+        steps = 2 * 8 * cfg.notes_per_bar
+        streamed = notegen.note_sample_streamed.launches
+        log(f"keras generate: {same}/6 files byte-identical to the --params "
+            f"run; notegen launches {notegen.note_sample.launches} for "
+            f"{steps} timesteps, streamed {streamed}, plain "
+            f"{notegen.note_sample_reference.calls}")
+        if same != 6:
+            fail("generate --from-keras wrote other bytes than --params")
+        if (notegen.note_sample.launches != steps or streamed
+                or notegen.note_sample_reference.calls):
+            fail("generate --from-keras did not run every timestep through "
+                 "the cluster kernel")
+
+        # (c) train --from-keras: a warm start.
+        seen = {}
+        fit = trainer.Trainer.fit
+
+        def first_fit(self, ds, epochs=None):
+            seen["params"] = {k: v.detach().clone()
+                              for k, v in self.model.state_dict().items()}
+            seen["optimizer"] = len(self.state.optimizer.state)
+            seen["step"] = self.state.step
+            return fit(self, ds, epochs)
+
+        trainer.Trainer.fit = first_fit
+        reset_counts()
+        try:
+            hist = train_main(["--epochs", "1", "--from-keras", R4_H5])
+        finally:
+            trainer.Trainer.fit = fit
+        launches, plain = read_counts()
+        n = sum(hist["steps_per_epoch"])
+        r4 = load_keras_weights(R4_H5, cfg)
+        log(f"keras train: {n} steps, losses {hist['loss']}; before the "
+            f"first step: weights equal to the file "
+            f"{equal(seen['params'], r4)}, optimizer state entries "
+            f"{seen['optimizer']}, step {seen['step']}; kernel launches "
+            f"{launches}, plain version calls {plain}")
+        if not equal(seen["params"], r4):
+            fail("train --from-keras did not start from the file's weights")
+        if seen["optimizer"] or seen["step"]:
+            fail("train --from-keras did not start a fresh Nadam at step 0")
+        if (any(v != (n if k.startswith("biax") else 0)
+                for k, v in launches.items()) or plain):
+            fail("train --from-keras did not run every step through each "
+                 "biaxial kernel, and only through them")
+        if not np.isfinite(hist["loss"]).all():
+            fail("train --from-keras: non-finite loss")
+
+        # (d) export the checkpoint (c) wrote, read it back.
+        export_keras.main(["--out", "exported.h5"])
+        ckpt = CheckpointStore(model_path(cfg)).load()["params"]
+        want = params_from_numpy({k: v.numpy() for k, v in ckpt.items()})
+        if not equal(load_keras_weights("exported.h5", cfg), want):
+            fail("export_keras -> import is not bit for bit")
+        log(f"keras export: {os.path.getsize('exported.h5')} bytes, read "
+            f"back equal to out/model.pt bit for bit")
+
+        # (e) one service from the file, one from the .npz.
+        bodies = []
+        for params in (r4, load_params_npz(PARAMS)):
+            service = GenerationService(config=cfg, params=params,
+                                        warmup=False)
+            httpd = DeepJHTTPServer(("127.0.0.1", 0), make_handler(service))
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                status, _, body = _post(
+                    f"http://127.0.0.1:{httpd.server_port}",
+                    {"genre": 1, "bars": 8, "seed": 21})
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=60)
+            if status != 200:
+                fail(f"keras serve: /generate answered {status}")
+            bodies.append(body)
+        log(f"keras serve: --from-keras and --params services answered "
+            f"{len(bodies[0])} and {len(bodies[1])} bytes, identical "
+            f"{bodies[0] == bodies[1]}")
+        if bodies[0] != bodies[1]:
+            fail("the --from-keras service answered other bytes")
+
+        # (f) visualize on the card and on the CPU; analyze.
+        names = ("style_embedding_vec.tsv", "style_embedding_labels.tsv")
+        texts = {}
+        for device in ("cuda", "cpu"):
+            os.makedirs(device)
+            os.chdir(device)
+            try:
+                visualize_main(["--device", device, "--from-keras", R4_H5])
+                texts[device] = [open(os.path.join("out", n)).read()
+                                 for n in names]
+            finally:
+                os.chdir(work)
+        log(f"keras visualize: card and CPU TSVs identical "
+            f"{texts['cuda'] == texts['cpu']}")
+        if texts["cuda"] != texts["cpu"]:
+            fail("visualize on the card wrote other text than on the CPU")
+        stats = analyze_main([])
+        if stats["num_files"] != cfg.num_styles or not np.isfinite(
+                stats["notes_per_timestep"]):
+            fail(f"analyze: {stats['num_files']} files, "
+                 f"{stats['notes_per_timestep']} notes a step")
+        log(f"analyze: {stats['num_files']} files, "
+            f"{stats['total_timesteps']} timesteps, notes per step "
+            f"{stats['notes_per_timestep']:.4f}")
+    finally:
+        os.chdir(cwd)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("h5py", "jax",
+                                           "music_generator_tpu"))
+    if loaded:
+        fail(f"the port loaded {loaded}")
 
 
 def check_notegen_plans(cfg):
@@ -2399,6 +2657,9 @@ def main() -> None:
 
     # -- 3i. the HTTP service on the card -------------------------------------
     serving(cfg, card)
+
+    # -- 3j. this slice's path: Keras 2 weights, visualize, analyze ----------
+    keras_slice(cfg, card, paths)
 
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)

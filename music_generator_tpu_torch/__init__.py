@@ -10,9 +10,12 @@ raise rather than fall back.
 Layer map (generation and training):
   config     — the Config dataclass, every field of the JAX package's
   midi       — MIDI event model, binary IO and piano-roll codec
-  data       — the dataset pipeline (load_all, epoch_permutation, ...) and
-               the seeded synthetic corpus (data/synth.py)
+  data       — the dataset pipeline (load_all, epoch_permutation, ...),
+               the seeded synthetic corpus (data/synth.py) and the corpus
+               statistics (data/analysis.py)
   params     — keystr-layout .npz weights <-> the model's state dict
+  utils      — helpers, TensorBoard files, and a reader and writer of the
+               HDF5 subset Keras 2 weight files use (utils/hdf5.py)
   models     — the DeepJ module: streaming generation paths, and the
                training forward (both axes through the biaxial stacks) and
                its masked loss
@@ -20,9 +23,13 @@ Layer map (generation and training):
                (ops/notegen.py, ops/biax.py) and their build helper
                (csrc/*.cu)
   parallel   — the train step (dropout generator per step, Nadam update)
-  training   — resident-dataset Trainer, best-only checkpoint, metrics
+  training   — resident-dataset Trainer, best-only checkpoint, metrics,
+               Keras 2 weight import and export (training/keras_import.py)
   generation — threefry-exact uniforms and the streaming Sampler
-  cli        — `python -m music_generator_tpu_torch.train` and `.generate`
+  serving    — the HTTP generation service
+  tools      — the verification tools, the serving benchmark, export_keras
+  cli        — `python -m music_generator_tpu_torch.train`, `.generate`,
+               `.visualize`, `.analyze` (and `.serve`)
 """
 
 from music_generator_tpu_torch.config import Config, default_config

@@ -1,29 +1,36 @@
-"""Command-line entry points of the port: `train` and `generate`.
+"""Command-line entry points of the port: `train`, `generate`,
+`visualize` and `analyze`.
 
 `train` takes the flags of the JAX package's `train_main` that apply
-(--epochs, --seed, --no-resume) plus `--device`; it trains on the corpus
-under the config's style directories and keeps the best checkpoint in
-`out/model.pt`.  `generate` has the flags of the JAX package's
-`generate_main` (ref: generate.py:137-148) but `--from-keras`, among them
-`--prime`, `--prime-bars` and `--continuation-only` (primed
-continuation), plus `--device` and `--params`.
+(--epochs, --seed, --no-resume, --from-keras) plus `--device`; it trains
+on the corpus under the config's style directories and keeps the best
+checkpoint in `out/model.pt`.  `generate` has the flags of the JAX
+package's `generate_main` (ref: generate.py:137-148), among them
+`--from-keras`, `--prime`, `--prime-bars` and `--continuation-only`
+(primed continuation), plus `--device` and `--params`.  `visualize`
+writes the style-embedding TSVs (ref: visualize.py:11-43); `analyze`
+prints the corpus statistics of `data/analysis.py`.
 
 Orbax checkpoints cannot be read without JAX, so weights come from a
-keystr-layout `.npz` (`--params`, params.py), else from `out/model.pt`
-when a training run left one (printing "Loaded model from file.", as the
-JAX package's `build_or_load` does), else fresh weights drawn from a
-seeded torch.Generator.
+reference Keras 2 `model.h5` (`--from-keras`, training/keras_import.py,
+read by the port's own HDF5 reader), or a keystr-layout `.npz`
+(`--params`, params.py), else from `out/model.pt` when a training run left
+one (printing "Loaded model from file.", as the JAX package's
+`build_or_load` does), else fresh weights drawn from a seeded
+torch.Generator.  `--from-keras` and `--params` exclude each other.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
 import torch
 
 from music_generator_tpu_torch.config import default_config
+from music_generator_tpu_torch.data.analysis import analyze_corpus
 from music_generator_tpu_torch.data.dataset import (compute_genre,
                                                     decode_prime, load_all)
 from music_generator_tpu_torch.device import resolve_device
@@ -35,6 +42,7 @@ from music_generator_tpu_torch.models.deepj import DeepJ, build_model
 from music_generator_tpu_torch.params import load_params_npz
 from music_generator_tpu_torch.training.checkpoint import (build_or_load,
                                                            model_path)
+from music_generator_tpu_torch.training.keras_import import load_keras_weights
 from music_generator_tpu_torch.training.trainer import TrainConfig, Trainer
 from music_generator_tpu_torch.utils import one_hot
 
@@ -55,6 +63,11 @@ def train_main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-resume", action="store_true",
                         help="Skip loading an existing checkpoint")
+    parser.add_argument("--from-keras", type=str, default=None,
+                        metavar="MODEL_H5",
+                        help="Warm-start from a reference (Keras 2) "
+                             "model.h5 (optimizer state starts fresh, step "
+                             "0; takes precedence over resuming)")
     _device_flag(parser, "train")
     args = parser.parse_args(argv)
 
@@ -66,7 +79,10 @@ def train_main(argv=None) -> dict:
     ds = load_all(cfg.styles, cfg.seq_len, cfg)
     print(f"{len(ds)} training windows")
     trainer = Trainer(model, TrainConfig(seed=args.seed))
-    if not args.no_resume:
+    if args.from_keras:
+        model.load_state_dict(load_keras_weights(args.from_keras, cfg))
+        print(f"Warm-started from Keras weights: {args.from_keras}")
+    elif not args.no_resume:
         trainer.maybe_restore()
     print("Training on", torch.cuda.get_device_name(device)
           if device.type == "cuda" else "cpu")
@@ -96,15 +112,22 @@ def generate_main(argv=None) -> list:
                         help="Run LSTM gates with Keras 2's hard_sigmoid "
                              "(clip(0.2x+0.5,0,1)) instead of sigmoid "
                              "(deviation #12)")
-    parser.add_argument("--params", type=str, default=None, metavar="NPZ",
-                        help="Weights as a keystr-layout .npz (e.g. "
-                             "artifacts/trained_model_r4/params.npz).  "
-                             "Without it the model loads out/model.pt "
-                             "when a training run left one, else starts "
-                             "from fresh Keras-default weights drawn from a "
-                             "torch.Generator seeded with --seed: the same "
-                             "distributions as the JAX package's "
-                             "init_params, not its bits")
+    weights = parser.add_mutually_exclusive_group()
+    weights.add_argument("--params", type=str, default=None, metavar="NPZ",
+                         help="Weights as a keystr-layout .npz (e.g. "
+                              "artifacts/trained_model_r4/params.npz; not "
+                              "with --from-keras).  Without either the "
+                              "model loads out/model.pt when a training "
+                              "run left one, else starts from fresh "
+                              "Keras-default weights drawn from a "
+                              "torch.Generator seeded with --seed: the same "
+                              "distributions as the JAX package's "
+                              "init_params, not its bits")
+    weights.add_argument("--from-keras", type=str, default=None,
+                         metavar="MODEL_H5",
+                         help="Load weights from a reference (Keras 2) "
+                              "model.h5 instead of out/model.pt (not with "
+                              "--params)")
     parser.add_argument("--prime", type=str, default=None, metavar="MIDI",
                         help="Continue composing from an existing .mid "
                              "file: the streaming state is teacher-forced "
@@ -124,7 +147,11 @@ def generate_main(argv=None) -> list:
         cfg = cfg.replace(gen_volume_quantize=True)
     if args.keras2_gates:
         cfg = cfg.replace(lstm_recurrent_activation="hard_sigmoid")
-    if args.params:
+    if args.from_keras:
+        model = build_model(cfg, device, state=load_keras_weights(
+            args.from_keras, cfg))
+        print(f"Loaded Keras weights from {args.from_keras}")
+    elif args.params:
         model = build_model(cfg, device, state=load_params_npz(args.params))
         print(f"Loaded weights from {args.params}")
     elif os.path.isfile(model_path(cfg)):
@@ -166,3 +193,68 @@ def generate_main(argv=None) -> list:
         result = GenerationResult(prepend_prime(result.notes, prime),
                                   result.styles)
     return write_file(args.out, result, cfg)
+
+
+def analyze_main(argv=None) -> dict:
+    """Corpus statistics of the config's style directories, printed as
+    JSON and written under `out/analysis/` (numpy only: no device)."""
+    parser = argparse.ArgumentParser(
+        description="Corpus statistics (note/length distributions, "
+                    "autocorrelation) — the working rebuild of the "
+                    "reference's distribution.py.")
+    parser.parse_args(argv)
+    cfg = default_config()
+    stats = analyze_corpus(cfg.styles, cfg)
+    print(json.dumps(stats, indent=2))
+    return stats
+
+
+def visualize_main(argv=None) -> tuple:
+    """Write the style embeddings and their labels as TSVs for
+    projector.tensorflow.org; returns the two paths."""
+    parser = argparse.ArgumentParser(
+        description="Exports style embeddings for projector.tensorflow.org.")
+    parser.add_argument("--from-keras", type=str, default=None,
+                        metavar="MODEL_H5",
+                        help="Visualize a reference (Keras 2) model.h5's "
+                             "style embeddings instead of out/model.pt")
+    _device_flag(parser, "compute the embeddings")
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = default_config()
+    if args.from_keras:
+        model = build_model(cfg, device, state=load_keras_weights(
+            args.from_keras, cfg))
+        print(f"Loaded Keras weights from {args.from_keras}")
+    else:
+        model, _ = build_or_load(cfg, device)
+
+    # The 'style' Dense layer on the identity over all styles (ref:
+    # visualize.py:16-23), as the JAX package's `DeepJ.style_embedding`
+    # computes it on a Keras file's weights: input, kernel and bias rounded
+    # to the config's compute dtype (bfloat16 by default), the product and
+    # the sum in float32 (those weights are numpy arrays, and numpy's
+    # bfloat16 matmul returns float32).
+    dt, layer = model._dt(), model.style_embed
+    identity = torch.eye(cfg.num_styles, device=model.device)
+    with torch.no_grad():
+        embedding = (identity.to(dt).float() @ layer.kernel.to(dt).float()
+                     + layer.bias.to(dt).float())
+    embedding = embedding.cpu().numpy()
+
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    vec_path = os.path.join(cfg.out_dir, "style_embedding_vec.tsv")
+    np.savetxt(vec_path, embedding, delimiter="\t")
+
+    # Labels TSV: genre + artist columns with header (ref: visualize.py:26-43).
+    labels = [[g] * len(cfg.styles[i]) for i, g in enumerate(cfg.genres)]
+    labels = [y for x in labels for y in x]
+    style_labels = [os.path.basename(y) for x in cfg.styles for y in x]
+    rows = [["Genre", "Artist"]] + list(map(list, zip(labels, style_labels)))
+    label_path = os.path.join(cfg.out_dir, "style_embedding_labels.tsv")
+    with open(label_path, "w") as f:
+        for row in rows:
+            f.write("\t".join(row) + "\n")
+    print("Wrote", vec_path, "and", label_path)
+    return vec_path, label_path

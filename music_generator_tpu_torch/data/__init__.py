@@ -3,6 +3,7 @@ from music_generator_tpu_torch.data.dataset import (
     batches,
     clamp_midi,
     compute_beat,
+    compute_completion,
     compute_genre,
     decode_prime,
     epoch_permutation,
@@ -13,5 +14,6 @@ from music_generator_tpu_torch.data.dataset import (
 )
 
 __all__ = ["Dataset", "batches", "clamp_midi", "compute_beat",
-           "compute_genre", "decode_prime", "epoch_permutation", "load_all",
-           "stagger", "transpose_augment", "unclamp_midi"]
+           "compute_completion", "compute_genre", "decode_prime",
+           "epoch_permutation", "load_all", "stagger", "transpose_augment",
+           "unclamp_midi"]

@@ -27,6 +27,12 @@ def compute_beat(beat: int, notes_in_bar: int) -> np.ndarray:
     return one_hot(beat % notes_in_bar, notes_in_bar)
 
 
+def compute_completion(beat: int, len_melody: int) -> np.ndarray:
+    """Fractional position in the piece (ref: dataset.py:17-18; unused there
+    too, kept for API parity)."""
+    return np.array([beat / len_melody])
+
+
 def compute_genre(genre_id: int, config: Optional[Config] = None) -> np.ndarray:
     """Uniform style mass over one genre's composers (ref: dataset.py:20-26)."""
     cfg = config or default_config()

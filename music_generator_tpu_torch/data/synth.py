@@ -1,6 +1,7 @@
 """Deterministic synthetic-but-musical corpus generator: the port's own
 copy of the JAX package's `data/synth.py` (`synth_piece`,
-`_encode_replay_preserving`, `write_synth_corpus`, `random_batch`), so the
+`_encode_replay_preserving`, `write_synth_corpus`, `random_batch`,
+`pitch_class_histogram`), so the
 port writes byte-identical corpora and batches from the same seeds.
 
 Each style has its own mode and tonic; pieces are built from bar-long chord
@@ -224,3 +225,15 @@ def random_batch(cfg: Config, batch_size: Optional[int] = None, seed: int = 0,
     styles = np.zeros((B, T, cfg.num_styles), np.float32)
     styles[..., 0] = 1
     return notes, targets, beats, styles
+
+
+def pitch_class_histogram(roll: np.ndarray) -> np.ndarray:
+    """Normalized played-mass per pitch class of a [T, P, 3] roll (P = 128
+    or num_notes with an offset baked in by the caller)."""
+    play = roll[..., 0]
+    classes = np.arange(roll.shape[1]) % 12
+    hist = np.zeros(12)
+    for c in range(12):
+        hist[c] = play[:, classes == c].sum()
+    total = hist.sum()
+    return hist / total if total > 0 else hist

@@ -51,8 +51,9 @@ API:
        the keys of /generate but the mixture ones; one device call.
 
 One card, one process: the JAX service's data mesh and its multi-host
-replay channel (`--mp-coord`) wait for the port's multi-device support,
-and `--from-keras` for its Keras weight import.
+replay channel (`--mp-coord`) wait for the port's multi-device support.
+Weights come from `--from-keras` (a reference Keras 2 model.h5) or
+`--params` (a keystr `.npz`), else `out/model.pt`.
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ from music_generator_tpu_torch.midi.io import write_midifile
 from music_generator_tpu_torch.models.deepj import build_model
 from music_generator_tpu_torch.params import load_params_npz
 from music_generator_tpu_torch.training.checkpoint import build_or_load
+from music_generator_tpu_torch.training.keras_import import load_keras_weights
 from music_generator_tpu_torch.utils import one_hot
 
 
@@ -654,18 +656,23 @@ class DeepJHTTPServer(ThreadingHTTPServer):
 def serve_main(argv=None) -> None:
     """`python -m music_generator_tpu_torch.serve`: serve on the card (or
     on the CPU with --device cpu) until interrupted.  The JAX service's
-    flags but --from-keras (Keras weight import) and --mp-coord (the
-    multi-host replay channel), which wait for those parts of the port;
-    plus --params and --device."""
+    flags but --mp-coord (the multi-host replay channel), which waits for
+    the port's multi-device support; plus --params and --device."""
     from music_generator_tpu_torch.cli import _device_flag
     parser = argparse.ArgumentParser(description="DeepJ generation server.")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8732)
-    parser.add_argument("--params", type=str, default=None, metavar="NPZ",
-                        help="Weights as a keystr-layout .npz (e.g. "
-                             "artifacts/trained_model_r4/params.npz); "
-                             "without it out/model.pt when a training run "
-                             "left one, else fresh weights")
+    weights = parser.add_mutually_exclusive_group()
+    weights.add_argument("--params", type=str, default=None, metavar="NPZ",
+                         help="Weights as a keystr-layout .npz (e.g. "
+                              "artifacts/trained_model_r4/params.npz; not "
+                              "with --from-keras); without either "
+                              "out/model.pt when a training run left one, "
+                              "else fresh weights")
+    weights.add_argument("--from-keras", type=str, default=None,
+                         metavar="MODEL_H5",
+                         help="Serve a reference (Keras 2) model.h5's "
+                              "weights (not with --params)")
     parser.add_argument("--keras2-gates", action="store_true",
                         help="Keras 2 hard_sigmoid LSTM gates for "
                              "reference-trained weights (deviation #12)")
@@ -703,7 +710,10 @@ def serve_main(argv=None) -> None:
     if args.keras2_gates:
         cfg = cfg.replace(lstm_recurrent_activation="hard_sigmoid")
     params = None
-    if args.params:
+    if args.from_keras:
+        params = load_keras_weights(args.from_keras, cfg)
+        print(f"Loaded Keras weights from {args.from_keras}")
+    elif args.params:
         params = load_params_npz(args.params)
         print(f"Loaded weights from {args.params}")
     warmup_buckets = (args.warmup_buckets if args.warmup_buckets is not None

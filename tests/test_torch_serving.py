@@ -1,6 +1,7 @@
 """The port's generation service over a real HTTP socket, on the CPU at
 test_config(): the HTTP surface and request validation, each test the
-counterpart of one in tests/test_serving.py (the JAX service's)."""
+counterpart of one in tests/test_serving.py (the JAX service's); and
+`serve --from-keras`."""
 
 import base64
 import io
@@ -11,8 +12,12 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from music_generator_tpu_torch import midi
+from music_generator_tpu_torch.models.deepj import build_model
+from music_generator_tpu_torch.serving import server as server_mod
+from music_generator_tpu_torch.training.keras_import import save_keras_weights
 
 from torch_serving_common import CFG, make_service, post, serve
 
@@ -172,3 +177,35 @@ def test_chunked_transfer_encoding_rejected(server):
                   + b"\r\n0\r\n\r\n")
         resp = s.recv(4096)
     assert b"411" in resp.split(b"\r\n", 1)[0]
+
+
+def test_serve_from_keras(service, monkeypatch, tmp_path, capsys):
+    """serve --from-keras: the service serve_main builds from a Keras 2
+    file holds the file's weights (the fixture's seed-0 weights) bit for
+    bit and answers with the fixture service's bytes; --params and
+    --from-keras exclude each other."""
+    h5 = str(tmp_path / "w.h5")
+    save_keras_weights(build_model(CFG, "cpu", seed=0).state_dict(), h5)
+    monkeypatch.setattr(server_mod, "default_config", lambda: CFG)
+    built = []
+    real = server_mod.GenerationService
+
+    def capture(**kwargs):
+        built.append(real(**kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(server_mod, "GenerationService", capture)
+    monkeypatch.setattr(server_mod.DeepJHTTPServer, "serve_forever",
+                        lambda self: None)
+    server_mod.serve_main(["--device", "cpu", "--port", "0", "--from-keras",
+                           h5, "--warmup-buckets", "1", "--max-batch", "4"])
+    assert f"Loaded Keras weights from {h5}" in capsys.readouterr().out
+    got, want = built[0].model.state_dict(), service.model.state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    mix = service.resolve_mixture({"genre": 1})
+    assert built[0].generate_batch([mix], bars=1, seed=5) == \
+        service.generate_batch([mix], bars=1, seed=5)
+    with pytest.raises(SystemExit):
+        server_mod.serve_main(["--device", "cpu", "--params", "w.npz",
+                               "--from-keras", h5])
