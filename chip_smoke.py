@@ -100,6 +100,24 @@ Phases (any failure exits non-zero, before the result line):
      back bit for bit, a --from-keras service answering with the bytes of
      a --params one, visualize_main --from-keras writing on the card the
      TSV text it writes on the CPU, and analyze_main on the 3c corpus;
+  3k. the trainer's staging modes (training/trainer.py) on the 3c corpus
+     at default_config(), 2 epochs each from the same weights and seed:
+     replicated, segments (at least 3 segments and a tail) and stream,
+     each biaxial kernel once a step and no plain version, equal batch
+     checksums, losses and final parameters bit for bit, the device ms a
+     step over 5 profiled steps and the busy share; train_main --profile
+     writing a trace that holds device rows of the biaxial kernels in
+     steps 5-10; tools/run_big_corpus at 0.5 GiB (copy rates, resident and
+     segment rates);
+  3l. generation at note depths 1-8 (the r4 weights rebuilt by
+     tools/common.py::depth_params): at G = 3 and 64 the plan (one wave
+     required at depths 1-2), the kernel against its plain version and,
+     where the plan is a cluster's (depths 1-5 at flagship widths), the
+     cluster kernel against the streamed kernel bit for bit, each
+     launch timed beside its bound; Sampler.generate at depths 1 and 3
+     against artifacts/note_depth_r17 (events required, bytes reported)
+     and at depth 6 on the streamed kernel, with its launches counted; a
+     depth-3 service's /generate equal to its solo run;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -117,7 +135,8 @@ Phases (any failure exits non-zero, before the result line):
      from the profiler, bit for bit stack_masks again, against the larger
      of its bytes and its row loop's instructions, counted from the SASS,
      at the card's issue rate; the loop must hold no division).
-The line before the last holds the per-kernel JSON; the last line is
+The line before the last holds the per-kernel JSON (kernel 1 with the
+note depths it ran); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -286,17 +305,19 @@ def notegen_inputs(model, G: int, T: float, seed: int):
     return [t.cuda() for t in (feats, us, temp, emb)]
 
 
-def notegen_bound_ms(G: int, N: int, F: int, H: int):
-    """Least time for one pitch loop, and what sets it: every input read
-    once and the output written once at HBM rate, or its multiply-adds at
-    the float32 peak.  Returns (ms, "bytes" or "operations")."""
+def notegen_bound_ms(G: int, N: int, F: int, H: int, L: int = 2):
+    """Least time for one pitch loop at note depth L, and what sets it:
+    every input read once and the output written once at HBM rate, or its
+    multiply-adds at the float32 peak.  Returns (ms, "bytes" or
+    "operations")."""
     H4 = 4 * H
+    R = 2 * L - 1                                 # U_0, and W_l, U_l
     floats = (G * N * F + G * N * 2 + G          # feats, uniforms, T
-              + F * H4 + 3 * H4 + 3 * H * H4      # W0f, W0c, U0, W1, U1
-              + 2 * G * H4                        # a0, a1
+              + F * H4 + 3 * H4 + R * H * H4      # W0f, W0c, U, W
+              + L * G * H4                        # a_l
               + 3 * H + 3                         # heads
               + G * N * 3)                        # output
-    flops = 2 * G * N * (F * H4 + 3 * H4 + 3 * H * H4 + 3 * H)
+    flops = 2 * G * N * (F * H4 + 3 * H4 + R * H * H4 + 3 * H)
     t_bytes = 4 * floats / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2284,6 +2305,351 @@ def keras_slice(cfg, card, short_paths):
         fail(f"the port loaded {loaded}")
 
 
+# Phase 3k: each mode's device time a step from the profiler over epoch
+# 1's steps [10, 15) (parsing a whole fit's events takes ~18 s a mode);
+# its busy share against epoch 2's unprofiled ms a step.
+MODE_PROFILED = (10, 15)
+# The biaxial training kernels' names, each of which must have device rows
+# in the `train --profile` trace.
+PROFILED_KERNELS = ("time_prologue_kernel", "note_prologue_kernel",
+                    "note_heads_kernel", "fwd_scan_cluster_kernel",
+                    "scan_cluster_kernel", "gemm_mma_kernel")
+
+
+def _segment_budget(ds, batch: int):
+    """An epoch_scan_max_bytes giving at least 3 segments and a nonzero
+    tail on `ds`: (bytes, steps a segment, steps an epoch)."""
+    S = -(-len(ds) // batch)
+    per_batch = sum(int(a.nbytes) // len(ds) for a in (
+        ds.notes, ds.targets, ds.beats, ds.styles)) * batch
+    for seg in range(S // 3, 1, -1):
+        if S % seg:
+            return 2 * seg * per_batch, seg, S
+    fail(f"trainer modes: {S} steps an epoch leave no segment length with "
+         f"3 segments and a tail")
+
+
+def trainer_modes(cfg, card):
+    """Phase 3k: the trainer's staging modes on the 3c corpus at cfg
+    (bfloat16, dropout on): 2 epochs from the same weights and seed in
+    each of replicated, segments (a budget of at least 3 segments and a
+    tail) and stream.  Each run: every count set to 0 just before the fit
+    and read just after (each biaxial kernel once a step, no plain
+    version), a CUDA profile of steps MODE_PROFILED (device ms a step;
+    the busy share against epoch 2's ms a step), and per step the loss
+    and a checksum of the batch on the card.  The modes must
+    give equal batch checksums, and losses and final parameters bit for
+    bit (the biaxial kernels have no atomics: the same batches in the same
+    order make the same arithmetic).  Then train_main --profile must write a trace
+    holding device rows of the biaxial kernels in steps 5-10, and
+    tools/run_big_corpus runs resident and segment epochs on 0.5 GiB."""
+    from music_generator_tpu_torch.cli import train_main
+    from music_generator_tpu_torch.data.dataset import load_all
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.tools import run_big_corpus
+    from music_generator_tpu_torch.training import trainer as trainer_mod
+    t0 = time.perf_counter()
+    styles = [[os.path.join(TRAIN_WORK, d) for d in g] for g in cfg.styles]
+    ds = load_all(styles, cfg.seq_len, cfg)
+    B = min(cfg.batch_size, len(ds))
+    budget, seg, S = _segment_budget(ds, B)
+    log(f"trainer modes: {len(ds)} windows, {S} steps an epoch; segments "
+        f"of {seg} steps ({S // seg} and a tail of {S % seg}) from a "
+        f"budget of {budget} bytes")
+    real_step = trainer_mod.train_step
+    runs = {}
+    for mode, kw in (("replicated", {}),
+                     ("segments", {"epoch_scan_max_bytes": budget}),
+                     ("stream", {"epoch_scan": False})):
+        trainer = trainer_mod.Trainer(
+            build_model(cfg, "cuda"),
+            trainer_mod.TrainConfig(seed=0, checkpoint=False,
+                                    tensorboard=False, **kw))
+        losses, sums, window = [], [], []
+
+        def recording(state, batch):
+            if len(losses) in MODE_PROFILED:
+                torch.cuda.synchronize()
+                if window:
+                    window[0].stop()
+                else:
+                    window.append(profile(activities=[ProfilerActivity.CUDA]))
+                    window[0].start()
+            metrics = real_step(state, batch)
+            rows = torch.arange(1, batch[0].shape[0] + 1, device="cuda",
+                                dtype=torch.float64)
+            sums.append(torch.stack([(t.double().flatten(1).sum(1) * rows)
+                                     .sum() for t in batch]))
+            losses.append(metrics["loss"])
+            return metrics
+
+        trainer_mod.train_step = recording
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            hist = trainer.fit(ds, epochs=2)
+            launches, plain = read_counts()
+        finally:
+            trainer_mod.train_step = real_step
+        n_prof = MODE_PROFILED[1] - MODE_PROFILED[0]
+        events = window[0].key_averages()
+        device = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        device /= 1e3 * n_prof
+        steps = sum(hist["steps_per_epoch"])
+        rates = [n * B * cfg.seq_len / dt for n, dt in
+                 zip(hist["steps_per_epoch"], hist["epoch_seconds"])]
+        step_ms = hist["epoch_seconds"][1] * 1e3 / hist["steps_per_epoch"][1]
+        loss_v = torch.stack(losses).float().cpu()
+        log(f"trainer mode {mode} ({time.perf_counter() - t0:.1f} s into "
+            f"the phase): epoch_scan_mode "
+            f"{hist['epoch_scan_mode']}, {steps} steps, per-step losses "
+            f"{[round(float(v), 6) for v in loss_v]}; epoch timesteps/s "
+            f"{', '.join(f'{r:.1f}' for r in rates)} (epoch 1 with {n_prof} "
+            f"profiled steps); device {device:.4f} ms a step (steps "
+            f"{MODE_PROFILED[0]}-{MODE_PROFILED[1] - 1}), epoch 2 "
+            f"{step_ms:.4f} ms a step, busy share {device / step_ms:.3f} "
+            f"({card}); launches {launches}, plain calls {plain}")
+        if hist["epoch_scan_mode"] != mode:
+            fail(f"trainer modes: asked for {mode}, ran "
+                 f"{hist['epoch_scan_mode']}")
+        if (any(v != (steps if k.startswith("biax") else 0)
+                for k, v in launches.items()) or plain != 0):
+            fail(f"trainer mode {mode}: not every step ran each biaxial "
+                 f"kernel once, and only them")
+        if not torch.isfinite(loss_v).all():
+            fail(f"trainer mode {mode}: non-finite loss")
+        runs[mode] = (torch.stack(sums).cpu(), loss_v,
+                      {k: v.detach().clone()
+                       for k, v in trainer.model.state_dict().items()})
+    want_sums, want_loss, want_state = runs["replicated"]
+    for mode in ("segments", "stream"):
+        sums, loss_v, state = runs[mode]
+        if not torch.equal(sums, want_sums):
+            fail(f"trainer mode {mode}: the batch stream differs from "
+                 f"replicated")
+        same_loss = torch.equal(loss_v, want_loss)
+        differ = sorted(k for k, v in state.items()
+                        if not torch.equal(v, want_state[k]))
+        rel = float(((loss_v - want_loss).abs()
+                     / want_loss.abs()).max())
+        log(f"trainer mode {mode} against replicated: batch checksums "
+            f"equal; losses bit for bit {same_loss} (max rel {rel:.3g}); "
+            f"final parameters bit for bit {not differ} "
+            f"({len(differ)} of {len(state)} tensors differ)")
+        if not same_loss or differ:
+            fail(f"trainer mode {mode}: losses or final parameters differ "
+                 f"from replicated (the kernels have no atomics, so the "
+                 f"modes must agree bit for bit): {differ[:4]}")
+
+    # train --profile through the CLI, on the 3c corpus.
+    cwd = os.getcwd()
+    os.chdir(TRAIN_WORK)
+    try:
+        reset_counts()
+        hist = train_main(["--epochs", "1", "--profile", "--no-resume"])
+        launches, _ = read_counts()
+        trace = os.path.join(TRAIN_WORK, "out", "logs", "profile",
+                             "train_steps_5_10.pt.trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.chdir(cwd)
+    rows = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(1 for e in rows if k in e.get("name", ""))
+             for k in PROFILED_KERNELS}
+    log(f"train --profile ({time.perf_counter() - t0:.1f} s into the "
+        f"phase): mode {hist['epoch_scan_mode']}, "
+        f"{hist['steps_per_epoch'][0]} steps, launches {launches}; trace "
+        f"{os.path.getsize(trace)} bytes, {len(rows)} device kernel rows, "
+        f"biaxial kernel rows {found}")
+    if (hist["epoch_scan_mode"] != "stream" or not all(found.values())
+            or found["note_heads_kernel"] != 5):
+        fail("train --profile: the trace lacks device rows of the biaxial "
+             "training kernels in steps 5-10")
+
+    # The ported big-corpus tool at 0.5 GiB, 1 epoch each.
+    big = run_big_corpus.main([
+        "--gb", "0.5", "--epochs", "1", "--seg-epochs", "1",
+        "--seg-budget-gb", "0.125", "--out",
+        os.path.join(WORK, "big_corpus.json")])
+    res, sg = big["resident"], big["segments"]
+    log(f"run_big_corpus ({time.perf_counter() - t0:.1f} s into the "
+        f"phase): {big['corpus_gib']:.3f} GiB, {big['windows']} "
+        f"windows; host-to-device copy {big['h2d_MBps']} MB/s; resident "
+        f"{res['steady_timesteps_per_sec']:.1f} timesteps/s "
+        f"({res['steps_per_epoch']} steps), segments "
+        f"{sg['steady_timesteps_per_sec']:.1f} timesteps/s "
+        f"({sg['vs_resident']:.3f} of resident) ({card})")
+    if not (np.isfinite(res["losses"]).all()
+            and np.isfinite(sg["losses"]).all()):
+        fail("run_big_corpus: non-finite loss")
+
+
+def _divergence(path: str, ref: str) -> dict:
+    """Where two .mid files with the same note events differ: the
+    (step, pitch) cells whose volume differs, with both values."""
+    from music_generator_tpu_torch.midi import midi_decode, read_midifile
+    got = midi_decode(read_midifile(path))
+    want = midi_decode(read_midifile(ref))
+    cells = np.argwhere(got[..., 2] != want[..., 2])
+    return {"file": os.path.relpath(ref, ROOT),
+            "differing_volume_cells": len(cells),
+            "first": [[int(t), int(n), float(got[t, n, 2]),
+                       float(want[t, n, 2])] for t, n in cells[:8]]}
+
+
+def note_depths(cfg, card):
+    """Phase 3l: the pitch loop at note depths 1-8 (the r4 weights rebuilt
+    by tools/common.py::depth_params).  For each depth at G = 3 and 64:
+    the plan (and, for a cluster plan, the clusters resident at once: one
+    wave required at depths 1-2, two accepted at 3-5), `note_sample`
+    against its plain version (draws_agree, both gate flavors) and, where
+    the plan is a cluster's, against the streamed kernel bit for bit (at
+    a streamed plan note_sample runs that kernel), and the plan's kernel
+    timed beside
+    its bound.  Then Sampler.generate (G = 3, every count set to 0 just
+    before and read just after) at depths 1 and 3, 2 bars, against
+    artifacts/note_depth_r17 (events required, bytes reported, a
+    diagnosis logged where only volumes differ), and at depth 6, 1 bar, on
+    the streamed kernel; and a depth-3 service's /generate equal to its
+    solo run.  Returns {depth: {G: (kernel, ms, bound ms, bound_by)}} and
+    the launches of the generate runs."""
+    from music_generator_tpu_torch.data.dataset import compute_genre
+    from music_generator_tpu_torch.generation.sampler import (
+        Sampler, _velocity_grid, write_file)
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.ops import notegen
+    from music_generator_tpu_torch.params import params_from_numpy
+    from music_generator_tpu_torch.serving import (DeepJHTTPServer,
+                                                   GenerationService,
+                                                   make_handler)
+    from music_generator_tpu_torch.tools.common import depth_params
+    with np.load(PARAMS) as data:
+        r4 = {k: data[k] for k in data.files}
+    F, H, N = cfg.time_axis_units, cfg.note_axis_units, cfg.num_notes
+    vgrid = torch.from_numpy(_velocity_grid(cfg.max_velocity)).cuda()
+    models = {L: build_model(cfg.replace(note_axis_layers=L), "cuda",
+                             state=params_from_numpy(depth_params(r4, L)))
+              for L in range(1, 9)}
+    times, max_err = {}, 0.0
+    for L, model in models.items():
+        heads = (model.note_dense, model.volume_dense)
+        times[L] = {}
+        for G in (3, 64):
+            plan = notegen.notegen_plan(G, L, F, H, N)
+            note = ""
+            if plan.kernel == "cluster":
+                active = notegen.active_clusters(G, L, F, H, N)
+                waves = -(-plan.clusters // active) if active else 0
+                note = f"; {active} clusters resident at once: {waves} wave(s)"
+                if waves == 0 or (L <= 2 and waves > 1):
+                    fail(f"notegen depth {L} G={G}: {waves} waves")
+            log(f"notegen depth {L} G={G}: plan {plan.kernel} kernel, "
+                f"C={plan.C}, Gc={plan.Gc}, {plan.clusters} "
+                f"{'clusters' if plan.C else 'blocks'}, {plan.smem} bytes "
+                f"a block{note}")
+            for i, (act, grid, T) in enumerate((
+                    ("sigmoid", None, 1.0), ("hard_sigmoid", vgrid, 0.9))):
+                feats, us, temp, emb = notegen_inputs(
+                    model, G, T, 1000 + 100 * L + 2 * G + i)
+                args = (feats, us, temp, model.note_axis, *heads, emb, act,
+                        grid)
+                got = notegen.note_sample(*args)
+                # Where the plan is the streamed kernel, note_sample runs it
+                # too: only the plain version is a comparison there.
+                if plan.kernel == "cluster" and not torch.equal(
+                        got, notegen.note_sample_streamed(*args)):
+                    fail(f"notegen depth {L} G={G} {act}: the cluster "
+                         f"kernel differs from the streamed kernel")
+                want = notegen.note_sample_reference(*args)
+                probs = notegen.tempered_probs(feats, got, temp,
+                                               model.note_axis, *heads, emb,
+                                               act)
+                ok, err, report = notegen.draws_agree(got, want, us, probs,
+                                                      EDGE, VOLUME_ATOL)
+                max_err = max(max_err, err)
+                if not ok or not torch.isfinite(got).all():
+                    fail(f"notegen depth {L} G={G} {act}: disagrees with "
+                         f"the plain version: {report}")
+            feats, us, temp, emb = notegen_inputs(model, G, 1.0,
+                                                  2000 + 10 * L + G)
+            ops = notegen._kernel_operands(feats, us, temp, model.note_axis,
+                                           *heads, emb, None)
+            if plan.kernel == "cluster":
+                ms = cuda_ms(lambda: notegen._launch(ops, False), 30)
+                st = cuda_ms(lambda: notegen._launch_streamed(ops, False), 30)
+            else:
+                ms = st = cuda_ms(
+                    lambda: notegen._launch_streamed(ops, False), 30)
+            bound, bound_by = notegen_bound_ms(G, N, F, H, L)
+            times[L][G] = (plan.kernel, ms, bound, bound_by)
+            same = ("cluster = streamed bit for bit and "
+                    if plan.kernel == "cluster" else "")
+            log(f"notegen depth {L} G={G}: {plan.kernel} kernel {ms:.4f} "
+                f"ms/launch (streamed kernel {st:.4f}), bound {bound:.6f} "
+                f"ms by {bound_by}; {same}both gate cases agree with the "
+                f"plain version ({card})")
+    log(f"notegen depths 1-8: max|dv| {max_err:.3g} against the plain "
+        f"version")
+
+    # Sampler.generate at depths 1 and 3 (committed bytes) and 6.
+    gen_dir = os.path.join(WORK, "depths")
+    launches = {}
+    for L, bars in ((1, 2), (3, 2), (6, 1)):
+        dcfg = cfg.replace(note_axis_layers=L, out_dir=gen_dir)
+        styles = [compute_genre(i, dcfg) for i in range(3)]
+        notegen.note_sample.launches = 0
+        notegen.note_sample.streamed_launches = 0
+        notegen.note_sample_streamed.launches = 0
+        notegen.note_sample_reference.calls = 0
+        res = Sampler(models[L]).generate(styles, num_bars=bars, seed=0)
+        counts = (notegen.note_sample.launches,
+                  notegen.note_sample.streamed_launches,
+                  notegen.note_sample_streamed.launches,
+                  notegen.note_sample_reference.calls)
+        steps = bars * cfg.notes_per_bar
+        kernel = notegen.notegen_plan(3, L, F, H, N).kernel
+        log(f"generate depth {L}: {steps} timesteps; notegen launches "
+            f"{counts[0]} ({counts[1]} of them the streamed kernel, the "
+            f"plan's {kernel}), comparison launches {counts[2]}, plain "
+            f"calls {counts[3]}")
+        want = (steps, steps if kernel == "streamed" else 0, 0, 0)
+        if counts != want or not np.isfinite(res.notes).all():
+            fail(f"generate depth {L}: counts {counts}, expected {want}")
+        launches[L] = counts[0]
+        if L == 6:
+            continue
+        for i, p in enumerate(write_file(f"depth{L}", res, dcfg)):
+            ref = os.path.join(ROOT, "artifacts", "note_depth_r17",
+                               "samples", f"depth{L}_{i}.mid")
+            if not check_sample(p, ref):
+                log("divergence: " + json.dumps(_divergence(p, ref)))
+
+    # A depth-3 service: /generate equal to its solo run.
+    service = GenerationService(
+        config=cfg.replace(note_axis_layers=3),
+        params=params_from_numpy(depth_params(r4, 3)), warmup=False)
+    solo = service._encode_midi(Sampler(service.model).generate(
+        [compute_genre(1, cfg)], num_bars=2, seed=21,
+        stream_indices=[0]).notes[0])
+    httpd = DeepJHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, _, body = _post(f"http://127.0.0.1:{httpd.server_port}",
+                                {"genre": 1, "bars": 2, "seed": 21})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    log(f"serve depth 3: /generate answered {status}, {len(body)} bytes, "
+        f"equal to its solo run {body == solo}")
+    if status != 200 or body != solo:
+        fail("serve depth 3: the response differs from its solo run")
+    return times, launches, max_err
+
+
 def check_notegen_plans(cfg):
     """Print the cluster pitch-loop kernel's plan at G = 1, 3, 8, 64 and
     256 beside the clusters the card holds at once
@@ -2292,8 +2658,8 @@ def check_notegen_plans(cfg):
     from music_generator_tpu_torch.ops import notegen
     F, H, N = cfg.time_axis_units, cfg.note_axis_units, cfg.num_notes
     for G in (1, 3, 8, 64, 256):
-        p = notegen.notegen_plan(G, F, H, N)
-        active = notegen.active_clusters(G, F, H, N)
+        p = notegen.notegen_plan(G, 2, F, H, N)
+        active = notegen.active_clusters(G, 2, F, H, N)
         waves = -(-p.clusters // active) if active else 0
         log(f"notegen plan G={G}: C={p.C} blocks a cluster, Gc={p.Gc} "
             f"streams a cluster, {p.clusters} cluster(s), {p.smem} bytes "
@@ -2311,21 +2677,21 @@ def time_notegen(model, card):
     {G: (ms, streamed ms, plain ms or None, bound ms, bound_by)}."""
     from music_generator_tpu_torch.ops import notegen
     cfg = model.cfg
-    l0, l1 = model.note_axis
     heads = (model.note_dense, model.volume_dense)
     times = {}
     for G in (3, 64, 256):
         feats, us, temp, emb = notegen_inputs(model, G, 1.0, 100 + G)
-        args = (feats, us, temp, l0, l1, *heads, emb, "sigmoid", None)
-        ops = notegen._kernel_operands(*args[:8], None)
-        runs = [cuda_ms(lambda: notegen._launch(*ops, False), 50),
-                cuda_ms(lambda: notegen._launch_streamed(*ops, False), 50),
-                cuda_ms(lambda: notegen._launch_streamed(*ops, False), 50),
-                cuda_ms(lambda: notegen._launch(*ops, False), 50)]
+        args = (feats, us, temp, model.note_axis, *heads, emb, "sigmoid",
+                None)
+        ops = notegen._kernel_operands(*args[:7], None)
+        runs = [cuda_ms(lambda: notegen._launch(ops, False), 50),
+                cuda_ms(lambda: notegen._launch_streamed(ops, False), 50),
+                cuda_ms(lambda: notegen._launch_streamed(ops, False), 50),
+                cuda_ms(lambda: notegen._launch(ops, False), 50)]
         plain = (cuda_ms(lambda: notegen.note_sample_reference(*args), 5)
                  if G <= 64 else None)
         prof = torch.zeros(14, dtype=torch.int64, device="cuda")
-        notegen._launch(*ops, False, prof=prof)
+        notegen._launch(ops, False, prof=prof)
         torch.cuda.synchronize()
         pr = prof.tolist()
         per = [c / pr[11] for c in pr[:6]]
@@ -2535,7 +2901,6 @@ def main() -> None:
     full_f32()
     cfg = default_config()
     model = build_model(cfg, "cuda", state=load_params_npz(PARAMS))
-    l0, l1 = model.note_axis
     heads = (model.note_dense, model.volume_dense)
     vgrid = torch.from_numpy(_velocity_grid(cfg.max_velocity)).cuda()
     max_err = 0.0
@@ -2546,7 +2911,8 @@ def main() -> None:
                 for grid in (None, vgrid):
                     case += 1
                     feats, us, temp, emb = notegen_inputs(model, G, T, case)
-                    args = (feats, us, temp, l0, l1, *heads, emb, act, grid)
+                    args = (feats, us, temp, model.note_axis, *heads, emb,
+                            act, grid)
                     got = notegen.note_sample(*args)
                     streamed = notegen.note_sample_streamed(*args)
                     torch.cuda.synchronize()
@@ -2555,8 +2921,8 @@ def main() -> None:
                              f"{grid is not None}: the cluster kernel "
                              f"differs from the streamed kernel")
                     want = notegen.note_sample_reference(*args)
-                    probs = notegen.tempered_probs(feats, got, temp, l0, l1,
-                                                   *heads, emb, act)
+                    probs = notegen.tempered_probs(
+                        feats, got, temp, model.note_axis, *heads, emb, act)
                     ok, err, report = notegen.draws_agree(
                         got, want, us, probs, EDGE, VOLUME_ATOL)
                     max_err = max(max_err, err)
@@ -2585,6 +2951,7 @@ def main() -> None:
     cwd = os.getcwd()
     os.chdir(WORK)
     notegen.note_sample.launches = 0
+    notegen.note_sample.streamed_launches = 0
     notegen.note_sample_streamed.launches = 0
     notegen.note_sample_reference.calls = 0
     paths = {}
@@ -2597,7 +2964,8 @@ def main() -> None:
         os.chdir(cwd)
     launches = notegen.note_sample.launches
     plain_calls = notegen.note_sample_reference.calls
-    streamed_launches = notegen.note_sample_streamed.launches
+    streamed_launches = (notegen.note_sample_streamed.launches
+                         + notegen.note_sample.streamed_launches)
     steps = 2 * 8 * cfg.notes_per_bar
     log(f"main path: notegen launches {launches} for {steps} timesteps, "
         f"streamed kernel launches {streamed_launches}, plain version calls "
@@ -2661,6 +3029,12 @@ def main() -> None:
     # -- 3j. this slice's path: Keras 2 weights, visualize, analyze ----------
     keras_slice(cfg, card, paths)
 
+    # -- 3k. this slice's path: the trainer's staging modes, --profile -------
+    trainer_modes(cfg, card)
+
+    # -- 3l. this slice's path: generation at note depths 1-8 ----------------
+    depth_times, depth_launches, depth_err = note_depths(cfg, card)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
     for route in ROUTES:
@@ -2705,18 +3079,29 @@ def main() -> None:
 
     times = time_notegen(model, card)
     ms, _, plain, bound, bound_by = times[3]
+    gen_launches = {**depth_launches, 2: launches}
     kernels = [{
         "name": "notegen",
         "route": "cuda",
         "source": "music_generator_tpu_torch/csrc/notegen.cu",
         "replaces": "music_generator_tpu/ops/pallas_notegen.py:35",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, depth_err),
         "ms": ms,
         "plain_ms": plain,
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
+        # The note depths it ran (phase 3 at depth 2; phase 3l at 1-8):
+        # the plan's kernel, ms a launch and bound at G = 3 and 64, and,
+        # where a generate run was counted (phase 3 at depth 2, phase 3l
+        # at depths 1, 3 and 6), its launches.
+        "depths": {str(L): {
+            "kernel": t[3][0], "ms": {G: t[G][1] for G in t},
+            "bound_ms": {G: t[G][2] for G in t},
+            **({"generate_launches": gen_launches[L]}
+               if L in gen_launches else {})}
+            for L, t in depth_times.items()},
     }]
     for name, replaces, source in BIAX_KERNELS:
         ms, plain = biax_times[name]

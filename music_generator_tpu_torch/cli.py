@@ -2,9 +2,9 @@
 `visualize` and `analyze`.
 
 `train` takes the flags of the JAX package's `train_main` that apply
-(--epochs, --seed, --no-resume, --from-keras) plus `--device`; it trains
-on the corpus under the config's style directories and keeps the best
-checkpoint in `out/model.pt`.  `generate` has the flags of the JAX
+(--epochs, --seed, --no-resume, --profile, --from-keras) plus `--device`;
+it trains on the corpus under the config's style directories and keeps
+the best checkpoint in `out/model.pt`.  `generate` has the flags of the JAX
 package's `generate_main` (ref: generate.py:137-148), among them
 `--from-keras`, `--prime`, `--prime-bars` and `--continuation-only`
 (primed continuation), plus `--device` and `--params`.  `visualize`
@@ -63,6 +63,10 @@ def train_main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-resume", action="store_true",
                         help="Skip loading an existing checkpoint")
+    parser.add_argument("--profile", action="store_true",
+                        help="Write a profiler trace of early steps (steps "
+                             "5-10 of epoch 0, a Chrome trace under "
+                             "out/logs/profile)")
     parser.add_argument("--from-keras", type=str, default=None,
                         metavar="MODEL_H5",
                         help="Warm-start from a reference (Keras 2) "
@@ -78,7 +82,8 @@ def train_main(argv=None) -> dict:
     print("Loading data")
     ds = load_all(cfg.styles, cfg.seq_len, cfg)
     print(f"{len(ds)} training windows")
-    trainer = Trainer(model, TrainConfig(seed=args.seed))
+    trainer = Trainer(model, TrainConfig(seed=args.seed,
+                                         profile=args.profile))
     if args.from_keras:
         model.load_state_dict(load_keras_weights(args.from_keras, cfg))
         print(f"Warm-started from Keras weights: {args.from_keras}")

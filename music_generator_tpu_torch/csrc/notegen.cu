@@ -2,8 +2,10 @@
 //
 // Replaces music_generator_tpu/ops/pallas_notegen.py::pallas_note_sample
 // (the Pallas kernel `_make_kernel`, launched by `pl.pallas_call` in
-// `_build.run`).  One launch samples all N = 48 pitches of one generation
-// timestep for G streams: per pitch, two note-axis LSTM cells, the sigmoid
+// `_build.run`), and at note-axis depths other than 2 the scan of
+// `DeepJ.note_axis_cell` that the JAX `Sampler._note_scan` runs there.
+// One launch samples all N = 48 pitches of one generation timestep for G
+// streams: per pitch, L note-axis LSTM cells (L = 1..8), the sigmoid
 // play/replay and linear volume heads, clip -> logit -> / T -> sigmoid,
 // the `u <= p` Bernoulli draws, replay * play, clip(volume) * play, and the
 // optional snap of the volume onto the k/127 velocity grid
@@ -11,55 +13,68 @@
 //
 // The math is the Pallas kernel's, in float32: W0 split into its feature
 // rows W0f [F, 4H] and chosen rows W0c [3, 4H]; the style terms folded by
-// the wrapper into a0 = tanh(s Ws0 + bs0) W0 + b0 and a1 = tanh(s Ws1 +
-// bs1) W1 + b1; z0 = (feat W0f + chosen W0c + a0) + h0 U0 and z1 = (h0 W1 +
-// a1) + h1 U1; sigmoid as 1/(1+expf(-x)) (lax.logistic); temperature by
-// true division; draws fire on u <= p.  Elementwise products and sums are
-// written with __fmul_rn/__fadd_rn so that the compiler does not contract
-// them into FMAs the plain PyTorch version does not use.  Built without
-// --use_fast_math.
+// the wrapper into a_l = tanh(s Ws_l + bs_l) W_l + b_l for every layer;
+// z_0 = (feat W0f + chosen W0c + a_0) + h_0 U_0 and, for l >= 1, z_l =
+// (h_{l-1} W_l + a_l) + h_l U_l; the heads read h_{L-1}; sigmoid as
+// 1/(1+expf(-x)) (lax.logistic); temperature by true division; draws fire
+// on u <= p.  Elementwise products and sums are written with
+// __fmul_rn/__fadd_rn so that the compiler does not contract them into
+// FMAs the plain PyTorch version does not use.  Built without
+// --use_fast_math.  The layers' a_l, U_l and W_l arrive as a table of
+// pointers (NgLayers), so the wrapper copies no weight per call.
 //
 // Two kernels compute this, bit for bit alike: every element of z is the
-// same chain of fmaf in k order, associated as ((acc_F + zc) + a0) + rec
-// and (acc + a1) + rec, and the cells, heads and draws share their code.
+// same chain of fmaf in k order, associated as ((acc_F + zc) + a_0) + rec
+// and (acc + a_l) + rec, and the cells, heads and draws share their code.
 //
-// What bounds it on this card.  The work per launch is about G * 31.6
-// MFLOP (2 * 48 * (F*4H + 3*4H + 3*H*4H + 3*H) at F = 256, H = 128) and
-// about 1.3 MB of float32 weights (W0f 512 KB; U0, W1, U1 256 KB each):
-// at G = 3 some 1.4 us of float32 FMA at the H100's 67 TFLOP/s and 0.4 us
-// of HBM at 3.35 TB/s.  Neither is the floor: the 48 pitches form a chain
-// of dependent steps, and each step needs the recurrent weights.
+// What bounds it on this card.  The work per launch is about G * 2 * 48 *
+// (F*4H + 3*4H + (2L-1)*H*4H + 3*H) FLOP (31.6 MFLOP a stream at F = 256,
+// H = 128, L = 2; 12.6 more for each further layer) and about 0.5 + 0.25
+// (2L - 1) MB of float32 weights: at G = 3 and L = 2 some 1.4 us of
+// float32 FMA at the H100's 67 TFLOP/s and 0.4 us of HBM at 3.35 TB/s.
+// Neither is the floor: the 48 pitches form a chain of dependent steps,
+// each step a chain of L layers, and each needs the recurrent weights.
 //
-// notegen_cluster_kernel, the one the wrapper launches.  Only h0 U0, h1 U1,
-// chosen W0c and h0 W1 carry from pitch to pitch; feat W0f does not.  So
-// (1) a prologue in the same launch computes acc_F = feat W0f for every
-// pitch and stream of the cluster, each block for its own gate columns,
-// with its W0f column slice and x staged in shared memory by cp.async,
-// and keeps acc_F in shared memory; (2) the carrying weights (U0, W1, U1:
-// 768 KB at H = 128) stay resident in the shared memory of a thread-block
-// cluster of C blocks: block q owns the units [q H/C, (q+1) H/C) and the
-// 4 H/C gate columns {a H + j} of them, so its gate sums land in its own
-// shared memory and only h crosses blocks.  A cluster serves Gc streams.
-// A block's warps have three roles: work warps (a product thread owns two
-// columns and four streams, so each weight read serves eight chains; a
-// cell thread one unit and stream), rec warps (h1 U1, which depends only
-// on the previous pitch) and three head warps.  Per pitch: h0 U0 and h1 U1
-// while the head warps compute the heads and draws of the previous pitch
-// from the full h1 (every block itself, 3 H MACs a stream, so the chosen
-// note needs no exchange; block 0 writes the output); then z0 with the
-// chosen note, the cells of the block's units, its slice of h0 written to
-// every peer through distributed shared memory, cluster barrier 1; h0 W1
-// from the full h0 plus a1 and h1 U1, the cells, its slice of h1 to every
-// peer, cluster barrier 2.  h0 and h1 alternate between two buffers by
-// pitch: a peer's next write to a buffer comes after a cluster barrier
-// that every reader of it has passed.  The plan (C, Gc, clusters, shared
-// bytes) is `ng_plan`, mirrored by ops/notegen.py::notegen_plan; the
-// launch refuses a plan that disagrees with it.
+// notegen_cluster_kernel, the one the wrapper launches where its plan fits.
+// Only h_0 U_0, the h_l U_l, chosen W0c and the h_{l-1} W_l carry from
+// pitch to pitch; feat W0f does not.  So (1) a prologue in the same launch
+// computes acc_F = feat W0f for every pitch and stream of the cluster,
+// each block for its own gate columns, with its W0f column slice and x
+// staged in shared memory by cp.async, and keeps acc_F in shared memory;
+// (2) the carrying weights (U_0, then W_l and U_l of each further layer:
+// (2L - 1) * 256 KB at H = 128) stay resident in the shared memory of a
+// thread-block cluster of C blocks: block q owns the units [q H/C,
+// (q+1) H/C) and the 4 H/C gate columns {a H + j} of them, so its gate
+// sums land in its own shared memory and only h crosses blocks.  A cluster
+// serves Gc streams.  A block's warps have three roles: work warps (a
+// product thread owns two columns and four streams, so each weight read
+// serves eight chains; a cell thread one unit and stream), rec warps (the
+// h_l U_l, which depend only on the previous pitch) and three head warps.
+// Per pitch, phase 0: h_0 U_0 and h_1 U_1 while the head warps compute
+// the heads and draws of the previous pitch from the full h_{L-1} (every
+// block itself, 3 H MACs a stream, so the chosen note needs no exchange;
+// block 0 writes the output); then z_0 with the chosen note, the cells of
+// the block's units, its slice of h_0 written to every peer through
+// distributed shared memory, a cluster barrier.  Phase l = 1..L-1: h_{l-1}
+// W_l from the full h_{l-1} plus a_l and h_l U_l, the cells, its slice of
+// h_l to every peer, a cluster barrier; the rec warps meanwhile compute
+// h_{l+1} U_{l+1} of the previous pitch, into the other of two buffers.
+// So a pitch costs L barriers.  h_0 and h_{L-1} alternate between two
+// buffers by pitch (h_0 U_0 of the next pitch reads h_0 while peers write
+// it; the heads read h_{L-1} in phase 0); a middle layer's h is written in
+// its own phase only, after a barrier that every reader of the last
+// pitch's value has passed, so it has one buffer.  The kernel is built for
+// depth 2 with the layer loop fixed at compile time and for any depth with
+// a run-time loop.  The plan (C, Gc, clusters, shared bytes) is `ng_plan`,
+// mirrored by ops/notegen.py::notegen_plan; the launch refuses a plan that
+// disagrees with it.
 //
-// notegen_streamed_kernel, kept to hold the cluster kernel to bit for bit
-// and to time it against: one block per stream, thread j owns gate column
-// j and streams all 1.3 MB of weights from L2 at every pitch; its time is
-// the latency of that chain of L2 reads.
+// notegen_streamed_kernel: one block per stream, thread j owns gate column
+// j and streams all the weights from L2 at every pitch; its time is the
+// latency of that chain of L2 reads.  The plan takes it at the depths whose
+// resident weights overflow every cluster (6-8 at the flagship widths);
+// elsewhere it holds the cluster kernel to bit for bit and is timed
+// against it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -127,24 +142,39 @@ __device__ __forceinline__ void lstm_gates(const float* z, float* h,
     h[j] = cell_f(z[j], z[H + j], z[2 * H + j], z[3 * H + j], c + j, hard);
 }
 
+constexpr int NG_LMAX = 8;  // note-axis layers, at most
+
+// The depth with a cluster-kernel instance of its own (the layer loop
+// fixed at compile time); every other depth runs the run-time loop.  A
+// build with -DNG_FIXED_DEPTH=0 runs every depth through the run-time
+// loop: tools/notegen_depth_probe.py times the two at depth 2.
+#ifndef NG_FIXED_DEPTH
+#define NG_FIXED_DEPTH 2
+#endif
+
+// The per-layer operands: a[l] [G][4H] (the folded style terms), u[l]
+// [H][4H] (the recurrent weights) and, for l >= 1, w[l] [H][4H] (the
+// input weights; w[0] is unused: layer 0's are W0f and W0c).
+struct NgLayers {
+  const float* a[NG_LMAX];
+  const float* u[NG_LMAX];
+  const float* w[NG_LMAX];
+};
+
 __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
     const float* __restrict__ feats,     // [G, N, F]
     const float* __restrict__ uniforms,  // [G, N, 2]
     const float* __restrict__ temp,      // [G]
     const float* __restrict__ w0f,       // [F, 4H]
     const float* __restrict__ w0c,       // [3, 4H]
-    const float* __restrict__ a0,        // [G, 4H]
-    const float* __restrict__ u0,        // [H, 4H]
-    const float* __restrict__ w1,        // [H, 4H]
-    const float* __restrict__ a1,        // [G, 4H]
-    const float* __restrict__ u1,        // [H, 4H]
+    const __grid_constant__ NgLayers lw,
     const float* __restrict__ wnd,       // [H, 2]
     const float* __restrict__ bnd,       // [2]
     const float* __restrict__ wvd,       // [H, 1]
     const float* __restrict__ bvd,       // [1]
     const float* __restrict__ vgrid,     // [max_velocity + 1], or null
     float* __restrict__ out,             // [G, N, 3]
-    int N, int F, int H, int hard, int max_velocity) {
+    int N, int F, int H, int L, int hard, int max_velocity) {
   extern __shared__ float smem[];
   const int H4 = 4 * H;
   const int g = blockIdx.x;  // one block per stream
@@ -153,19 +183,17 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  float* h0 = smem;      // [H]
-  float* c0 = h0 + H;    // [H]
-  float* h1 = c0 + H;    // [H]
-  float* c1 = h1 + H;    // [H]
-  float* z = c1 + H;     // [4H]
-  float* x = z + H4;     // [F]  this pitch's feature row
-  float* ch = x + F;     // [4]  chosen (play, replay, volume)
-  float* hd = ch + 4;    // [4]  head outputs
+  // h_l = smem + 2 l H and c_l = h_l + H, [H] each, for l < L.
+  float* z = smem + 2 * L * H;  // [4H]
+  float* x = z + H4;            // [F]  this pitch's feature row
+  float* ch = x + F;            // [4]  chosen (play, replay, volume)
+  float* hd = ch + 4;           // [4]  head outputs
+  const float* hl = smem + 2 * (L - 1) * H;  // the heads' input
 
-  for (int i = tid; i < 4 * H; i += nt) smem[i] = 0.f;
+  for (int i = tid; i < 2 * L * H; i += nt) smem[i] = 0.f;
   if (tid < 8) ch[tid] = 0.f;
-  a0 += (size_t)g * H4;
-  a1 += (size_t)g * H4;
+  const float* a0 = lw.a[0] + (size_t)g * H4;
+  const float* u0 = lw.u[0];
 
   for (int n = 0; n < N; ++n) {
     const float* feat = feats + ((size_t)g * N + n) * F;
@@ -180,36 +208,43 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
         acc = fmaf(x[k], __ldg(w0f + (size_t)k * H4 + j), acc);
 #pragma unroll 8
       for (int k = 0; k < H; ++k)
-        rec = fmaf(h0[k], __ldg(u0 + (size_t)k * H4 + j), rec);
+        rec = fmaf(smem[k], __ldg(u0 + (size_t)k * H4 + j), rec);
       float zc = __fmul_rn(ch[0], w0c[j]);
       zc = fmaf(ch[1], w0c[H4 + j], zc);
       zc = fmaf(ch[2], w0c[2 * H4 + j], zc);
       z[j] = __fadd_rn(__fadd_rn(__fadd_rn(acc, zc), a0[j]), rec);
     }
     __syncthreads();
-    lstm_gates(z, h0, c0, H, hard, tid, nt);
+    lstm_gates(z, smem, smem + H, H, hard, tid, nt);
     __syncthreads();
 
-    // Layer 1: z1 = (h0 W1 + a1) + h1 U1.
-    for (int j = tid; j < H4; j += nt) {
-      float acc = 0.f, rec = 0.f;
+    // Layer l >= 1: z_l = (h_{l-1} W_l + a_l) + h_l U_l.
+    for (int l = 1; l < L; ++l) {
+      const float* hin = smem + 2 * (l - 1) * H;
+      float* h = smem + 2 * l * H;
+      const float* w = lw.w[l];
+      const float* u = lw.u[l];
+      const float* al = lw.a[l] + (size_t)g * H4;
+      for (int j = tid; j < H4; j += nt) {
+        float acc = 0.f, rec = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        acc = fmaf(h0[k], __ldg(w1 + (size_t)k * H4 + j), acc);
-        rec = fmaf(h1[k], __ldg(u1 + (size_t)k * H4 + j), rec);
+        for (int k = 0; k < H; ++k) {
+          acc = fmaf(hin[k], __ldg(w + (size_t)k * H4 + j), acc);
+          rec = fmaf(h[k], __ldg(u + (size_t)k * H4 + j), rec);
+        }
+        z[j] = __fadd_rn(__fadd_rn(acc, al[j]), rec);
       }
-      z[j] = __fadd_rn(__fadd_rn(acc, a1[j]), rec);
+      __syncthreads();
+      lstm_gates(z, h, h + H, H, hard, tid, nt);
+      __syncthreads();
     }
-    __syncthreads();
-    lstm_gates(z, h1, c1, H, hard, tid, nt);
-    __syncthreads();
 
     // Heads: the (play, replay) logits and the linear volume, one warp
     // each, reduced across the warp.
     if (warp < 3) {
       float sum = 0.f;
       for (int k = lane; k < H; k += 32)
-        sum = fmaf(h1[k], warp < 2 ? wnd[k * 2 + warp] : wvd[k], sum);
+        sum = fmaf(hl[k], warp < 2 ? wnd[k * 2 + warp] : wvd[k], sum);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -237,53 +272,90 @@ constexpr int NG_GC_MAX = 8;         // streams a cluster serves, at most
 constexpr int NG_PB = 16;            // pitches of one staged chunk of x
 constexpr int NG_THREADS = 384;      // threads a block, at most
 
+// C == 0: no cluster, the streamed kernel (G blocks of one stream).
 struct NgPlan { int C, Gc, clusters, smem; };
 
 __host__ __device__ inline int ng_pad4(int g) { return (g + 3) & ~3; }
 
+// The [H][Gp] buffers of h: two for h_0 and two for h_{L-1} (one pair at
+// L = 1), one for each middle layer.
+__host__ __device__ inline int ng_hbufs(int L) { return L == 1 ? 2 : L + 2; }
+// The [Gp][COLS] buffers of z: the cells' z and one (L = 2) or two (L > 2)
+// for the rec warps' h_l U_l; none at L = 1.
+__host__ __device__ inline int ng_zbufs(int L) {
+  return 1 + (L - 1 < 2 ? L - 1 : 2);
+}
+
 // Dynamic shared memory of one block, in bytes: W0f's column slice in the
-// prologue, then U0, W1, U1's ([max(3H, F)][COLS]); W0c's columns [3][COLS];
-// the heads' weights [3][H]; acc_F [N][Gp][COLS]; h0 and h1, two buffers
-// each [2][2][H][Gp], with z and h1 U1 [2][Gp][COLS], which in the
-// prologue hold two staged chunks of x [2][NG_PB][F] instead; chosen notes
-// and head outputs [2][Gp][4].  Gp: the streams padded to a multiple of 4.
-inline long long ng_smem_bytes(int C, int Gc, int N, int F, int H) {
+// prologue, then U_0 and the W_l, U_l of the further layers ([max((2L-1)H,
+// F)][COLS]); W0c's columns [3][COLS]; the heads' weights [3][H]; acc_F
+// [N][Gp][COLS]; the h buffers [ng_hbufs(L)][H][Gp] with the z buffers
+// [ng_zbufs(L)][Gp][COLS], which in the prologue hold two staged chunks of
+// x [2][NG_PB][F] instead; chosen notes and head outputs [2][Gp][4].  Gp:
+// the streams padded to a multiple of 4.
+inline long long ng_smem_bytes(int C, int Gc, int L, int N, int F, int H) {
   const long long COLS = 4 * (H / C), Gp = ng_pad4(Gc);
-  const long long KW = std::max(3 * H, F);
+  const long long KW = std::max((2LL * L - 1) * H, (long long)F);
   const long long hz =
-      std::max(4LL * H * Gp + 2 * Gp * COLS, 2LL * NG_PB * F);
+      std::max((long long)ng_hbufs(L) * H * Gp + ng_zbufs(L) * Gp * COLS,
+               2LL * NG_PB * F);
   return 4 * (KW * COLS + 3 * COLS + 3LL * H + (long long)N * Gp * COLS +
               hz + 8 * Gp);
 }
 
 // The work warps (one cell thread per unit and stream; one product
-// thread per two gate columns and four streams), the rec warps (h1 U1, a
+// thread per two gate columns and four streams), the rec warps (h_l U_l, a
 // product thread each) and three head warps.
 inline int ng_threads(int C, int Gc, int H) {
   const int p0 = (H / C) * ng_pad4(Gc);
   return 32 * ((p0 + 31) / 32 + (p0 / 2 + 31) / 32 + 3);
 }
 
-// C from {8, 4, 16} dividing H, the first for which some Gc fits; Gc the
-// most streams that fit (at most NG_GC_MAX and G), then spread evenly over
-// the ceil(G / Gc) clusters.  False for widths that fit no plan.
-inline bool ng_plan(int G, int N, int F, int H, NgPlan* p) {
-  if (G <= 0 || N <= 0 || F <= 0 || H <= 0 || F % 4 != 0) return false;
+// The streamed kernel's block: [L][2][H] of h and c, z [4H], x [F], the
+// chosen notes and head outputs; a thread per gate column, 96 to 1024.
+inline long long ng_streamed_smem(int L, int F, int H) {
+  return 4 * (2LL * L * H + 4LL * H + F + 8);
+}
+inline int ng_streamed_threads(int H) {
+  const int t = 4 * H < 96 ? 96 : (4 * H + 31) / 32 * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+// The cluster plan at depth L: C from {8, 4, 16} dividing H, the first for
+// which some Gc fits; Gc the most streams that fit (at most NG_GC_MAX and
+// G), then spread evenly over the ceil(G / Gc) clusters.
+inline bool ng_cluster_plan(int G, int L, int N, int F, int H, NgPlan* p) {
   for (int C : {8, 4, 16}) {
     if (H % C != 0) continue;
     int gmax = 0;
     for (int gc = 1; gc <= NG_GC_MAX && gc <= G; ++gc)
-      if (ng_smem_bytes(C, gc, N, F, H) <= NG_SMEM_MAX &&
+      if (ng_smem_bytes(C, gc, L, N, F, H) <= NG_SMEM_MAX &&
           ng_threads(C, gc, H) <= NG_THREADS)
         gmax = gc;
     if (gmax == 0) continue;
     p->C = C;
     p->clusters = (G + gmax - 1) / gmax;
     p->Gc = (G + p->clusters - 1) / p->clusters;
-    p->smem = (int)ng_smem_bytes(C, p->Gc, N, F, H);
+    p->smem = (int)ng_smem_bytes(C, p->Gc, L, N, F, H);
     return true;
   }
   return false;
+}
+
+// The plan: the cluster kernel where a cluster holds the L layers' weights;
+// else, at widths where a cluster serves one layer, the streamed kernel
+// (C = 0, G blocks).  False where nothing fits.
+inline bool ng_plan(int G, int L, int N, int F, int H, NgPlan* p) {
+  if (G <= 0 || N <= 0 || F <= 0 || H <= 0 || F % 4 != 0 || L < 1 ||
+      L > NG_LMAX)
+    return false;
+  if (ng_cluster_plan(G, L, N, F, H, p)) return true;
+  NgPlan one;
+  if (!ng_cluster_plan(G, 1, N, F, H, &one) ||
+      ng_streamed_smem(L, F, H) > NG_SMEM_MAX)
+    return false;
+  *p = NgPlan{0, 1, G, (int)ng_streamed_smem(L, F, H)};
+  return true;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -306,41 +378,51 @@ __device__ __forceinline__ void cp_wait() {
 
 // GP: the cluster's streams padded to a multiple of 4 (4 or 8), so that
 // the loops over streams and the h strides are fixed at compile time.
-template <int GP>
+// LC: the depth fixed at compile time (2), or 0 for a run-time loop over
+// the depth `Lrt` (the layer loop's c and a_l then live in local and
+// global memory instead of registers).
+template <int GP, int LC>
 __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     const float* __restrict__ feats, const float* __restrict__ uniforms,
     const float* __restrict__ temp, const float* __restrict__ w0f,
-    const float* __restrict__ w0c, const float* __restrict__ a0,
-    const float* __restrict__ u0, const float* __restrict__ w1,
-    const float* __restrict__ a1, const float* __restrict__ u1,
+    const float* __restrict__ w0c, const __grid_constant__ NgLayers lw,
     const float* __restrict__ wnd, const float* __restrict__ bnd,
     const float* __restrict__ wvd, const float* __restrict__ bvd,
     const float* __restrict__ vgrid, float* __restrict__ out, int G, int N,
-    int F, int H, int hard, int max_velocity, NgPlan P,
+    int F, int H, int Lrt, int hard, int max_velocity, NgPlan P,
     unsigned long long* prof) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned long long kstart = clock64();
   extern __shared__ __align__(16) float sm[];
+  const int L = LC ? LC : Lrt;
   const int C = P.C, q = (int)cluster.block_rank();
   constexpr int Gp = GP;
   const int UJ = H / C, COLS = 4 * UJ, H4 = 4 * H;
-  const int KW = max(3 * H, F);
+  const int KW = max((2 * L - 1) * H, F);
+  const int HB = ng_hbufs(L);
   const int g0 = (blockIdx.x / C) * P.Gc, ng = min(P.Gc, G - g0);
   const int j0 = q * UJ;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
+  // wr: U_0 at row 0, W_l at row (2l - 1) H and U_l at row 2l H.
   float* wr = sm;                          // [KW][COLS]
   float* w0cs = wr + (size_t)KW * COLS;    // [3][COLS]
   float* hw = w0cs + 3 * COLS;             // [3][H]
   float* accF = hw + 3 * H;                // [N][Gp][COLS]
-  float* hb0 = accF + (size_t)N * Gp * COLS;  // [2][H][Gp]
-  float* hb1 = hb0 + 2 * H * Gp;           // [2][H][Gp]
-  float* zs = hb1 + 2 * H * Gp;            // [Gp][COLS]
-  float* zr = zs + Gp * COLS;              // [Gp][COLS]
-  float* xb = hb0;                         // prologue: [2][NG_PB][F]
-  float* ch = hb0 + max(4 * H * Gp + 2 * Gp * COLS, 2 * NG_PB * F);
+  float* hb = accF + (size_t)N * Gp * COLS;  // [HB][H][Gp]
+  float* zs = hb + HB * H * Gp;            // [Gp][COLS]
+  float* zr = zs + Gp * COLS;              // [2][Gp][COLS] (L > 2)
+  float* xb = hb;                          // prologue: [2][NG_PB][F]
+  float* ch = hb + max(HB * H * Gp + ng_zbufs(L) * Gp * COLS,
+                       2 * NG_PB * F);
   float* hd = ch + 4 * Gp;                 // [Gp][4]
+  // h_l of pitch parity par: buffers 0-1 h_0, 2-3 h_{L-1}, 4.. the middle.
+  auto hbuf = [&](int l, int par) -> float* {
+    if (l == 0) return hb + par * H * Gp;
+    if (l == L - 1) return hb + (2 + par) * H * Gp;
+    return hb + (3 + l) * H * Gp;
+  };
   // Local column lc: gate lc / UJ of unit j0 + lc % UJ.
   auto col = [&](int lc) { return (lc / UJ) * H + j0 + lc % UJ; };
 
@@ -433,10 +515,12 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     __syncthreads();
   }
   const unsigned long long kacc = clock64();
-  // The carrying weights' columns, resident from here on: [3][H][COLS].
-  gather(wr, u0, H);
-  gather(wr + H * COLS, w1, H);
-  gather(wr + 2 * H * COLS, u1, H);
+  // The carrying weights' columns, resident from here on.
+  gather(wr, lw.u[0], H);
+  for (int l = 1; l < L; ++l) {
+    gather(wr + (2 * l - 1) * H * COLS, lw.w[l], H);
+    gather(wr + 2 * l * H * COLS, lw.u[l], H);
+  }
   cp_commit();
   for (int i = tid; i < 3 * COLS; i += nt)
     w0cs[i] = w0c[(size_t)(i / COLS) * H4 + col(i % COLS)];
@@ -445,15 +529,15 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     hw[H + k] = wnd[2 * k + 1];
     hw[2 * H + k] = wvd[k];
   }
-  for (int i = tid; i < 4 * H * Gp; i += nt) hb0[i] = 0.f;  // hb0, hb1
+  for (int i = tid; i < HB * H * Gp; i += nt) hb[i] = 0.f;
   for (int i = tid; i < 4 * Gp; i += nt) ch[i] = 0.f;
   cp_wait<0>();
   // Roles by warp: WW work warps (cell thread tid < P0: unit gj, stream
   // gs, four neighbouring lanes holding four streams of one unit, which
   // one of them writes to every peer as a float4; product thread tid < P1:
   // columns plc, plc + 1 and streams 4 grp .. 4 grp + 3), WR rec warps
-  // (the same product items for h1 U1), and three head warps (head w for
-  // every stream, then the draw on lane s of the first).
+  // (the same product items for the h_l U_l), and three head warps (head
+  // w for every stream, then the draw on lane s of the first).
   const int P0 = UJ * Gp, P1 = P0 / 2;
   const int WW = (P0 + 31) / 32, WR = (P1 + 31) / 32;
   const int role = warp < WW ? 0 : (warp < WW + WR ? 1 : 2);
@@ -462,18 +546,26 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   const int plc = 2 * (pt % (COLS / 2)), grp = pt / (COLS / 2);
   const int gs = tid % Gp, gj = tid / Gp;
   const int hwarp = warp - WW - WR, dt = tid - 32 * (WW + WR);  // heads
-  float a0r[4][2], a1r[4][2];  // the style terms of a product's items
+  // The style terms of a product's items: a_0, and a_1 at depth 2; at
+  // other depths a_l is read from global memory (L1) in its phase.
+  // aoff: the items' offsets in an a_l, -1 for padded streams.
+  float a0r[4][2], a1r[4][2];
+  int aoff[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = 4 * grp + i;
     const bool v = role == 0 && prod && s < ng;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      a0r[i][e] = v ? a0[(size_t)(g0 + s) * H4 + col(plc + e)] : 0.f;
-      a1r[i][e] = v ? a1[(size_t)(g0 + s) * H4 + col(plc + e)] : 0.f;
+      aoff[i][e] = v ? (g0 + s) * H4 + col(plc + e) : -1;
+      a0r[i][e] = v ? lw.a[0][aoff[i][e]] : 0.f;
+      a1r[i][e] = v && LC == 2 ? lw.a[1][aoff[i][e]] : 0.f;
     }
   }
-  float c0 = 0.f, c1 = 0.f;
+  // Each cell thread's c, one a layer.
+  float cst[LC ? LC : NG_LMAX];
+#pragma unroll
+  for (int l = 0; l < (LC ? LC : NG_LMAX); ++l) cst[l] = 0.f;
   // acc[i][e] = the fmaf chain over k of h[k][4 grp + i] w[k][plc + e], for
   // h one [H][Gp] buffer and w one [H][COLS] weight slice.
   auto chain = [&](float (&acc)[4][2], const float* h, const float* w) {
@@ -492,6 +584,16 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       acc[3][0] = fmaf(hv.w, wv.x, acc[3][0]);
       acc[3][1] = fmaf(hv.w, wv.y, acc[3][1]);
     }
+  };
+  // The rec warps: h_l U_l of the previous pitch into z buffer zb.
+  auto rec = [&](int l, int cur, float* zb) {
+    if (!prod) return;
+    float r[4][2] = {};
+    chain(r, hbuf(l, cur), wr + 2 * l * H * COLS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float2*>(zb + (4 * grp + i) * COLS + plc) =
+          make_float2(r[i][0], r[i][1]);
   };
   // Work warps only: the four lanes of a unit gathered into one float4,
   // written to the same place in every block of the cluster.
@@ -512,8 +614,8 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   auto bar = [](int id, int warps) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(32 * warps) : "memory");
   };
-  // The head warps: heads of pitch m from the full h1 (lane-strided over
-  // k, reduced across the warp), then the draws of pitch m.
+  // The head warps: heads of pitch m from the full h_{L-1} (lane-strided
+  // over k, reduced across the warp), then the draws of pitch m.
   const float hbias = hwarp == 0 ? bnd[0] : (hwarp == 1 ? bnd[1] : bvd[0]);
   const bool drawer = role == 2 && dt < ng;
   const float T = drawer ? temp[g0 + dt] : 1.f;
@@ -524,7 +626,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       ua = u[0];
       ub = u[1];
     }
-    const float* hp = hb1 + (m & 1) * H * Gp;
+    const float* hp = hbuf(L - 1, m & 1);
     const float* wv = hw + hwarp * H;
     float sum[Gp];
 #pragma unroll
@@ -563,10 +665,10 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   };
   // prof (block 0): thread 0's clock cycles summed over the pitches of the
   // h0 U0 product; the wait for the draw with z0 and the cells; the h0
-  // exchange and barrier 1; layer 1's product and cells; the h1 exchange
-  // and barrier 2; the first head thread's heads and draw; then thread 0's
-  // prologue and whole-kernel cycles, the plan and N, and the prologue's
-  // cycles up to the acc_F chunks and in them.
+  // exchange and the first barrier; the products and cells of the layers
+  // l >= 1; their h exchanges and barriers; the first head thread's heads
+  // and draw; then thread 0's prologue and whole-kernel cycles, the plan
+  // and N, and the prologue's cycles up to the acc_F chunks and in them.
   const bool timed = prof != nullptr && blockIdx.x == 0;
   const bool timed0 = timed && tid == 0;
   const bool timedh = timed && role == 2 && dt == 0;
@@ -582,7 +684,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       // chain runs while the head warps draw pitch n - 1.
       if (timed0) t0 = clock64();
       float r[4][2] = {};
-      if (prod) chain(r, hb0 + cur * H * Gp, wr);
+      if (prod) chain(r, hbuf(0, cur), wr);
       if (timed0) {
         t1 = clock64();
         ck[0] += t1 - t0;
@@ -609,23 +711,16 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       float hv = 0.f;
       if (cellt) {
         const float* z = zs + gs * COLS + gj;
-        hv = cell_f(z[0], z[UJ], z[2 * UJ], z[3 * UJ], &c0, hard);
+        hv = cell_f(z[0], z[UJ], z[2 * UJ], z[3 * UJ], &cst[0], hard);
       }
       if (timed0) {
         t0 = clock64();
         ck[1] += t0 - t1;
       }
-      push(hv, hb0 + nw * H * Gp);
+      push(hv, hbuf(0, nw));
     } else if (role == 1) {
-      // h1 U1 of layer 1, from h1 of pitch n - 1, into zr.
-      if (prod) {
-        float r[4][2] = {};
-        chain(r, hb1 + cur * H * Gp, wr + 2 * H * COLS);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<float2*>(zr + (4 * grp + i) * COLS + plc) =
-              make_float2(r[i][0], r[i][1]);
-      }
+      // h_1 U_1 of layer 1, from h_1 of pitch n - 1.
+      if (L > 1) rec(1, cur, zr);
     } else {
       if (timedh) t0 = clock64();
       if (n > 0) heads_draw(n - 1);
@@ -637,33 +732,46 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       t1 = clock64();
       ck[2] += t1 - t0;
     }
-    if (role == 0) {
-      // Layer 1: z1 = (h0 W1 + a1) + h1 U1.
-      float hv = 0.f;
-      if (prod) {
-        float a[4][2] = {};
-        chain(a, hb0 + nw * H * Gp, wr + H * COLS);
+    for (int l = 1; l < L; ++l) {
+      if (role == 0) {
+        // Layer l: z_l = (h_{l-1} W_l + a_l) + h_l U_l.
+        const float* zrl = zr + ((l - 1) & 1) * Gp * COLS;
+        const float* al = lw.a[l];
+        float hv = 0.f;
+        if (prod) {
+          float a[4][2] = {};
+          chain(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int o = (4 * grp + i) * COLS + plc + e;
-            zs[o] = __fadd_rn(__fadd_rn(a[i][e], a1r[i][e]), zr[o]);
-          }
+            for (int e = 0; e < 2; ++e) {
+              const int o = (4 * grp + i) * COLS + plc + e;
+              const float ar =
+                  LC == 2 ? a1r[i][e]
+                          : (aoff[i][e] < 0 ? 0.f : __ldg(al + aoff[i][e]));
+              zs[o] = __fadd_rn(__fadd_rn(a[i][e], ar), zrl[o]);
+            }
+        }
+        bar(2, WW);
+        if (cellt) {
+          const float* z = zs + gs * COLS + gj;
+          hv = cell_f(z[0], z[UJ], z[2 * UJ], z[3 * UJ], &cst[l], hard);
+        }
+        if (timed0) {
+          t0 = clock64();
+          ck[3] += t0 - t1;
+        }
+        push(hv, hbuf(l, nw));
+      } else if (role == 1) {
+        // h_{l+1} U_{l+1} of pitch n - 1, for the next phase.
+        if (l + 1 < L) rec(l + 1, cur, zr + (l & 1) * Gp * COLS);
       }
-      bar(2, WW);
-      if (cellt) {
-        const float* z = zs + gs * COLS + gj;
-        hv = cell_f(z[0], z[UJ], z[2 * UJ], z[3 * UJ], &c1, hard);
-      }
+      cluster.sync();
       if (timed0) {
-        t0 = clock64();
-        ck[3] += t0 - t1;
+        t1 = clock64();
+        ck[4] += t1 - t0;
       }
-      push(hv, hb1 + nw * H * Gp);
     }
-    cluster.sync();
-    if (timed0) ck[4] += clock64() - t0;
   }
   if (role == 2) heads_draw(N - 1);
   if (timedh) prof[5] = ckh;
@@ -684,16 +792,16 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   }
 }
 
-// The cluster kernel's attributes, set once per process: the opt-in shared
-// memory limit, and clusters of 16 (beyond the portable 8).
-template <int GP>
+// The cluster kernel's attributes, set once per process and instance: the
+// opt-in shared memory limit, and clusters of 16 (beyond the portable 8).
+template <int GP, int LC>
 cudaError_t ng_attributes() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        notegen_cluster_kernel<GP>,
+        notegen_cluster_kernel<GP, LC>,
         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(notegen_cluster_kernel<GP>,
+      e = cudaFuncSetAttribute(notegen_cluster_kernel<GP, LC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                NG_SMEM_MAX);
     return e;
@@ -717,91 +825,127 @@ cudaLaunchConfig_t ng_config(const NgPlan& p, int H,
   return cfg;
 }
 
-template <int GP>
+// The instance for the plan's padded streams and the depth.
+template <int GP, int LC>
 int ng_launch(const float* feats, const float* uniforms, const float* temp,
-              const float* w0f, const float* w0c, const float* a0,
-              const float* u0, const float* w1, const float* a1,
-              const float* u1, const float* wnd, const float* bnd,
-              const float* wvd, const float* bvd, const float* vgrid,
-              float* out, int G, int N, int F, int H, int hard,
-              int max_velocity, const NgPlan& p, unsigned long long* prof,
-              cudaStream_t st) {
-  cudaError_t err = ng_attributes<GP>();
+              const float* w0f, const float* w0c, const NgLayers& lw,
+              const float* wnd, const float* bnd, const float* wvd,
+              const float* bvd, const float* vgrid, float* out, int G, int N,
+              int F, int H, int L, int hard, int max_velocity,
+              const NgPlan& p, unsigned long long* prof, cudaStream_t st) {
+  cudaError_t err = ng_attributes<GP, LC>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = ng_config(p, H, &attr, st);
-  err = cudaLaunchKernelEx(&cfg, notegen_cluster_kernel<GP>, feats, uniforms,
-                           temp, w0f, w0c, a0, u0, w1, a1, u1, wnd, bnd, wvd,
-                           bvd, vgrid, out, G, N, F, H, hard, max_velocity, p,
+  err = cudaLaunchKernelEx(&cfg, notegen_cluster_kernel<GP, LC>, feats,
+                           uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd,
+                           vgrid, out, G, N, F, H, L, hard, max_velocity, p,
                            prof);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int GP>
+template <int GP, int LC>
 int ng_active(const NgPlan& p, int H, int* active) {
-  const cudaError_t err = ng_attributes<GP>();
+  const cudaError_t err = ng_attributes<GP, LC>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = ng_config(p, H, &attr, nullptr);
   return (int)cudaOccupancyMaxActiveClusters(
-      active, notegen_cluster_kernel<GP>, &cfg);
+      active, notegen_cluster_kernel<GP, LC>, &cfg);
+}
+
+// The table of per-layer pointers from the C entries' flat array `layers`
+// [3][NG_LMAX] (a, u, w); false if a pointer the depth needs is null or a
+// weight is not 16-byte aligned (cp.async).
+bool ng_layers(const float* const* layers, int L, NgLayers* lw) {
+  for (int l = 0; l < NG_LMAX; ++l) {
+    lw->a[l] = l < L ? layers[l] : nullptr;
+    lw->u[l] = l < L ? layers[NG_LMAX + l] : nullptr;
+    lw->w[l] = l >= 1 && l < L ? layers[2 * NG_LMAX + l] : nullptr;
+    if (l >= L) continue;
+    if (lw->a[l] == nullptr || lw->u[l] == nullptr ||
+        reinterpret_cast<uintptr_t>(lw->u[l]) % 16 != 0)
+      return false;
+    if (l >= 1 && (lw->w[l] == nullptr ||
+                   reinterpret_cast<uintptr_t>(lw->w[l]) % 16 != 0))
+      return false;
+  }
+  return true;
 }
 
 }  // namespace
 
 // Plain C entries for ctypes.  Every pointer is a float32 CUDA buffer the
 // caller allocated (contiguous, row-major, shapes as in the kernels);
-// `vgrid` may be null (no quantization).  Each launches on `stream` and
-// returns cudaGetLastError(): 0 when the launch was accepted.
+// `vgrid` may be null (no quantization); `layers` is a host array of
+// 3 * 8 pointers: a_0..a_7 [G][4H], U_0..U_7 [H][4H], W_0..W_7 [H][4H]
+// (W_0 unused), those past the depth L unused.  Each launches on `stream`
+// and returns cudaGetLastError(): 0 when the launch was accepted.
 
 // The cluster kernel, with the plan (C, Gc, clusters, smem) of
 // ops/notegen.py::notegen_plan: cudaErrorInvalidValue when it is not
-// ng_plan's, or the widths fit no plan.  `feats`, `w0f`, `u0`, `w1` and
-// `u1` must be 16-byte aligned (cp.async).
-// `prof` may be null; else 14 int64 on the card (see the kernel).
+// ng_plan's, the plan is the streamed kernel's, or the widths fit no
+// plan.  `feats`, `w0f` and every U_l and W_l must be 16-byte aligned
+// (cp.async).  `prof` may be null; else 14 int64 on the card (see the
+// kernel).
 extern "C" int notegen_launch(
     const float* feats, const float* uniforms, const float* temp,
-    const float* w0f, const float* w0c, const float* a0, const float* u0,
-    const float* w1, const float* a1, const float* u1, const float* wnd,
-    const float* bnd, const float* wvd, const float* bvd,
-    const float* vgrid, float* out, int G, int N, int F, int H, int hard,
-    int max_velocity, int C, int Gc, int clusters, int smem,
+    const float* w0f, const float* w0c, const float* const* layers,
+    const float* wnd, const float* bnd, const float* wvd, const float* bvd,
+    const float* vgrid, float* out, int G, int N, int F, int H, int L,
+    int hard, int max_velocity, int C, int Gc, int clusters, int smem,
     unsigned long long* prof, void* stream) {
   NgPlan p;
-  if (!ng_plan(G, N, F, H, &p) || p.C != C || p.Gc != Gc ||
+  if (!ng_plan(G, L, N, F, H, &p) || p.C == 0 || p.C != C || p.Gc != Gc ||
       p.clusters != clusters || p.smem != smem)
     return (int)cudaErrorInvalidValue;
-  for (const float* t : {feats, w0f, u0, w1, u1})
+  NgLayers lw;
+  if (!ng_layers(layers, L, &lw)) return (int)cudaErrorInvalidValue;
+  for (const float* t : {feats, w0f})
     if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (ng_pad4(p.Gc) == 4 ? ng_launch<4> : ng_launch<8>)(
-      feats, uniforms, temp, w0f, w0c, a0, u0, w1, a1, u1, wnd, bnd, wvd,
-      bvd, vgrid, out, G, N, F, H, hard, max_velocity, p, prof, st);
+  const bool four = ng_pad4(p.Gc) == 4;
+  auto launch = L == NG_FIXED_DEPTH
+                    ? (four ? ng_launch<4, NG_FIXED_DEPTH>
+                            : ng_launch<8, NG_FIXED_DEPTH>)
+                    : (four ? ng_launch<4, 0> : ng_launch<8, 0>);
+  return launch(feats, uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd,
+                vgrid, out, G, N, F, H, L, hard, max_velocity, p, prof, st);
 }
 
-// The clusters of the plan for (G, N, F, H) that the card holds at once
-// (cudaOccupancyMaxActiveClusters), into *active.
-extern "C" int notegen_active_clusters(int G, int N, int F, int H,
+// The clusters of the plan for (G, L, N, F, H) that the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *active;
+// cudaErrorInvalidValue where the plan is not a cluster's.
+extern "C" int notegen_active_clusters(int G, int L, int N, int F, int H,
                                        int* active) {
   NgPlan p;
-  if (!ng_plan(G, N, F, H, &p)) return (int)cudaErrorInvalidValue;
-  return ng_pad4(p.Gc) == 4 ? ng_active<4>(p, H, active)
-                            : ng_active<8>(p, H, active);
+  if (!ng_plan(G, L, N, F, H, &p) || p.C == 0)
+    return (int)cudaErrorInvalidValue;
+  const bool four = ng_pad4(p.Gc) == 4;
+  auto query = L == NG_FIXED_DEPTH
+                   ? (four ? ng_active<4, NG_FIXED_DEPTH>
+                           : ng_active<8, NG_FIXED_DEPTH>)
+                   : (four ? ng_active<4, 0> : ng_active<8, 0>);
+  return query(p, H, active);
 }
 
-// The streamed kernel: one block per stream.
+// The streamed kernel: one block per stream, at any depth 1..8 whose block
+// fits (the plan's kernel where no cluster holds the weights, and the
+// cluster kernel's yardstick everywhere).
 extern "C" int notegen_streamed_launch(
     const float* feats, const float* uniforms, const float* temp,
-    const float* w0f, const float* w0c, const float* a0, const float* u0,
-    const float* w1, const float* a1, const float* u1, const float* wnd,
-    const float* bnd, const float* wvd, const float* bvd,
-    const float* vgrid, float* out, int G, int N, int F, int H, int hard,
-    int max_velocity, void* stream) {
-  if (G <= 0 || N <= 0 || F <= 0 || H <= 0)
+    const float* w0f, const float* w0c, const float* const* layers,
+    const float* wnd, const float* bnd, const float* wvd, const float* bvd,
+    const float* vgrid, float* out, int G, int N, int F, int H, int L,
+    int hard, int max_velocity, void* stream) {
+  if (G <= 0 || N <= 0 || F <= 0 || H <= 0 || L < 1 || L > NG_LMAX)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)(8 * H + F + 8);
+  NgLayers lw;
+  if (!ng_layers(layers, L, &lw)) return (int)cudaErrorInvalidValue;
+  const long long smem = ng_streamed_smem(L, F, H);
+  if (smem > NG_SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         notegen_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -810,11 +954,9 @@ extern "C" int notegen_streamed_launch(
   }
   // One thread per gate column, at least 3 warps (one per head), at most
   // 1024 (the loops over j stride by the block size).
-  int threads = 4 * H < 96 ? 96 : (4 * H + 31) / 32 * 32;
-  if (threads > 1024) threads = 1024;
-  notegen_streamed_kernel<<<G, threads, smem,
+  notegen_streamed_kernel<<<G, ng_streamed_threads(H), (size_t)smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      feats, uniforms, temp, w0f, w0c, a0, u0, w1, a1, u1, wnd, bnd, wvd,
-      bvd, vgrid, out, N, F, H, hard, max_velocity);
+      feats, uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd, vgrid, out, N,
+      F, H, L, hard, max_velocity);
   return (int)cudaGetLastError();
 }

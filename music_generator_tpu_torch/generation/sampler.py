@@ -3,9 +3,10 @@
 
 Per timestep: the time-axis step (octave conv, note features, the two
 time-axis LSTM cells over G*N rows; plain PyTorch ops), then the whole
-48-pitch loop as ONE launch of the notegen kernel (ops/notegen.py), then
-the adaptive-temperature update (ref: generate.py:60-71).  The recurrent
-state is O(1) per step and crosses chunk boundaries exactly.
+48-pitch loop at any note-axis depth as ONE launch of the notegen kernel
+(ops/notegen.py), then the adaptive-temperature update (ref:
+generate.py:60-71).  The recurrent state is O(1) per step and crosses
+chunk boundaries exactly.
 
 Sampling semantics and RNG discipline are the JAX package's: stream g's
 step-t uniforms are `uniform(fold_in(fold_in(key(seed), offset + g), t),
@@ -69,10 +70,6 @@ class Sampler:
     """Generates from a DeepJ on its device, in float32 with TF32 off."""
 
     def __init__(self, model: DeepJ, default_temp: float = 1.0):
-        if model.cfg.note_axis_layers != 2:
-            raise NotImplementedError(
-                "the notegen kernel runs the two-layer note axis; "
-                f"note_axis_layers={model.cfg.note_axis_layers}")
         full_f32()
         self.model = model
         self.cfg = model.cfg
@@ -95,10 +92,9 @@ class Sampler:
         """Sample all pitches of one timestep: feats [G, N, time_units],
         us [G, N, 2] -> [G, N, 3].  One kernel launch on the card."""
         m = self.model
-        return note_sample(feats, us, temperature, m.note_axis[0],
-                           m.note_axis[1], m.note_dense, m.volume_dense,
-                           style_emb, self.cfg.lstm_recurrent_activation,
-                           self._vgrid)
+        return note_sample(feats, us, temperature, m.note_axis,
+                           m.note_dense, m.volume_dense, style_emb,
+                           self.cfg.lstm_recurrent_activation, self._vgrid)
 
     def _beat_row(self, t: int, G: int) -> torch.Tensor:
         """The beat of step t-1 (the note consumed at step t was chosen at

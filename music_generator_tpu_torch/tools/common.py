@@ -1,11 +1,16 @@
 """What the verification tools share with chip_smoke.py: the float32 bars a
 kernel is held to against its plain version, worst-leaf statistics, the
-card's name and power limit, and CUDA-event timing."""
+card's name and power limit, CUDA-event timing, and weights at other
+note-axis depths built from a two-layer checkpoint."""
 
 from __future__ import annotations
 
+import math
+import re
 import subprocess
+from typing import Dict, Mapping
 
+import numpy as np
 import torch
 
 # Kernel against plain version in float32: forward within F32_ATOL, every
@@ -67,3 +72,43 @@ def require(ok: bool, msg: str) -> None:
     python -O)."""
     if not ok:
         raise CheckFailed(msg)
+
+
+_NOTE_LAYER = re.compile(r"^\.note_axis\[(\d+)\]\.")
+
+
+def depth_params(params: Mapping[str, np.ndarray], L: int,
+                 seed: int = 0) -> Dict[str, np.ndarray]:
+    """A checkpoint's keystr-keyed leaves (a params.npz, two note-axis
+    layers) rebuilt for note-axis depth L (1..8): every leaf outside the
+    note axis kept, note layers 0 and 1 kept where L reaches them, and each
+    further layer drawn with numpy from `seed` at the JAX package's leaf
+    shapes and names: glorot-uniform kernels and recurrent matrix, zero
+    biases with a unit forget-gate bias (its `init_params` draws the
+    recurrent matrix orthogonal; a QR decomposition would tie the bits to
+    the machine's LAPACK, a uniform draw gives the same bits everywhere).
+    No trained checkpoint of another depth exists; the same arrays go
+    through the JAX package and through params.py."""
+    if not 1 <= L <= 8:
+        raise ValueError(f"depth_params: L={L} is not in 1..8")
+    out = {k: np.asarray(v, np.float32) for k, v in params.items()
+           if not (_NOTE_LAYER.match(k)
+                   and int(_NOTE_LAYER.match(k).group(1)) >= L)}
+    H, S = (params[".note_axis[1].lstm.recurrent"].shape[0],
+            params[".note_axis[1].style_proj.kernel"].shape[0])
+    rng = np.random.default_rng(seed)
+
+    def glorot(shape):
+        lim = math.sqrt(6.0 / (shape[0] + shape[1]))
+        return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+    for l in range(2, L):
+        bias = np.zeros(4 * H, np.float32)
+        bias[H:2 * H] = 1.0
+        p = f".note_axis[{l}]."
+        out[p + "style_proj.kernel"] = glorot((S, H))
+        out[p + "style_proj.bias"] = np.zeros(H, np.float32)
+        out[p + "lstm.kernel"] = glorot((H, 4 * H))
+        out[p + "lstm.recurrent"] = glorot((H, 4 * H))
+        out[p + "lstm.bias"] = bias
+    return out

@@ -1,24 +1,35 @@
-"""Training driver (the JAX package's `training/trainer.py`, resident mode).
+"""Training loop (the JAX package's `training/trainer.py`, one device).
 
 Mirrors the reference's loop semantics (ref: train.py:14-29): up to
 `epochs` epochs over the fully loaded dataset, the per-epoch mean training
 loss driving a best-only checkpoint and Keras-exact early stopping with
-patience 5.  The dataset goes to the device once; each epoch takes one
-[S, B] index matrix from `epoch_permutation` (the same batch stream as the
-JAX trainer for the same seed), gathers each batch on the device, and keeps
-the per-step losses there until the epoch ends.  The JAX trainer's
-`sharded`, `segments`, `stream` and `profile` modes are not ported yet."""
+patience 5.  Every epoch takes one [S, B] index matrix from
+`epoch_permutation` (the same batch stream as the JAX trainer for the same
+seed) and runs one train step per row.  How the batches reach the card is
+`TrainConfig.epoch_scan_mode`, picked as the JAX trainer picks it on one
+process: `replicated` (the dataset resident on the device, each batch
+gathered there), `segments` (past the byte budget: stream-order segments
+gathered on the host and copied on a side stream while the previous one
+trains) or `stream` (a per-step host feed one batch ahead, for profiling
+or with `epoch_scan` off; `profile` writes a trace of steps 5-10).  The
+JAX trainer's `sharded` mode, which spreads the corpus over a mesh, is
+not ported."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
+import os
 import time
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from music_generator_tpu_torch.data.dataset import Dataset, epoch_permutation
+from music_generator_tpu_torch.data.dataset import (Dataset, batches,
+                                                    epoch_permutation)
 from music_generator_tpu_torch.models.deepj import DeepJ
 from music_generator_tpu_torch.parallel.train_step import (create_train_state,
                                                            eval_step,
@@ -26,7 +37,8 @@ from music_generator_tpu_torch.parallel.train_step import (create_train_state,
 from music_generator_tpu_torch.params import name_to_keystr
 from music_generator_tpu_torch.training.checkpoint import (CheckpointStore,
                                                            model_path)
-from music_generator_tpu_torch.training.metrics import MetricLogger
+from music_generator_tpu_torch.training.metrics import (MetricLogger,
+                                                        Throughput)
 from music_generator_tpu_torch.utils import param_summary
 
 
@@ -38,9 +50,121 @@ class TrainConfig:
     log_every: int = 10                   # steps between metric log rows
     checkpoint: bool = True
     tensorboard: bool = True
+    # Write a torch.profiler trace (CPU and CUDA activities, Chrome trace
+    # format) of steps [profile_start, profile_stop) of epoch 0 under
+    # <log_dir>/profile.  Profiling runs the `stream` mode.
+    profile: bool = False
+    profile_start: int = 5
+    profile_stop: int = 10
     # Per-epoch parameter histograms to TensorBoard, matching the reference's
     # TensorBoard(histogram_freq=1) callback (ref: train.py:25).  0 disables.
     histogram_freq: int = 1
+    # How each epoch's batches reach the device ("auto" picks by corpus
+    # size; see fit()):
+    #   replicated — the whole dataset resident on the device; an epoch
+    #                ships only its [S, B] index matrix
+    #   sharded    — the JAX trainer's corpus sharded over a mesh; not
+    #                ported (it comes with the multi-device slice)
+    #   segments   — [M, B] segments gathered on the host in stream order,
+    #                each copied on a side stream while the previous one
+    #                trains (corpora past the budget)
+    #   stream     — the per-step host feed, one batch staged ahead on a
+    #                worker thread (profiling, or epoch_scan off)
+    epoch_scan: bool = True
+    epoch_scan_mode: str = "auto"
+    # Device bytes for staged training data: the resident corpus
+    # (replicated) or the two segment buffers (segments).  The parameters,
+    # Nadam's state and a step's activations come on top of it.
+    epoch_scan_max_bytes: int = 8 << 30
+
+
+MODES = ("auto", "replicated", "sharded", "segments", "stream")
+
+
+def prefetch(items: Iterable, fn: Callable, depth: int = 2) -> Iterator:
+    """Apply `fn` (host-to-device staging) up to `depth` items ahead on a
+    worker thread, so that batch t + 1's gather and copy overlap step t
+    (the JAX trainer's `prefetch`)."""
+    with ThreadPoolExecutor(1) as ex:
+        futures = collections.deque()
+        it = iter(items)
+        for x in itertools.islice(it, depth):
+            futures.append(ex.submit(fn, x))
+        for x in it:
+            out = futures.popleft().result()
+            futures.append(ex.submit(fn, x))
+            yield out
+        while futures:
+            yield futures.popleft().result()
+
+
+class _SegmentStager:
+    """Two [M, B, ...] buffers of each dataset array on the device and,
+    on a card, two pinned host buffers and a side stream, for a whole fit.
+    `stage(k, sel)` (on a worker thread) gathers segment k's windows (sel
+    [M, B]) into host buffer k % 2 and copies it into device buffer k % 2
+    on the side stream, after the event that `release` recorded behind
+    the last step that read that buffer; `take(k)` makes the current
+    stream wait for segment k's copy and returns its device buffers.  On
+    the CPU the gather is the copy."""
+
+    def __init__(self, arrays, steps: int, batch: int,
+                 device: torch.device):
+        self.arrays, self.steps, self.device = arrays, steps, device
+        self.cuda = device.type == "cuda"
+        shapes = [(steps, batch) + a.shape[1:] for a in arrays]
+        if self.cuda:
+            self.host = [[torch.empty(s, dtype=torch.float32,
+                                      pin_memory=True) for s in shapes]
+                         for _ in range(2)]
+            self.dev = [[torch.empty(s, dtype=torch.float32, device=device)
+                         for s in shapes] for _ in range(2)]
+            self.stream = torch.cuda.Stream(device)
+            self.copied = [torch.cuda.Event() for _ in range(2)]
+            self.freed = [None, None]
+        else:
+            self.dev = [[torch.empty(s, dtype=torch.float32)
+                         for s in shapes] for _ in range(2)]
+
+    def _gather(self, sel: np.ndarray, bufs) -> None:
+        # A window at a time: one contiguous copy a row, from strided
+        # arrays too (np.take first copies a non-contiguous array whole,
+        # a[sel] copies twice).
+        rows = np.asarray(sel).reshape(-1)
+        for a, buf in zip(self.arrays, bufs):
+            out = buf.numpy().reshape((-1,) + a.shape[1:])
+            for i, r in enumerate(rows):
+                out[i] = a[r]
+
+    def stage(self, k: int, sel: np.ndarray) -> None:
+        b = k % 2
+        if not self.cuda:
+            self._gather(sel, self.dev[b])
+            return
+        # The pinned buffer's last copy (segment k - 2) must have landed
+        # before the host writes into it again.
+        self.copied[b].synchronize()
+        self._gather(sel, self.host[b])
+        with torch.cuda.stream(self.stream):
+            if self.freed[b] is not None:
+                self.stream.wait_event(self.freed[b])
+            for h, d in zip(self.host[b], self.dev[b]):
+                d.copy_(h, non_blocking=True)
+            self.copied[b].record(self.stream)
+
+    def take(self, k: int):
+        b = k % 2
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_event(self.copied[b])
+        return self.dev[b]
+
+    def release(self, k: int) -> None:
+        """Segment k's steps are enqueued: its buffer may be refilled once
+        the current stream has run them."""
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.freed[k % 2] = ev
 
 
 class Trainer:
@@ -83,22 +207,62 @@ class Trainer:
         device = self.model.device
 
         logger = MetricLogger(cfg.log_dir, tensorboard=tc.tensorboard)
+        meter = Throughput(batch_size * seq_len)
         rng = np.random.default_rng(tc.seed)
         best_loss = float("inf")
         bad_epochs = 0
         history = {"loss": [], "epoch_seconds": [], "steps_per_epoch": [],
                    "batch_size": batch_size}
-        # The dataset lives on the device for the whole fit; each epoch
-        # ships only its [S, B] index matrix.
-        resident = tuple(torch.from_numpy(a).to(device) for a in (
-            ds.notes, ds.targets, ds.beats, ds.styles))
+
+        # The epoch's staging mode, as the JAX trainer picks it on one
+        # process (its `sharded` branch needs more than one device's
+        # budget there, so `auto` never reaches it):
+        #   replicated — the dataset fits epoch_scan_max_bytes;
+        #   segments — past that: two [M, B] segment buffers in the budget;
+        #   stream — profiling, or epoch_scan off.
+        arrays = (ds.notes, ds.targets, ds.beats, ds.styles)
+        ds_bytes = sum(int(a.nbytes) for a in arrays)
+        mode = tc.epoch_scan_mode
+        if mode not in MODES:
+            raise ValueError(f"unknown epoch_scan_mode {mode!r}")
+        if not tc.epoch_scan or tc.profile:
+            mode = "stream"
+        elif mode == "auto":
+            mode = ("replicated" if ds_bytes <= tc.epoch_scan_max_bytes
+                    else "segments")
+        if mode == "sharded":
+            raise NotImplementedError(
+                "epoch_scan_mode='sharded' spreads the corpus over a "
+                "device mesh; it comes with the multi-device slice "
+                "(ROADMAP.md section 1 item 4)")
+        history["epoch_scan_mode"] = mode
+
+        resident = stager = None
+        if mode == "replicated":
+            # The dataset lives on the device for the whole fit; each epoch
+            # ships only its [S, B] index matrix.
+            resident = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        elif mode == "segments":
+            # Two staging buffers (double buffering) fit the budget.
+            per_batch = sum(int(a.nbytes) // len(ds)
+                            for a in arrays) * batch_size
+            seg_steps = max(1, int(tc.epoch_scan_max_bytes
+                                   // max(2 * per_batch, 1)))
+            stager = _SegmentStager(arrays, seg_steps, batch_size, device)
         try:
             for epoch in range(epochs):
                 t0 = time.perf_counter()
-                perm = epoch_permutation(len(ds), batch_size, rng,
-                                         drop_remainder=False)
-                epoch_losses = self._resident_epoch(
-                    resident, torch.from_numpy(perm).to(device), logger)
+                if mode == "replicated":
+                    perm = epoch_permutation(len(ds), batch_size, rng,
+                                             drop_remainder=False)
+                    epoch_losses = self._resident_epoch(
+                        resident, torch.from_numpy(perm).to(device), logger)
+                elif mode == "segments":
+                    epoch_losses = self._segment_epoch(
+                        ds, batch_size, stager, rng, logger)
+                else:
+                    epoch_losses = self._stream_epoch(
+                        ds, batch_size, rng, epoch, logger, meter)
                 epoch_loss = float(np.mean(epoch_losses))
                 history["loss"].append(epoch_loss)
                 history["steps_per_epoch"].append(len(epoch_losses))
@@ -131,24 +295,139 @@ class Trainer:
             logger.close()
         return history
 
-    def _resident_epoch(self, resident, perm: torch.Tensor,
-                        logger: MetricLogger) -> np.ndarray:
-        """One epoch over the device-resident dataset: one train step per
-        row of `perm`, losses kept on the device until the end."""
-        base_step = self.state.step
-        t0 = time.perf_counter()
-        metrics = [train_step(self.state, tuple(a[idx] for a in resident))
-                   for idx in perm]
-        host = {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
+    @staticmethod
+    def _to_host(metrics: List[dict]) -> dict:
+        """An epoch's per-step device metrics as [S] host arrays (one
+        readback, after the epoch's last step)."""
+        return {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
                 for k in metrics[0]}
-        dt = time.perf_counter() - t0
-        rate = perm.numel() * resident[0].shape[1] / dt
-        for k in range(self.tc.log_every - 1, len(metrics),
+
+    def _log_rows(self, logger: MetricLogger, base_step: int, host: dict,
+                  rate: float) -> np.ndarray:
+        """Every log_every-th step's metrics, with the epoch-average rate
+        under the stream path's key; returns the per-step losses."""
+        for k in range(self.tc.log_every - 1, len(host["loss"]),
                        self.tc.log_every):
             row = {name: float(vals[k]) for name, vals in host.items()}
             row["timesteps_per_sec"] = rate
             logger.log(base_step + k + 1, row)
         return host["loss"]
+
+    def _resident_epoch(self, resident, perm: torch.Tensor,
+                        logger: MetricLogger) -> np.ndarray:
+        """One epoch over the device-resident dataset: one train step per
+        row of `perm`, metrics kept on the device until the end."""
+        base_step = self.state.step
+        t0 = time.perf_counter()
+        host = self._to_host([
+            train_step(self.state, tuple(a[idx] for a in resident))
+            for idx in perm])
+        dt = time.perf_counter() - t0
+        rate = perm.numel() * resident[0].shape[1] / dt
+        return self._log_rows(logger, base_step, host, rate)
+
+    def _segment_epoch(self, ds: Dataset, batch_size: int,
+                       stager: _SegmentStager, rng: np.random.Generator,
+                       logger: MetricLogger) -> np.ndarray:
+        """One epoch past the resident budget: the resident path's batch
+        stream (epoch_permutation), gathered on the host into [seg_steps,
+        B] segments, each copied to the device while the one before it
+        trains; at most two segments on the device (the budget's two
+        buffers).  The trailing S % seg_steps steps copy one batch each."""
+        arrays = (ds.notes, ds.targets, ds.beats, ds.styles)
+        device = self.model.device
+        perm = epoch_permutation(len(ds), batch_size, rng,
+                                 drop_remainder=False)
+        S, seg_steps = perm.shape[0], stager.steps
+        n_full = S // seg_steps
+        base_step = self.state.step
+        t0 = time.perf_counter()
+        metrics = []
+
+        def stage(k: int) -> int:
+            stager.stage(k, perm[k * seg_steps:(k + 1) * seg_steps])
+            return k
+
+        # depth=1: the segment training plus one staged ahead are the two
+        # buffers the budget holds; staging k + 1 (on the worker thread)
+        # hides behind training k.
+        for k in prefetch(range(n_full), stage, depth=1):
+            seg = stager.take(k)
+            metrics += [train_step(self.state, tuple(a[m] for a in seg))
+                        for m in range(seg_steps)]
+            stager.release(k)
+        for s in range(n_full * seg_steps, S):
+            batch = tuple(torch.from_numpy(a[perm[s]]).to(device)
+                          for a in arrays)
+            metrics.append(train_step(self.state, batch))
+        host = self._to_host(metrics)
+        dt = time.perf_counter() - t0
+        rate = S * batch_size * ds.notes.shape[1] / dt
+        return self._log_rows(logger, base_step, host, rate)
+
+    def _stream_epoch(self, ds: Dataset, batch_size: int,
+                      rng: np.random.Generator, epoch: int,
+                      logger: MetricLogger,
+                      meter: Throughput) -> np.ndarray:
+        """The per-step host feed: each batch gathered and copied to the
+        device one step ahead on a worker thread (`prefetch`).  With
+        `profile`, epoch 0's steps [profile_start, profile_stop), clamped
+        to the epoch, run under torch.profiler, whose Chrome trace goes
+        under <log_dir>/profile."""
+        tc = self.tc
+        device = self.model.device
+        n_steps = -(-len(ds) // batch_size)
+        p_start = min(tc.profile_start, max(n_steps - 1, 0))
+        p_stop = max(min(tc.profile_stop, n_steps), p_start + 1)
+        profiling = tc.profile and epoch == 0
+        prof = None
+
+        def stage(batch):
+            return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+        losses = []
+        meter.reset()
+        staged = prefetch(batches(ds, batch_size, rng=rng,
+                                  drop_remainder=False), stage)
+        for bi, batch in enumerate(staged):
+            if profiling and bi == p_start:
+                prof = self._start_profile()
+            elif profiling and bi == p_stop:
+                self._stop_profile(prof, p_start, p_stop)
+                prof = None
+            metrics = train_step(self.state, batch)
+            meter.tick()
+            losses.append(metrics["loss"])
+            if len(losses) % tc.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["timesteps_per_sec"] = meter.rate()
+                logger.log(self.state.step, m)
+        if prof is not None:
+            # The epoch ended before p_stop batches: close the trace.
+            self._stop_profile(prof, p_start, p_stop)
+        # float32, as the other modes return them, so that the epoch's mean
+        # loss does not depend on the mode.
+        return torch.stack(losses).float().cpu().numpy()
+
+    def _start_profile(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof: torch.profiler.profile, start: int,
+                      stop: int) -> None:
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+        prof.stop()
+        out_dir = os.path.join(self.cfg.log_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir,
+                            f"train_steps_{start}_{stop}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
 
     def _log_param_histograms(self, logger: MetricLogger, epoch: int) -> None:
         """One histogram per parameter, tagged by its keystr path (ref:

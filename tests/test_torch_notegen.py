@@ -65,17 +65,16 @@ def _port_args(port, feats, us, temp, emb, act, quantize):
     vg = (torch.from_numpy(_velocity_grid(port.cfg.max_velocity))
           if quantize else None)
     return (torch.from_numpy(feats), torch.from_numpy(us),
-            torch.from_numpy(temp), port.note_axis[0], port.note_axis[1],
-            port.note_dense, port.volume_dense, torch.from_numpy(emb), act,
-            vg)
+            torch.from_numpy(temp), port.note_axis, port.note_dense,
+            port.volume_dense, torch.from_numpy(emb), act, vg)
 
 
 def _check(want, got, port, feats, us, temp, emb, act):
     want = torch.tensor(np.asarray(want))
     probs = notegen.tempered_probs(
         torch.from_numpy(feats), want, torch.from_numpy(temp),
-        port.note_axis[0], port.note_axis[1], port.note_dense,
-        port.volume_dense, torch.from_numpy(emb), act)
+        port.note_axis, port.note_dense, port.volume_dense,
+        torch.from_numpy(emb), act)
     ok, err, report = notegen.draws_agree(want, got, torch.from_numpy(us),
                                           probs, EDGE, VOLUME_ATOL)
     assert ok, report
@@ -139,7 +138,8 @@ def test_kernel_split_weights_equal_the_plain_cell(act):
     H = l0.lstm.recurrent.shape[0]
     h0, c0, h1, c1 = (torch.rand(G, H, generator=gen) * 2 - 1
                       for _ in range(4))
-    w0f, w0c, a0, a1 = notegen.fold_style(l0, l1, emb, feat.shape[-1])
+    w0f, w0c, (a0, a1) = notegen.fold_style(port.note_axis, emb,
+                                            feat.shape[-1])
     z0 = feat @ w0f + chosen @ w0c + a0 + h0 @ l0.lstm.recurrent
     x = torch.cat([feat, chosen], -1) + torch.tanh(
         emb @ l0.style_proj.kernel + l0.style_proj.bias)
@@ -181,7 +181,7 @@ def test_draw_fires_when_the_uniform_equals_the_probability():
     temp = np.full((G,), 0.9, np.float32)
     args = _port_args(port, feats, us, temp, emb, "sigmoid", False)
     first = notegen.note_sample_reference(*args)
-    probs = notegen.tempered_probs(args[0], first, args[2], *args[3:8])
+    probs = notegen.tempered_probs(args[0], first, args[2], *args[3:7])
     edge = us.copy()
     edge[:, 0] = probs[:, 0].numpy()
     got = notegen.note_sample_reference(args[0], torch.from_numpy(edge),
@@ -196,8 +196,7 @@ def test_wrapper_refuses_other_devices():
     meta = lambda a: torch.from_numpy(a).to("meta")
     temp = torch.ones(G, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        notegen.note_sample(meta(feats), meta(us), temp,
-                            port.note_axis[0], port.note_axis[1],
+        notegen.note_sample(meta(feats), meta(us), temp, port.note_axis,
                             port.note_dense, port.volume_dense, meta(emb))
 
 

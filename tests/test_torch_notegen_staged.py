@@ -67,14 +67,13 @@ def _port_args(port, feats, us, temp, emb, act, quantize):
     vg = (torch.from_numpy(_velocity_grid(port.cfg.max_velocity))
           if quantize else None)
     return (torch.from_numpy(feats), torch.from_numpy(us),
-            torch.from_numpy(temp), port.note_axis[0], port.note_axis[1],
-            port.note_dense, port.volume_dense, torch.from_numpy(emb), act,
-            vg)
+            torch.from_numpy(temp), port.note_axis, port.note_dense,
+            port.volume_dense, torch.from_numpy(emb), act, vg)
 
 
 def _check(want, got, args):
     want = torch.as_tensor(np.array(want))
-    probs = notegen.tempered_probs(args[0], want, *args[2:9])
+    probs = notegen.tempered_probs(args[0], want, *args[2:8])
     ok, err, report = notegen.draws_agree(want, got, args[1], probs, EDGE,
                                           VOLUME_ATOL)
     assert ok, report
@@ -146,9 +145,9 @@ def test_plan_at_flagship_widths(G):
     H100's 132 SMs for G <= 64 (whether the clusters are resident at once
     is the card's answer, chip_smoke.py phase 2)."""
     F, H, N = FLAGSHIP["F"], FLAGSHIP["H"], FLAGSHIP["N"]
-    p = notegen.notegen_plan(G, F, H, N)
+    p = notegen.notegen_plan(G, 2, F, H, N)
     assert p.smem <= 232448
-    assert p.smem == notegen._smem_bytes(p.C, p.Gc, N, F, H)
+    assert p.smem == notegen._smem_bytes(p.C, p.Gc, 2, N, F, H)
     assert H % p.C == 0 and p.C in (4, 8, 16)
     assert 1 <= p.Gc <= notegen.GC_MAX
     assert p.clusters == math.ceil(G / p.Gc)
@@ -170,7 +169,7 @@ def test_plan_at_flagship_widths(G):
 ])
 def test_plan_raises_for_widths_that_do_not_fit(widths):
     with pytest.raises(ValueError, match="notegen_plan"):
-        notegen.notegen_plan(3, widths["F"], widths["H"], widths["N"])
+        notegen.notegen_plan(3, 2, widths["F"], widths["H"], widths["N"])
 
 
 def test_streamed_wrapper_takes_the_plain_version_on_the_cpu():
