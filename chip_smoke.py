@@ -118,6 +118,23 @@ Phases (any failure exits non-zero, before the result line):
      against artifacts/note_depth_r17 (events required, bytes reported)
      and at depth 6 on the streamed kernel, with its launches counted; a
      depth-3 service's /generate equal to its solo run;
+  3m. data parallelism: two ranks of music_generator_tpu_torch/tools/
+     mp_worker.py on this card over gloo (named explicitly: NCCL refuses
+     two ranks on one card), at default_config() dropout 0: one step of a
+     B 32 batch, 16 rows a rank, against the one-process step (loss and
+     worst-leaf update cosine within phase 3d's bars), `sharded` fit steps
+     over a Dataset.shard split with both ranks' parameters bit-equal
+     after every step and each biaxial kernel once a step on each rank, no
+     plain version; generation at G = 64 (32 streams a rank), phase 3's
+     G = 3 (padded to 4), a primed batch and begin / advance against the
+     one-process run (note events required, .mid bytes counted) and the
+     committed samples; a leader and a follower serving over the
+     authenticated replay channel (buckets 1, 4 and 16, a /generate_batch,
+     a time-sliced job) byte-equal to a one-process service, the
+     follower's pitch-loop launches equal to the leader's; the readings
+     (a step with one rank alone and with two sharing the card, the
+     all-reduce's ms) on a line of their own; with two cards or more the
+     training and generation again over NCCL, one rank a card;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -136,7 +153,8 @@ Phases (any failure exits non-zero, before the result line):
      of its bytes and its row loop's instructions, counted from the SASS,
      at the card's issue rate; the loop must hold no division).
 The line before the last holds the per-kernel JSON (kernel 1 with the
-note depths it ran); the last line is
+note depths it ran), the one before it phase 3m's readings; the last
+line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -2498,6 +2516,286 @@ def _divergence(path: str, ref: str) -> dict:
             "first": [[int(t), int(n), float(got[t, n, 2]),
                        float(want[t, n, 2])] for t, n in cells[:8]]}
 
+# Phase 3m: two ranks of tools/mp_worker.py.  Two ranks share one card only
+# over gloo (NCCL refuses two ranks on one device); with two cards or more
+# the phase runs again over NCCL, one rank a card.
+MP_WORLD = 2
+MP_WINDOWS = 32          # the global batch of the step: B 32, 16 a rank
+MP_GEN = "3x8s0,3x8s1,64x2s0"
+MP_BATCHES = (4, 16)
+
+
+def _spawn_ranks(out: str, modes: str, backend: str, flags) -> list:
+    """Start MP_WORLD worker ranks (gloo: all on cuda:0; nccl: rank r on
+    cuda:r) and return each rank's (json, npz); a rank that fails or
+    hangs fails the phase, and every rank is stopped either way."""
+    port = _free_port()
+    procs = []
+    for r in range(MP_WORLD):
+        dev = "cuda:0" if backend == "gloo" else f"cuda:{r}"
+        with open(f"{out}.{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "music_generator_tpu_torch.tools.mp_worker", str(r),
+                 str(MP_WORLD), str(port), out, modes, "--device", dev,
+                 "--backend", backend, *map(str, flags)],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + 400
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"multi-rank ({backend}): a rank hung")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            text = open(f"{out}.{r}.log").read()
+            fail(f"multi-rank ({backend}) rank {r} failed:\n{text[-3000:]}")
+    return [(json.load(open(f"{out}.{r}.json")), np.load(f"{out}.{r}.npz"))
+            for r in range(MP_WORLD)]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _same_notes(what: str, got: np.ndarray, want: np.ndarray) -> bool:
+    """Fail unless play and replay are identical; return whether the
+    notes are identical bit for bit, and print where volumes differ."""
+    if got.shape != want.shape or not np.array_equal(got[..., :2],
+                                                     want[..., :2]):
+        fail(f"multi-rank {what}: the note events differ from the "
+             f"one-process run")
+    if np.array_equal(got, want):
+        return True
+    cells = np.argwhere(got[..., 2] != want[..., 2])
+    first = [[*map(int, c), float(got[tuple(c)][2]),
+              float(want[tuple(c)][2])] for c in cells[:4]]
+    log(f"multi-rank {what}: same events, {len(cells)} volume cells "
+        f"differ, first (stream, step, pitch, got, want) {first}")
+    return False
+
+
+def _midi_bytes(roll: np.ndarray, cfg) -> bytes:
+    """A [T, N, 3] roll as the .mid bytes write_file would write."""
+    from music_generator_tpu_torch.data.dataset import unclamp_midi
+    from music_generator_tpu_torch.midi.codec import midi_encode
+    from music_generator_tpu_torch.midi.io import write_midifile
+    buf = io.BytesIO()
+    write_midifile(buf, midi_encode(unclamp_midi(roll, cfg), config=cfg))
+    return buf.getvalue()
+
+
+def _check_training(backend: str, ranks, init: dict, one: dict,
+                    loss: float) -> tuple:
+    """Phase 3m (a) on one backend's ranks: the worker's step against the
+    one-process step from the same weights `init` (its loss `loss`, its
+    parameters `one`): the loss within PARITY_BAR[0] relative and the
+    worst-leaf cosine of the update at least PARITY_BAR[1]; the ranks'
+    parameters bit-equal after the step and after every fit step, and
+    their fit losses equal; the four biaxial kernels launched once a step
+    on each rank, no plain version.  Returns (loss rel, cosine, fit
+    steps)."""
+    (r0, npz0), (r1, _) = ranks
+    d_loss = abs(r0["step_loss"] - loss) / abs(loss)
+    _, _, cos = leaf_stats(
+        [torch.from_numpy(npz0["step." + k] - init[k]) for k in one],
+        [torch.from_numpy(one[k] - init[k]) for k in one])
+    log(f"multi-rank ({backend}) step: loss {r0['step_loss']:.6f} against "
+        f"one process {loss:.6f} (rel {d_loss:.3g}), worst-leaf update "
+        f"cosine {cos:.6f}; kernels {r0['step_counts']} / "
+        f"{r1['step_counts']}")
+    if d_loss > PARITY_BAR[0] or cos < PARITY_BAR[1]:
+        fail(f"multi-rank ({backend}) step: against the one-process step "
+             f"the loss is {d_loss:.3g} relative (bar {PARITY_BAR[0]}) and "
+             f"the update cosine {cos:.6f} (bar {PARITY_BAR[1]})")
+    if r0["step_hash"] != r1["step_hash"]:
+        fail(f"multi-rank ({backend}) step: the ranks' parameters differ")
+    fit0, fit1 = r0["fit"]["sharded"], r1["fit"]["sharded"]
+    steps = sum(fit0["steps_per_epoch"])
+    log(f"multi-rank ({backend}) fit: {fit0['epoch_scan_mode']}, {steps} "
+        f"steps, losses {fit0['loss']}; kernels rank 0 {fit0['counts']}, "
+        f"rank 1 {fit1['counts']}")
+    if (fit0["hashes"] != fit1["hashes"] or len(fit0["hashes"]) != steps
+            or fit0["loss"] != fit1["loss"]):
+        fail(f"multi-rank ({backend}) fit: the ranks' parameters or losses "
+             f"differ")
+    for counts, n in ((r0["step_counts"], 1), (r1["step_counts"], 1),
+                      (fit0["counts"], steps), (fit1["counts"], steps)):
+        if any(v != (0 if k.endswith("plain") else n)
+               for k, v in counts.items()):
+            fail(f"multi-rank ({backend}) training: kernel counts {counts}, "
+                 f"not {n} launches of each biaxial kernel and no plain "
+                 f"call")
+    return d_loss, cos, steps
+
+
+def multi_rank(cfg, card) -> dict:
+    """Phase 3m: data parallelism with two ranks of tools/mp_worker.py on
+    the card (gloo, named here because both share cuda:0), at
+    default_config() dropout 0: (a) one step of a B 32 batch, 16 rows a
+    rank, against the one-process step (loss within PARITY_BAR[0]
+    relative, worst-leaf cosine of the update at least PARITY_BAR[1]),
+    and `sharded` fit steps over a synthetic corpus split by
+    Dataset.shard with both ranks' parameters bit-equal after every step,
+    the four biaxial kernels launched once a step on each rank and no
+    plain version; (b) generation with 32 of G = 64 streams a rank and
+    phase 3's G = 3 (padded to 4), a primed batch and begin / advance,
+    against the one-process run (note events required; the .mid bytes and
+    the floats' bit-equality counted, and where volumes differ printed)
+    and phase 3's files against the committed samples; (c) a leader and a follower serving over the
+    replay channel at buckets 1, 4 and 16, a /generate_batch and a
+    time-sliced job, byte-equal to a one-process service, the follower's
+    pitch-loop launches equal to the leader's.  With two cards or more,
+    (a) and (b) again over NCCL.  Returns the readings."""
+    from music_generator_tpu_torch.data.dataset import Dataset
+    from music_generator_tpu_torch.data.synth import random_batch
+    from music_generator_tpu_torch.generation.sampler import (
+        GenerationResult, Sampler, write_file)
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.params import (load_params_npz,
+                                                  params_to_numpy)
+    from music_generator_tpu_torch.parallel.train_step import (
+        create_train_state, train_step)
+    from music_generator_tpu_torch.serving import GenerationService
+    from music_generator_tpu_torch.tools.mp_worker import (generation_cases,
+                                                           serving_requests)
+    t0 = time.perf_counter()
+    tcfg = cfg.replace(dropout=0.0, input_dropout=0.0)
+    out = os.path.join(WORK, "mp", "gloo")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    flags = ["--config", "default", "--no-dropout", "--windows", MP_WINDOWS,
+             "--time-steps", 5, "--fit-modes", "sharded", "--split", "shard",
+             "--epochs", 3, "--params", PARAMS, "--gen", MP_GEN]
+    serve = ["--serve-port", _free_port(), "--max-batch", max(MP_BATCHES),
+             "--warmup-buckets", max(MP_BATCHES), "--batch-sizes",
+             ",".join(map(str, MP_BATCHES))]
+    ranks = _spawn_ranks(out, "step,fit,generate,serve", "gloo",
+                         flags + serve)
+    spawn_s = time.perf_counter() - t0
+    (r0, npz0), (r1, npz1) = ranks
+
+    # (a) training.  The one-process step on the whole batch, from the
+    # same fresh weights.
+    model = build_model(tcfg, "cuda")
+    st = create_train_state(model, 0)
+    model.load_state_dict(build_model(tcfg, "cpu", seed=0).state_dict())
+    init = {k: v.copy() for k, v in params_to_numpy(
+        model.state_dict()).items()}
+    batch = tuple(torch.from_numpy(a).cuda() for a in random_batch(
+        tcfg, batch_size=MP_WINDOWS, seed=0))
+    loss = float(train_step(st, batch)["loss"])
+    one = params_to_numpy(model.state_dict())
+    d_loss, cos, steps = _check_training("gloo", ranks, init, one, loss)
+
+    # One rank alone on the card: the worker's timed steps at B 16.
+    half = tuple(a[:MP_WINDOWS // MP_WORLD] for a in batch)
+    for _ in range(2):
+        train_step(st, half)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        train_step(st, half)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t) * 1e3 / 5
+
+    # (b) generation against one process and the committed samples.
+    r4 = load_params_npz(PARAMS)
+    model = build_model(cfg, "cuda", state=r4)
+    want = generation_cases(Sampler(model), cfg, MP_GEN.split(","))
+    same, files, n_files = {}, 0, 0
+    for k, v in want.items():
+        want_files = [_midi_bytes(roll, cfg) for roll in v]
+        for r, npz in enumerate((npz0, npz1)):
+            got = npz["gen." + k]
+            same[f"{k}@{r}"] = _same_notes(f"{k} rank {r}", got, v)
+            files += sum(_midi_bytes(roll, cfg) == f
+                         for roll, f in zip(got, want_files))
+            n_files += len(want_files)
+    n_bytes = 0
+    for seed in (0, 1):
+        res = GenerationResult(npz0[f"gen.3x8s{seed}"], None)
+        paths = write_file(f"mp_s{seed}", res, cfg.replace(
+            out_dir=os.path.join(WORK, "mp")))
+        for i, p in enumerate(paths):
+            ref = os.path.join(SHORT, f"short_s{seed}_{i}.mid")
+            if not check_sample(p, ref):
+                log(json.dumps(_divergence(p, ref)))
+            n_bytes += open(p, "rb").read() == open(ref, "rb").read()
+    log(f"multi-rank generation: note events identical to one process in "
+        f"every case on both ranks, {files}/{n_files} streams' .mid bytes "
+        f"equal, {sum(same.values())}/{len(same)} cases bit-equal as "
+        f"floats; {n_bytes}/6 phase-3 files byte-identical to "
+        f"short_samples_r4; launches {r0['gen_launches']} / "
+        f"{r1['gen_launches']}")
+    if not r0["gen_launches"] or r0["gen_launches"] != r1["gen_launches"]:
+        fail("multi-rank generation: the ranks' pitch-loop launches differ")
+
+    # (c) serving against a one-process service with the same flags.
+    service = GenerationService(config=cfg, params=r4,
+                                max_batch=max(MP_BATCHES),
+                                warmup_buckets=max(MP_BATCHES))
+    solo = serving_requests(service, cfg, MP_BATCHES)
+    from music_generator_tpu_torch.midi import midi_decode, read_midifile
+    n_same = 0
+    for k, v in solo.items():
+        got = bytes.fromhex(r0["responses"][k])
+        if got == v:
+            n_same += 1
+            continue
+        a, b = (midi_decode(read_midifile(io.BytesIO(x))) for x in (got, v))
+        _same_notes(f"serving {k}", a, b)
+    log(f"multi-rank serving: {n_same}/{len(solo)} responses byte-equal to "
+        f"one process, {r1['replayed']} calls replayed; pitch-loop launches "
+        f"leader {r0['serve_launches']}, follower {r1['serve_launches']}")
+    if (r0["serve_launches"] != r1["serve_launches"]
+            or not r0["serve_launches"] or r1["replayed"] < len(MP_BATCHES)):
+        fail("multi-rank serving: the follower did not replay the leader")
+
+    readings = {
+        "card": card, "backend": r0["backend"], "world": MP_WORLD,
+        "step_ms_one_rank_alone_b16": alone_ms,
+        "step_ms_two_ranks_sharing_b16": [r0["step_ms"], r1["step_ms"]],
+        "all_reduce_ms": [r0["all_reduce_ms"], r1["all_reduce_ms"]],
+        "bucket_floats": r0["bucket_floats"],
+        "step_loss_rel": d_loss, "update_cos": cos,
+        "fit_steps": steps, "gen_bit_equal": sum(same.values()),
+        "gen_cases": len(same), "gen_midi_equal": files,
+        "gen_midi": n_files, "short_bytes": n_bytes,
+        "serving_bytes": n_same, "serving_responses": len(solo),
+        "spawn_s": spawn_s}
+    if torch.cuda.device_count() >= MP_WORLD:
+        nout = os.path.join(WORK, "mp", "nccl")
+        n0, n1 = _spawn_ranks(nout, "step,fit,generate", "nccl", flags)
+        n_loss, n_cos, _ = _check_training("nccl", (n0, n1), init, one,
+                                           loss)
+        if n0[0]["step_hash"] != r0["step_hash"]:
+            log("multi-rank nccl: parameters differ from gloo's (the sums "
+                "run in another order)")
+        readings.update(nccl_step_loss_rel=n_loss, nccl_update_cos=n_cos)
+        for k in want:
+            for r, npz in enumerate((n0[1], n1[1])):
+                _same_notes(f"nccl {k} rank {r}", npz["gen." + k], want[k])
+        if (not n0[0]["gen_launches"]
+                or n0[0]["gen_launches"] != n1[0]["gen_launches"]):
+            fail("multi-rank nccl generation: the ranks' pitch-loop "
+                 "launches differ")
+        readings["nccl_all_reduce_ms"] = [n0[0]["all_reduce_ms"],
+                                          n1[0]["all_reduce_ms"]]
+        readings["nccl_step_ms"] = [n0[0]["step_ms"], n1[0]["step_ms"]]
+    else:
+        log(f"multi-rank: NCCL not run on this machine "
+            f"({torch.cuda.device_count()} card)")
+    readings["phase_s"] = time.perf_counter() - t0
+    return readings
+
+
 
 def note_depths(cfg, card):
     """Phase 3l: the pitch loop at note depths 1-8 (the r4 weights rebuilt
@@ -3035,6 +3333,9 @@ def main() -> None:
     # -- 3l. this slice's path: generation at note depths 1-8 ----------------
     depth_times, depth_launches, depth_err = note_depths(cfg, card)
 
+    # -- 3m. this slice's path: two ranks, gloo on one card ----------------
+    mp_readings = multi_rank(cfg, card)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
     for route in ROUTES:
@@ -3135,6 +3436,7 @@ def main() -> None:
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
     })
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
+    log(json.dumps({"multi_rank": mp_readings}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

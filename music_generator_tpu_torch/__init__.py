@@ -22,12 +22,18 @@ Layer map (generation and training):
   ops        — LSTM cell, temperature, Keras-2 Nadam, the kernel wrappers
                (ops/notegen.py, ops/biax.py) and their build helper
                (csrc/*.cu)
-  parallel   — the train step (dropout generator per step, Nadam update)
-  training   — resident-dataset Trainer, best-only checkpoint, metrics,
-               Keras 2 weight import and export (training/keras_import.py)
-  generation — threefry-exact uniforms and the streaming Sampler
-  serving    — the HTTP generation service
-  tools      — the verification tools, the serving benchmark, export_keras
+  parallel   — the train step (dropout generator per step, the gradient
+               all-reduce, Nadam update) and data parallelism over
+               torch.distributed, one process per card (parallel/mesh.py)
+  training   — the Trainer (replicated, sharded, segments, stream),
+               best-only checkpoint, metrics, Keras 2 weight import and
+               export (training/keras_import.py)
+  generation — threefry-exact uniforms and the streaming Sampler (streams
+               spread over the ranks of a process group)
+  serving    — the HTTP generation service, and its authenticated replay
+               channel across ranks (serving/multihost.py)
+  tools      — the verification tools, the serving benchmark, export_keras,
+               the data-parallel worker (tools/mp_worker.py)
   cli        — `python -m music_generator_tpu_torch.train`, `.generate`,
                `.visualize`, `.analyze` (and `.serve`)
 """

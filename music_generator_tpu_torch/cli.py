@@ -18,6 +18,14 @@ read by the port's own HDF5 reader), or a keystr-layout `.npz`
 one (printing "Loaded model from file.", as the JAX package's
 `build_or_load` does), else fresh weights drawn from a seeded
 torch.Generator.  `--from-keras` and `--params` exclude each other.
+
+Under `torchrun --nproc_per_node=N` (one process per card, parallel/
+mesh.py) `train` joins the process group before any CUDA call, trains on
+its `Dataset.shard` with the gradients all-reduced every step, and rank 0
+alone writes the checkpoint; `generate` spreads the streams over the ranks
+and rank 0 alone writes the .mid files (the bytes of the one-process run).
+Each rank's device is then `cuda:LOCAL_RANK` unless `--device` names one.
+Without torchrun an entry point runs on one card in one process.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from music_generator_tpu_torch.generation.sampler import (GenerationResult,
                                                           prepend_prime,
                                                           write_file)
 from music_generator_tpu_torch.models.deepj import DeepJ, build_model
+from music_generator_tpu_torch.parallel import mesh
 from music_generator_tpu_torch.params import load_params_npz
 from music_generator_tpu_torch.training.checkpoint import (build_or_load,
                                                            model_path)
@@ -48,10 +57,19 @@ from music_generator_tpu_torch.utils import one_hot
 
 
 def _device_flag(parser: argparse.ArgumentParser, what: str) -> None:
-    parser.add_argument("--device", type=str, default="cuda",
-                        help=f"Device to {what} on (default: cuda; a "
-                             f"missing card is an error, pass cpu to run "
-                             f"on the CPU)")
+    parser.add_argument("--device", type=str, default=None,
+                        help=f"Device to {what} on (default: cuda, under "
+                             f"torchrun cuda:LOCAL_RANK; a missing card is "
+                             f"an error, pass cpu to run on the CPU)")
+
+
+def _join(device_flag) -> torch.device:
+    """Join the process group a launcher describes (before any CUDA
+    call), then resolve the entry point's device: --device, else this
+    rank's card under torchrun, else cuda."""
+    if mesh.maybe_init_distributed(device_flag) and device_flag is None:
+        return resolve_device(mesh.local_device())
+    return resolve_device(device_flag)
 
 
 def train_main(argv=None) -> dict:
@@ -75,13 +93,17 @@ def train_main(argv=None) -> dict:
     _device_flag(parser, "train")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = _join(args.device)
     cfg = default_config()
     model = DeepJ(cfg, device)
 
     print("Loading data")
     ds = load_all(cfg.styles, cfg.seq_len, cfg)
     print(f"{len(ds)} training windows")
+    if mesh.world() > 1:
+        ds = ds.shard(mesh.rank(), mesh.world())
+        print(f"rank {mesh.rank()} of {mesh.world()}: {len(ds)} windows "
+              f"of the shard on {device}")
     trainer = Trainer(model, TrainConfig(seed=args.seed,
                                          profile=args.profile))
     if args.from_keras:
@@ -146,7 +168,7 @@ def generate_main(argv=None) -> list:
     _device_flag(parser, "generate")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = _join(args.device)
     cfg = default_config()
     if args.quantize_volume:
         cfg = cfg.replace(gen_volume_quantize=True)
@@ -181,6 +203,9 @@ def generate_main(argv=None) -> list:
     print("Generating with styles:", [int(np.argmax(s)) for s in styles],
           "on", torch.cuda.get_device_name(device)
           if device.type == "cuda" else "cpu")
+    if mesh.world() > 1:
+        print(f"Sharding {len(styles)} generations over {mesh.world()} "
+              f"ranks (rank {mesh.rank()} on {device})")
     sampler = Sampler(model, default_temp=args.temperature)
     prime = None
     if args.prime:
@@ -197,6 +222,8 @@ def generate_main(argv=None) -> list:
         # The whole piece: the clamped prime, then the continuation.
         result = GenerationResult(prepend_prime(result.notes, prime),
                                   result.styles)
+    if mesh.rank() != 0:
+        return []            # every rank holds the notes; rank 0 writes
     return write_file(args.out, result, cfg)
 
 

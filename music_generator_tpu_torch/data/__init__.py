@@ -1,6 +1,7 @@
 from music_generator_tpu_torch.data.dataset import (
     Dataset,
     batches,
+    block_epoch_permutation,
     clamp_midi,
     compute_beat,
     compute_completion,
@@ -13,7 +14,8 @@ from music_generator_tpu_torch.data.dataset import (
     unclamp_midi,
 )
 
-__all__ = ["Dataset", "batches", "clamp_midi", "compute_beat",
+__all__ = ["Dataset", "batches", "block_epoch_permutation",
+           "clamp_midi", "compute_beat",
            "compute_completion", "compute_genre", "decode_prime",
            "epoch_permutation", "load_all", "stagger", "transpose_augment",
            "unclamp_midi"]

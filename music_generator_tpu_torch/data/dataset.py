@@ -5,9 +5,11 @@ training sequences with beat and style conditioning.
 
 As in the JAX package: windowing is vectorized, file decode fans out over a
 thread pool, file order is deterministic, batches have fixed shapes, and
-octave-transpose augmentation is optional (off by default).  Only the
-single-process pieces are here: no `Dataset.shard` or block permutations
-(multi-device training is queued)."""
+octave-transpose augmentation is optional (off by default).  Data
+parallelism takes `Dataset.shard` (each rank's rows, padded to equal
+lengths), `shard_validity` (which of them are real) and
+`block_epoch_permutation` (the sharded epoch's batch stream), equal to
+the JAX package's array for array."""
 
 from __future__ import annotations
 
@@ -125,9 +127,37 @@ class Dataset:
     targets: np.ndarray      # [N, T, num_notes, 3] float32 (one-step shift)
     beats: np.ndarray        # [N, T, notes_per_bar] float32
     styles: np.ndarray       # [N, T, num_styles] float32
+    # Set by shard(): (shard_index, shard_count, global_rows), so that a
+    # consumer can tell wrap-padded duplicate rows from real ones, for any
+    # shard (Trainer.evaluate weights every rank's duplicates out).
+    shard_info: Optional[Tuple[int, int, int]] = None
 
     def __len__(self) -> int:
         return len(self.notes)
+
+    def shard(self, index: int, count: int) -> "Dataset":
+        """Rank `index`'s rows of `count`: rows index, index + count, ...
+        wrap-padded to the same length ceil(n / count) on every rank, since
+        every train step is a collective and a rank with one row fewer
+        would run one step fewer and deadlock the group.  At most one
+        duplicate row a rank; exact consumers use `shard_validity`."""
+        n = len(self.notes)
+        want = -(-n // count) if n else 0
+        idx = (index + count * np.arange(want)) % max(n, 1)
+        return Dataset(self.notes[idx], self.targets[idx],
+                       self.beats[idx], self.styles[idx],
+                       shard_info=(index, count, n))
+
+    def shard_validity(self, index: Optional[int] = None) -> np.ndarray:
+        """[len(self)] float mask, 1.0 for real rows and 0.0 for wrap-padded
+        duplicates, of shard `index` (default: this one) of the same
+        shard() call, so that every rank can build every other's."""
+        if self.shard_info is None:
+            return np.ones(len(self), np.float64)
+        own, count, n_global = self.shard_info
+        q = own if index is None else index
+        return ((q + count * np.arange(len(self))) < n_global).astype(
+            np.float64)
 
 
 def _load_style_files(files: Sequence[str], cfg: Config) -> List[np.ndarray]:
@@ -216,6 +246,29 @@ def epoch_permutation(n: int, batch_size: int, rng: np.random.Generator,
         perm = np.concatenate([perm, np.resize(perm, pad)])
     S = len(perm) // batch_size
     return perm[:S * batch_size].reshape(S, batch_size)
+
+
+def block_epoch_permutation(block_len: int, n_blocks: int,
+                            per_block_batch: int,
+                            rng: np.random.Generator) -> np.ndarray:
+    """One epoch's shuffled block-local indices for the sharded epoch: an
+    [S, n_blocks * per_block_batch] int32 matrix whose column block d
+    indexes rank d's resident [block_len] rows.  Each block shuffles on its
+    own and every batch takes per_block_batch rows of every block (a
+    stratified shuffle); a block that does not divide wraps its final rows
+    (np.resize cycles).  Every rank computes the same matrix from the
+    shared epoch rng, so the ranks stay in step without sending indices."""
+    if block_len <= 0 or per_block_batch <= 0 or n_blocks <= 0:
+        raise ValueError("block_len, n_blocks, per_block_batch must be >= 1")
+    S = -(-block_len // per_block_batch)
+    want = S * per_block_batch
+    cols = []
+    for _ in range(n_blocks):
+        perm = rng.permutation(block_len)
+        if want > block_len:
+            perm = np.concatenate([perm, np.resize(perm, want - block_len)])
+        cols.append(perm.reshape(S, per_block_batch))
+    return np.concatenate(cols, axis=1).astype(np.int32)
 
 
 def batches(ds: Dataset, batch_size: int, *, rng: np.random.Generator,

@@ -18,13 +18,21 @@ primed continuation (`prime`: the state is teacher-forced through a given
 roll, consuming no randomness) and the incremental surface
 (`begin` / `ActiveGeneration.advance`) keep that contract.
 
-Not in this slice: mesh or multi-process sharding.
+Data parallelism (parallel/mesh.py, one process per card): in a process
+group of `world` ranks every rank makes the same calls with the same
+arguments; the batch is padded to a multiple of lcm(pad_to, world), rank r
+runs the contiguous block r of the streams through the same time step and
+pitch-loop launch, and each chunk's notes are all-gathered rank-major, so
+that every rank returns the whole result (the JAX sampler's `_mp_fns`
+returns it replicated).  Stream-indexed uniforms make the bytes those of
+the one-process run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -39,6 +47,7 @@ from music_generator_tpu_torch.midi.codec import midi_encode
 from music_generator_tpu_torch.midi.io import write_midifile
 from music_generator_tpu_torch.models.deepj import DeepJ
 from music_generator_tpu_torch.ops.notegen import note_sample
+from music_generator_tpu_torch.parallel import mesh
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,7 +233,9 @@ class Sampler:
         vol = notes[..., 2]
         if cfg.gen_compact_transfer:
             vol = torch.floor(vol * float(cfg.max_velocity)).to(torch.uint8)
-        return state, (playreplay, vol)
+        # Every rank's streams, rank-major: the whole batch on every rank.
+        return state, (mesh.all_gather_rows(playreplay),
+                       mesh.all_gather_rows(vol))
 
     def _assemble(self, pulled_pr: np.ndarray,
                   pulled_vol: np.ndarray) -> np.ndarray:
@@ -243,14 +254,18 @@ class Sampler:
         """Validate and pad the stream batch, compute the style embedding
         and build the initial state: what `generate` and `begin` do before
         their chunk loop.  Pad rows repeat the last real stream and are
-        sliced off.  Returns (style_emb, state, styles_np, G_real)."""
+        sliced off.  In a process group the batch pads to a multiple of the
+        world too, and the embedding and state returned are this rank's
+        block of the streams: every float computation of a stream runs at
+        the rank's batch, as one process runs it at its own.  Returns
+        (style_emb, state, styles_np, G_real)."""
         if not styles:
             raise ValueError("at least one style mixture is required")
         if not 0 <= int(seed) < 2 ** 32:
             raise ValueError(f"seed must be in [0, 2**32), got {seed}")
         G_real = len(styles)
         styles = list(styles)
-        pad = (-G_real) % (pad_to or 1)
+        pad = (-G_real) % math.lcm(pad_to or 1, mesh.world())
         styles = styles + [styles[-1]] * pad
 
         def _per_stream(vals, name, dtype, lo=None, hi=None):
@@ -272,7 +287,7 @@ class Sampler:
         styles_np = np.stack([np.asarray(s) for s in styles]).astype(
             np.float32)
         style_emb = self.model.style_embedding(
-            torch.from_numpy(styles_np).to(self.device))
+            torch.from_numpy(self._local(styles_np)).to(self.device))
         if temperature is None:
             temp = self.default_temp
         elif np.ndim(temperature) == 0:
@@ -283,7 +298,22 @@ class Sampler:
         state = self._init_state(styles_np.shape[0], int(seed), temp,
                                  stream_offset, seeds=seeds,
                                  stream_indices=stream_indices)
-        return style_emb, state, styles_np, G_real
+        return style_emb, self._local(state), styles_np, G_real
+
+    def _local(self, x):
+        """This rank's contiguous block of the streams of a per-stream
+        tensor, or of every tensor of a StepState (the time state's rows
+        are stream-major, N rows a stream)."""
+        world = mesh.world()
+        if world == 1:
+            return x
+        if isinstance(x, StepState):
+            return StepState(
+                tuple((self._local(h), self._local(c))
+                      for h, c in x.time_state),
+                *(self._local(t) for t in x[1:]))
+        n = x.shape[0] // world
+        return x[mesh.rank() * n:(mesh.rank() + 1) * n]
 
     @torch.no_grad()
     def begin(self, styles: Sequence[np.ndarray], *, chunk_bars: int = 8,
@@ -363,7 +393,8 @@ class Sampler:
                 prime = np.concatenate(
                     [prime] + [prime[-1:]] * (G_pad - prime.shape[0]))
             prime_steps = prime.shape[1]
-            state = self._advance_through_prime(style_emb, state, prime)
+            state = self._advance_through_prime(style_emb, state,
+                                                self._local(prime))
         if num_steps == 0:
             return GenerationResult(
                 np.zeros((G_real, 0, cfg.num_notes, cfg.note_units),

@@ -13,11 +13,17 @@ library is never loaded.  No `--use_fast_math`:
 the kernels' float32 math must track the plain PyTorch versions.  The
 compiler's register and shared-memory report (`-Xptxas=-v`) is kept beside
 the library as `<lib>.log`.
+
+A build holds an exclusive `fcntl` lock on `build/torch_kernels/lock`, so
+the ranks of a data-parallel run on one machine compile once: the first
+compiles, the others wait and then find the libraries built.  The kernel
+releases the lock when its holder exits, however it exits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,6 +66,13 @@ def build(names: Iterable[str]) -> List[Path]:
     the compiler's output when a build fails."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_locked(names)
+    return [library_path(n) for n in names]
+
+
+def _build_locked(names: List[str]) -> None:
     procs = []
     for name in names:
         lib = library_path(name)
@@ -80,7 +93,6 @@ def build(names: Iterable[str]) -> List[Path]:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return [library_path(n) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,6 +21,24 @@ class Nadam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, beta1=beta1, beta2=beta2,
                                       eps=eps, schedule_decay=schedule_decay))
 
+    @staticmethod
+    def _fresh(p: torch.Tensor) -> dict:
+        return {"count": torch.zeros((), dtype=torch.float32,
+                                     device=p.device),
+                "m_schedule": torch.ones((), dtype=torch.float32,
+                                         device=p.device),
+                "mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Give every parameter without state the state its first step
+        would create (step 0's), so that every rank of a data-parallel fit
+        holds the same tensors before rank 0's are broadcast."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                if not self.state[p]:
+                    self.state[p].update(self._fresh(p))
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = closure() if closure is not None else None
@@ -33,12 +51,7 @@ class Nadam(torch.optim.Optimizer):
                 g = p.grad
                 st = self.state[p]
                 if not st:
-                    st["count"] = torch.zeros((), dtype=torch.float32,
-                                              device=p.device)
-                    st["m_schedule"] = torch.ones((), dtype=torch.float32,
-                                                  device=p.device)
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
+                    st.update(self._fresh(p))
                 t = st["count"] + 1.0
                 mom_t = b1 * (1.0 - 0.5 * torch.pow(0.96, t * decay))
                 mom_t1 = b1 * (1.0 - 0.5 * torch.pow(0.96, (t + 1.0) * decay))

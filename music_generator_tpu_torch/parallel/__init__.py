@@ -1,1 +1,2 @@
-"""The training step (single device; multi-device training is queued)."""
+"""The training step and data parallelism over torch.distributed (one
+process per card): `train_step`, `mesh`."""

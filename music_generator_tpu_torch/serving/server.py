@@ -50,10 +50,14 @@ API:
        {"mixtures": [[...], ...]} or {"styles_list": [[0, 3], [5]]}, plus
        the keys of /generate but the mixture ones; one device call.
 
-One card, one process: the JAX service's data mesh and its multi-host
-replay channel (`--mp-coord`) wait for the port's multi-device support.
-Weights come from `--from-keras` (a reference Keras 2 model.h5) or
-`--params` (a keystr `.npz`), else `out/model.pt`.
+Several cards: under `torchrun --nproc_per_node=N ... serve --mp-coord
+HOST:PORT` (one process per card, parallel/mesh.py) every rank builds the
+same service, the sampler spreads each batch's streams over the ranks,
+rank 0 serves HTTP and every other rank replays its sampler calls from an
+authenticated channel at --mp-coord (serving/multihost.py).  Without
+torchrun the service runs on one card.  Weights come from `--from-keras`
+(a reference Keras 2 model.h5) or `--params` (a keystr `.npz`), else
+`out/model.pt`.
 """
 
 from __future__ import annotations
@@ -82,6 +86,7 @@ from music_generator_tpu_torch.generation.sampler import (Sampler,
 from music_generator_tpu_torch.midi.codec import midi_encode
 from music_generator_tpu_torch.midi.io import write_midifile
 from music_generator_tpu_torch.models.deepj import build_model
+from music_generator_tpu_torch.parallel import mesh
 from music_generator_tpu_torch.params import load_params_npz
 from music_generator_tpu_torch.training.checkpoint import build_or_load
 from music_generator_tpu_torch.training.keras_import import load_keras_weights
@@ -656,9 +661,10 @@ class DeepJHTTPServer(ThreadingHTTPServer):
 def serve_main(argv=None) -> None:
     """`python -m music_generator_tpu_torch.serve`: serve on the card (or
     on the CPU with --device cpu) until interrupted.  The JAX service's
-    flags but --mp-coord (the multi-host replay channel), which waits for
-    the port's multi-device support; plus --params and --device."""
-    from music_generator_tpu_torch.cli import _device_flag
+    flags plus --params and --device.  Under torchrun every rank runs the
+    same command: rank 0 serves HTTP and leads the replay channel at
+    --mp-coord, the others follow it until rank 0 stops."""
+    from music_generator_tpu_torch.cli import _device_flag, _join
     parser = argparse.ArgumentParser(description="DeepJ generation server.")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8732)
@@ -702,10 +708,23 @@ def serve_main(argv=None) -> None:
     parser.add_argument("--slice-bars", type=int, default=8,
                         help="time-slice size for long generations "
                              "(a multiple of the 8-bar chunk)")
+    parser.add_argument("--mp-coord", type=str, default=None,
+                        metavar="HOST:PORT",
+                        help="the replay channel across ranks: rank 0 binds "
+                             "here and serves HTTP, every other rank "
+                             "connects and replays its sampler calls "
+                             "(required under torchrun with more than one "
+                             "rank; the same flags on every rank; a "
+                             "cluster-internal address)")
     _device_flag(parser, "serve")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    # Join the process group before anything touches the card.
+    device = _join(args.device)
+    if mesh.world() > 1 and not args.mp_coord:
+        raise SystemExit("serving on more than one rank needs --mp-coord "
+                         "HOST:PORT (the leader's replay-channel address; "
+                         "the same flag on every rank)")
     cfg = default_config()
     if args.keras2_gates:
         cfg = cfg.replace(lstm_recurrent_activation="hard_sigmoid")
@@ -726,6 +745,23 @@ def serve_main(argv=None) -> None:
                                 coalesce_max_skips=args.coalesce_max_skips,
                                 slice_bars=args.slice_bars,
                                 warmup_buckets=warmup_buckets)
+    proxy = None
+    if mesh.world() > 1:
+        # Every rank built the same service (the same flags give the same
+        # warm-up calls); from here rank 0 replays each sampler call.
+        from music_generator_tpu_torch.serving.multihost import (
+            follow, lead, shared_secret)
+        mp_host, mp_port = args.mp_coord.rsplit(":", 1)
+        secret = shared_secret()
+        if mesh.rank() != 0:
+            print(f"follower {mesh.rank()}: replaying the leader's sampler "
+                  f"calls from {args.mp_coord}", flush=True)
+            n = follow(service, mp_host, int(mp_port), secret)
+            print(f"follower {mesh.rank()}: leader closed after {n} calls",
+                  flush=True)
+            return
+        proxy = lead(service, mp_host, int(mp_port), mesh.world() - 1,
+                     secret)
     httpd = DeepJHTTPServer((args.host, args.port), make_handler(service))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -735,3 +771,5 @@ def serve_main(argv=None) -> None:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if proxy is not None:
+            proxy.stop_followers()

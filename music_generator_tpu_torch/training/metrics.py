@@ -20,7 +20,8 @@ from music_generator_tpu_torch.utils.tboard import SummaryWriter
 class MetricLogger:
     def __init__(self, log_dir: str, jsonl: bool = True,
                  tensorboard: bool = True):
-        os.makedirs(log_dir, exist_ok=True)
+        if jsonl or tensorboard:
+            os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a") \
             if jsonl else None
         self._tb = SummaryWriter(log_dir) if tensorboard else None

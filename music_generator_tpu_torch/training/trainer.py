@@ -1,4 +1,4 @@
-"""Training loop (the JAX package's `training/trainer.py`, one device).
+"""Training loop (the JAX package's `training/trainer.py`).
 
 Mirrors the reference's loop semantics (ref: train.py:14-29): up to
 `epochs` epochs over the fully loaded dataset, the per-epoch mean training
@@ -6,14 +6,23 @@ loss driving a best-only checkpoint and Keras-exact early stopping with
 patience 5.  Every epoch takes one [S, B] index matrix from
 `epoch_permutation` (the same batch stream as the JAX trainer for the same
 seed) and runs one train step per row.  How the batches reach the card is
-`TrainConfig.epoch_scan_mode`, picked as the JAX trainer picks it on one
-process: `replicated` (the dataset resident on the device, each batch
-gathered there), `segments` (past the byte budget: stream-order segments
-gathered on the host and copied on a side stream while the previous one
-trains) or `stream` (a per-step host feed one batch ahead, for profiling
-or with `epoch_scan` off; `profile` writes a trace of steps 5-10).  The
-JAX trainer's `sharded` mode, which spreads the corpus over a mesh, is
-not ported."""
+`TrainConfig.epoch_scan_mode`, picked as the JAX trainer picks it (with
+one device a process): `replicated` (the dataset resident on the device,
+each batch gathered there), `sharded` (each rank's shard resident on its
+card, each batch gathered from every rank's block), `segments` (past the
+byte budget: stream-order segments gathered on the host and copied on a
+side stream while the previous one trains) or `stream` (a per-step host
+feed one batch ahead, for profiling or with `epoch_scan` off; `profile`
+writes a trace of steps 5-10).
+
+Data parallelism (parallel/mesh.py, one process per card): `ds` is this
+rank's `Dataset.shard`, `batch_size` the per-rank feed and the global
+batch `batch_size * world` what the step averages and `Throughput`
+counts.  Rank 0's weights and Nadam state reach every rank before step 0,
+every step all-reduces its gradients (parallel/train_step.py), the epoch
+loss is therefore the same on every rank and so is the early stop, and
+only rank 0 writes checkpoints (the others wait at a barrier), metric rows
+and TensorBoard."""
 
 from __future__ import annotations
 
@@ -29,10 +38,14 @@ import numpy as np
 import torch
 
 from music_generator_tpu_torch.data.dataset import (Dataset, batches,
+                                                    block_epoch_permutation,
                                                     epoch_permutation)
 from music_generator_tpu_torch.models.deepj import DeepJ
-from music_generator_tpu_torch.parallel.train_step import (create_train_state,
+from music_generator_tpu_torch.parallel import mesh
+from music_generator_tpu_torch.parallel.train_step import (broadcast_state,
+                                                           create_train_state,
                                                            eval_step,
+                                                           sharded_train_step,
                                                            train_step)
 from music_generator_tpu_torch.params import name_to_keystr
 from music_generator_tpu_torch.training.checkpoint import (CheckpointStore,
@@ -52,7 +65,8 @@ class TrainConfig:
     tensorboard: bool = True
     # Write a torch.profiler trace (CPU and CUDA activities, Chrome trace
     # format) of steps [profile_start, profile_stop) of epoch 0 under
-    # <log_dir>/profile.  Profiling runs the `stream` mode.
+    # <log_dir>/profile, one file a rank under data parallelism.  Profiling
+    # runs the `stream` mode.
     profile: bool = False
     profile_start: int = 5
     profile_stop: int = 10
@@ -62,9 +76,9 @@ class TrainConfig:
     # How each epoch's batches reach the device ("auto" picks by corpus
     # size; see fit()):
     #   replicated — the whole dataset resident on the device; an epoch
-    #                ships only its [S, B] index matrix
-    #   sharded    — the JAX trainer's corpus sharded over a mesh; not
-    #                ported (it comes with the multi-device slice)
+    #                ships only its [S, B] index matrix (one process)
+    #   sharded    — each rank's shard resident on its card; an epoch
+    #                ships the [S, world * B] block-local index matrix
     #   segments   — [M, B] segments gathered on the host in stream order,
     #                each copied on a side stream while the previous one
     #                trains (corpora past the budget)
@@ -72,9 +86,10 @@ class TrainConfig:
     #                worker thread (profiling, or epoch_scan off)
     epoch_scan: bool = True
     epoch_scan_mode: str = "auto"
-    # Device bytes for staged training data: the resident corpus
-    # (replicated) or the two segment buffers (segments).  The parameters,
-    # Nadam's state and a step's activations come on top of it.
+    # Device bytes a card for staged training data: the resident corpus
+    # (replicated), the rank's shard (sharded) or the two segment buffers
+    # (segments).  The parameters, Nadam's state and a step's activations
+    # come on top of it.
     epoch_scan_max_bytes: int = 8 << 30
 
 
@@ -175,7 +190,8 @@ class Trainer:
         self.tc = train_cfg or TrainConfig()
         self.state = create_train_state(model, self.tc.seed)
         # The reference prints model.summary() at startup (ref: util.py:16).
-        print(param_summary(model.state_dict()))
+        if mesh.rank() == 0:
+            print(param_summary(model.state_dict()))
         self.store = (CheckpointStore(model_path(self.cfg))
                       if self.tc.checkpoint else None)
 
@@ -194,7 +210,9 @@ class Trainer:
             return False
 
     def fit(self, ds: Dataset, epochs: Optional[int] = None) -> dict:
-        """Train to early stop over `ds`; returns the history."""
+        """Train to early stop over `ds` (this rank's shard under data
+        parallelism: every rank must hold as many rows, as Dataset.shard
+        gives them); returns the history."""
         cfg, tc = self.cfg, self.tc
         epochs = epochs if epochs is not None else (
             tc.epochs if tc.epochs is not None else cfg.epochs)
@@ -205,19 +223,31 @@ class Trainer:
         batch_size = min(cfg.batch_size, len(ds))
         seq_len = ds.notes.shape[1]
         device = self.model.device
+        world, lead = mesh.world(), mesh.rank() == 0
+        if world > 1:
+            # Every step is a collective: a rank with fewer rows would run
+            # fewer steps and leave the others waiting for ever.
+            sizes = mesh.all_gather_rows(torch.tensor([len(ds)],
+                                                      device=device))
+            if len(set(sizes.tolist())) != 1:
+                raise ValueError(f"ranks hold {sizes.tolist()} rows: give "
+                                 f"each its Dataset.shard(rank, world)")
+        global_batch = batch_size * world
 
-        logger = MetricLogger(cfg.log_dir, tensorboard=tc.tensorboard)
-        meter = Throughput(batch_size * seq_len)
+        logger = MetricLogger(cfg.log_dir, jsonl=lead,
+                              tensorboard=tc.tensorboard and lead)
+        meter = Throughput(global_batch * seq_len)
         rng = np.random.default_rng(tc.seed)
         best_loss = float("inf")
         bad_epochs = 0
         history = {"loss": [], "epoch_seconds": [], "steps_per_epoch": [],
                    "batch_size": batch_size}
 
-        # The epoch's staging mode, as the JAX trainer picks it on one
-        # process (its `sharded` branch needs more than one device's
-        # budget there, so `auto` never reaches it):
-        #   replicated — the dataset fits epoch_scan_max_bytes;
+        # The epoch's staging mode, as the JAX trainer picks it with one
+        # device a process:
+        #   replicated — one process, and the dataset fits
+        #       epoch_scan_max_bytes;
+        #   sharded — more than one process, and the rank's shard fits;
         #   segments — past that: two [M, B] segment buffers in the budget;
         #   stream — profiling, or epoch_scan off.
         arrays = (ds.notes, ds.targets, ds.beats, ds.styles)
@@ -228,19 +258,23 @@ class Trainer:
         if not tc.epoch_scan or tc.profile:
             mode = "stream"
         elif mode == "auto":
-            mode = ("replicated" if ds_bytes <= tc.epoch_scan_max_bytes
-                    else "segments")
-        if mode == "sharded":
-            raise NotImplementedError(
-                "epoch_scan_mode='sharded' spreads the corpus over a "
-                "device mesh; it comes with the multi-device slice "
-                "(ROADMAP.md section 1 item 4)")
+            if ds_bytes > tc.epoch_scan_max_bytes:
+                mode = "segments"
+            else:
+                mode = "replicated" if world == 1 else "sharded"
+        if mode == "replicated" and world > 1:
+            raise ValueError(
+                "epoch_scan_mode='replicated' requires a single process "
+                "(each rank holds only its shard); use 'sharded'")
         history["epoch_scan_mode"] = mode
+        # Rank 0's fresh or restored weights and Nadam state on every rank.
+        broadcast_state(self.state)
 
         resident = stager = None
-        if mode == "replicated":
-            # The dataset lives on the device for the whole fit; each epoch
-            # ships only its [S, B] index matrix.
+        if mode in ("replicated", "sharded"):
+            # The dataset (sharded: this rank's block of it) lives on the
+            # device for the whole fit; each epoch ships only its index
+            # matrix.
             resident = tuple(torch.from_numpy(a).to(device) for a in arrays)
         elif mode == "segments":
             # Two staging buffers (double buffering) fit the budget.
@@ -257,6 +291,14 @@ class Trainer:
                                              drop_remainder=False)
                     epoch_losses = self._resident_epoch(
                         resident, torch.from_numpy(perm).to(device), logger)
+                elif mode == "sharded":
+                    # Rank r gathers column block r of every row from its
+                    # own block (the JAX trainer's device-local gather).
+                    perm = block_epoch_permutation(len(ds), world,
+                                                   batch_size, rng)
+                    epoch_losses = self._resident_epoch(
+                        resident, torch.from_numpy(perm).to(device), logger,
+                        sharded=True)
                 elif mode == "segments":
                     epoch_losses = self._segment_epoch(
                         ds, batch_size, stager, rng, logger)
@@ -268,28 +310,35 @@ class Trainer:
                 history["steps_per_epoch"].append(len(epoch_losses))
                 dt = time.perf_counter() - t0
                 history["epoch_seconds"].append(dt)
-                rate = len(epoch_losses) * batch_size * seq_len / dt
-                print(f"epoch {epoch + 1}/{epochs} loss={epoch_loss:.4f} "
-                      f"({dt:.1f}s, {rate:.0f} timesteps/s)")
+                rate = len(epoch_losses) * global_batch * seq_len / dt
+                if lead:
+                    print(f"epoch {epoch + 1}/{epochs} "
+                          f"loss={epoch_loss:.4f} ({dt:.1f}s, {rate:.0f} "
+                          f"timesteps/s)")
                 logger.log(epoch + 1, {"epoch_loss": epoch_loss},
                            prefix="epoch")
-                if (tc.tensorboard and tc.histogram_freq
+                if (tc.tensorboard and lead and tc.histogram_freq
                         and (epoch + 1) % tc.histogram_freq == 0):
                     self._log_param_histograms(logger, epoch + 1)
 
                 # Best-only checkpoint + early stop, both on TRAIN loss
                 # (ref: train.py:23-24 monitors 'loss', not val_loss).
+                # Each step's loss is already the ranks' mean, so every
+                # rank takes the same decision.
                 if epoch_loss < best_loss:
                     best_loss = epoch_loss
                     bad_epochs = 0
                     if self.store is not None:
-                        self.store.save(self.state)
+                        if lead:
+                            self.store.save(self.state)
+                        mesh.barrier()
                 else:
                     bad_epochs += 1
                     # Keras-2 EarlyStopping stops when wait >= patience.
                     if bad_epochs >= patience:
-                        print(f"early stopping (no improvement for "
-                              f"{bad_epochs} epochs)")
+                        if lead:
+                            print(f"early stopping (no improvement for "
+                                  f"{bad_epochs} epochs)")
                         break
         finally:
             logger.close()
@@ -314,13 +363,16 @@ class Trainer:
         return host["loss"]
 
     def _resident_epoch(self, resident, perm: torch.Tensor,
-                        logger: MetricLogger) -> np.ndarray:
+                        logger: MetricLogger,
+                        sharded: bool = False) -> np.ndarray:
         """One epoch over the device-resident dataset: one train step per
-        row of `perm`, metrics kept on the device until the end."""
+        row of `perm` (sharded: this rank's column block of it, indices
+        into its own block), metrics kept on the device until the end."""
         base_step = self.state.step
         t0 = time.perf_counter()
         host = self._to_host([
-            train_step(self.state, tuple(a[idx] for a in resident))
+            sharded_train_step(self.state, resident, idx) if sharded
+            else train_step(self.state, tuple(a[idx] for a in resident))
             for idx in perm])
         dt = time.perf_counter() - t0
         rate = perm.numel() * resident[0].shape[1] / dt
@@ -373,7 +425,8 @@ class Trainer:
         device one step ahead on a worker thread (`prefetch`).  With
         `profile`, epoch 0's steps [profile_start, profile_stop), clamped
         to the epoch, run under torch.profiler, whose Chrome trace goes
-        under <log_dir>/profile."""
+        under <log_dir>/profile (train_steps_A_B.rankR.pt.trace.json from
+        each rank R when world > 1)."""
         tc = self.tc
         device = self.model.device
         n_steps = -(-len(ds) // batch_size)
@@ -424,8 +477,10 @@ class Trainer:
         prof.stop()
         out_dir = os.path.join(self.cfg.log_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
+        # Under data parallelism every rank traces its own card.
+        tag = f".rank{mesh.rank()}" if mesh.world() > 1 else ""
         path = os.path.join(out_dir,
-                            f"train_steps_{start}_{stop}.pt.trace.json")
+                            f"train_steps_{start}_{stop}{tag}.pt.trace.json")
         prof.export_chrome_trace(path)
         print(f"profiler trace written to {path}")
 
@@ -438,23 +493,40 @@ class Trainer:
 
     def evaluate(self, ds: Dataset, batch_size: Optional[int] = None) -> dict:
         """Deterministic (no-dropout) metrics over a dataset, an exact mean:
-        the last batch is padded and its pad rows get weight zero."""
+        the last batch is padded and its pad rows get weight zero.  Under
+        data parallelism `ds` is this rank's shard, every rank's per-sample
+        metrics are gathered (rank-major) and Dataset.shard's wrap-padded
+        duplicates are weighted out too, each rank's from
+        shard_validity(q), so every real window counts once (17 windows
+        over 2 ranks divide by 17, not 18) and every rank returns the same
+        means."""
         if len(ds) == 0:
             raise ValueError("empty dataset — nothing to evaluate")
         batch_size = batch_size or min(self.cfg.batch_size, max(1, len(ds)))
         device = self.model.device
+        world = mesh.world()
         n = len(ds)
         padded = -(-n // batch_size) * batch_size
         idx = np.concatenate([np.arange(n), np.zeros(padded - n, np.int64)])
-        weights = np.concatenate([np.ones(n), np.zeros(padded - n)])
+        pad = np.zeros(padded - n)
+        if ds.shard_info is not None and ds.shard_info[1] == world > 1:
+            masks = [ds.shard_validity(q) for q in range(world)]
+        else:
+            # Unsharded, or a shard evaluated outside its group.
+            masks = [ds.shard_validity()] * world
+        weights = [np.concatenate([m, pad]) for m in masks]
         sums: dict = {}
         for s in range(padded // batch_size):
             sel = idx[s * batch_size:(s + 1) * batch_size]
-            w = weights[s * batch_size:(s + 1) * batch_size]
+            w = np.concatenate([rw[s * batch_size:(s + 1) * batch_size]
+                                for rw in weights])
             batch = tuple(torch.from_numpy(a[sel]).to(device) for a in (
                 ds.notes, ds.targets, ds.beats, ds.styles))
             metrics = eval_step(self.model, batch)
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + float(
-                    v.float().cpu().numpy() @ w)
-        return {k: v / n for k, v in sums.items()}
+            names = sorted(metrics)
+            rows = mesh.all_gather_rows(torch.stack(
+                [metrics[k] for k in names], dim=1)).float().cpu().numpy()
+            for i, k in enumerate(names):
+                sums[k] = sums.get(k, 0.0) + float(rows[:, i] @ w)
+        denom = float(sum(rw.sum() for rw in weights))
+        return {k: v / denom for k, v in sums.items()}

@@ -3,14 +3,15 @@ dims on the CPU:
 
   * `epoch_scan_mode` picked as the JAX trainer picks it on one process:
     `auto` gives `replicated`, or `segments` past epoch_scan_max_bytes;
-    epoch_scan off or `profile` gives `stream`; an unknown mode raises
-    ValueError and `sharded` (the multi-device slice) NotImplementedError;
+    epoch_scan off or `profile` gives `stream`; `sharded` runs on one
+    process too (one block); an unknown mode raises ValueError (the
+    choice on more than one rank: tests/test_torch_multiprocess.py);
   * the three modes run the same batch stream and give bit-equal per-step
     losses and final parameters, dropout on, with one-step segments and
     with segments that leave a tail (the CPU runs the same code, one
     thread, no overlap);
-  * port `segments` and `stream` against the JAX trainer's `segments` and
-    `stream` on a one-device mesh, dropout 0, two epochs from the same
+  * port `segments`, `stream` and `sharded` against the JAX trainer's
+    same mode on a one-device mesh, dropout 0, two epochs from the same
     weights: losses rtol 1e-4, parameters atol 1e-4 (float32 sums in
     another order, as tests/test_torch_train.py holds `replicated`);
   * `train --profile` writes a Chrome trace, and tools/run_big_corpus.py
@@ -110,8 +111,9 @@ def _fit(cfg, ds, epochs, weights=None, calls=None, monkeypatch=None,
     (dict(epoch_scan_mode="segments", profile=True), "stream"),
     (dict(epoch_scan_mode="segments"), "segments"),
     (dict(epoch_scan_mode="stream"), "stream"),
+    (dict(epoch_scan_mode="sharded"), "sharded"),
 ], ids=["auto", "auto-past-budget", "epoch-scan-off", "profile",
-        "segments", "stream"])
+        "segments", "stream", "sharded"])
 def test_mode_selection(corpus, tmp_path, kw, mode):
     cfg = port_test_config(out_dir=str(tmp_path))
     ds = _dataset(corpus, cfg)
@@ -122,8 +124,7 @@ def test_mode_selection(corpus, tmp_path, kw, mode):
     assert hist["steps_per_epoch"] == [1] and np.isfinite(hist["loss"]).all()
 
 
-@pytest.mark.parametrize("mode, error", [
-    ("nope", ValueError), ("sharded", NotImplementedError)])
+@pytest.mark.parametrize("mode, error", [("nope", ValueError)])
 def test_unknown_and_sharded_modes_raise(corpus, tmp_path, mode, error):
     cfg = port_test_config(out_dir=str(tmp_path))
     with pytest.raises(error, match="epoch_scan_mode"):
@@ -163,18 +164,21 @@ def test_modes_agree_bit_for_bit(corpus, tmp_path, monkeypatch,
             assert torch.equal(state[k], v), (mode, k)
 
 
-@pytest.mark.parametrize("mode", ["segments", "stream"])
+@pytest.mark.parametrize("mode", ["segments", "stream", "sharded"])
 def test_port_mode_tracks_jax(corpus, tmp_path, mode):
     """Two dropout-0 epochs of the JAX trainer (XLA path, one-device mesh)
     and of the port in the same mode, from the same weights; segments of
     5 steps (no tail: the JAX trainer would compile its per-step
     executable for it, and the port's tail is held bit for bit to its
-    replicated epochs above)."""
+    replicated epochs above); `sharded` on one device is one block, whose
+    block permutation is the replicated stream."""
     jcfg = jax_test_config(out_dir=str(tmp_path / "jax"), **NO_DROPOUT)
     jds = jax_load_all(_styles(jcfg, corpus), jcfg.seq_len, jcfg)
     budget = 2 * 5 * _batch_bytes(jds, jcfg.batch_size)
-    kw = (dict(epoch_scan_mode="segments", epoch_scan_max_bytes=budget)
-          if mode == "segments" else dict(epoch_scan=False))
+    kw = {"segments": dict(epoch_scan_mode="segments",
+                           epoch_scan_max_bytes=budget),
+          "stream": dict(epoch_scan=False),
+          "sharded": dict(epoch_scan_mode="sharded")}[mode]
     jtrainer = JaxTrainer(
         JaxDeepJ(jcfg),
         JaxTrainConfig(seed=0, checkpoint=False, tensorboard=False, **kw),
