@@ -135,6 +135,22 @@ Phases (any failure exits non-zero, before the result line):
      (a step with one rank alone and with two sharing the card, the
      all-reduce's ms) on a line of their own; with two cards or more the
      training and generation again over NCCL, one rank a card;
+  3n. the linear time axis (time_axis_kind="linear") at default_config()
+     on the r4 weights rebuilt by tools/common.py::linear_params: phase
+     3d's dropout-0 step (float32 kernels against the plain path, bfloat16
+     kernels held to 3d's bars on fresh weights, both gate flavors, and
+     read on the rebuilt weights), Trainer.fit for 1 epoch of the 3c
+     corpus with kernels 6 and 7 once a step and no other kernel or plain
+     version, the checkpoint reloaded; Sampler.generate at G = 3 and 64
+     with kernel 1 once a timestep, streams 0-2 event-identical to
+     artifacts/linear_time_r19 (bytes reported); a linear-kind /generate
+     equal to its solo run; tools/run_parallel_scan_study.py's three
+     routes at B = 16 (host ms, device ms, busy share);
+  3o. the host tools: the native MIDI decoder built on this machine,
+     bit for bit the Python codec on every committed .mid (ms a file for
+     both), `python -m music_generator_tpu_torch.midi` round-tripping a
+     phase-3 file, and tools/analyze_divergence.py on the card naming the
+     flipped cell of a phase-3 file's copy;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -153,7 +169,8 @@ Phases (any failure exits non-zero, before the result line):
      of its bytes and its row loop's instructions, counted from the SASS,
      at the card's issue rate; the loop must hold no division).
 The line before the last holds the per-kernel JSON (kernel 1 with the
-note depths it ran), the one before it phase 3m's readings; the last
+note depths it ran; kernels 1, 6 and 7 with phase 3n's launches under
+"linear_time"), the one before it phase 3m's readings; the last
 line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -184,10 +201,9 @@ from torch.profiler import ProfilerActivity, profile
 from music_generator_tpu_torch.tools.common import (F32_ATOL, F32_GRAD_REL,
                                                     CheckFailed, card_line,
                                                     cuda_ms, leaf_stats)
-from music_generator_tpu_torch.tools.validate_biax import (PARITY_BAR,
-                                                           STEP_ATOL,
-                                                           step_bars,
-                                                           step_readings)
+from music_generator_tpu_torch.tools.validate_biax import (
+    PARITY_BAR, STEP_ATOL, bf16_against_plain, step_bars, step_readings,
+    steps)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAMS = os.path.join(ROOT, "artifacts", "trained_model_r4", "params.npz")
@@ -292,6 +308,24 @@ def log(*args) -> None:
 def fail(msg: str) -> None:
     log("FAIL:", msg)
     sys.exit(1)
+
+
+def _notegen_counts():
+    """The pitch loop's counts: (note_sample launches, of them streamed,
+    note_sample_streamed launches, plain version calls)."""
+    from music_generator_tpu_torch.ops import notegen
+    return (notegen.note_sample.launches,
+            notegen.note_sample.streamed_launches,
+            notegen.note_sample_streamed.launches,
+            notegen.note_sample_reference.calls)
+
+
+def _reset_notegen_counts():
+    from music_generator_tpu_torch.ops import notegen
+    notegen.note_sample.launches = 0
+    notegen.note_sample.streamed_launches = 0
+    notegen.note_sample_streamed.launches = 0
+    notegen.note_sample_reference.calls = 0
 
 
 def check_sample(path: str, ref: str) -> bool:
@@ -1091,9 +1125,17 @@ def train_routes(cfg):
     return counts
 
 
-def parity_step(cfg, r4, batch):
-    """Phase 3d: the dropout-0 step, kernels against the plain stacks, held
-    to the bar on fresh weights and read on the trained r4 weights."""
+def parity_step(cfg, r4, batch, r4_name="the trained r4 weights",
+                hold_r4=False):
+    """Phase 3d (and 3n on the linear kind): the dropout-0 step, kernels
+    against the plain stacks, held to the bar on fresh weights and read on
+    `r4` (r4_name says what they are).  With hold_r4 the step on `r4` is
+    held too: the float32 kernels as on fresh weights, and the bfloat16
+    kernels against the bfloat16 plain step (bf16_against_plain: loss
+    within PARITY_BAR[0] relative, worst-leaf cosine at least
+    PARITY_BAR[1], the post-update gap's evaluation part within
+    PARITY_BAR[2]); its update part is read, as it measures the weights'
+    conditioning, not the kernels."""
     from music_generator_tpu_torch.models.deepj import build_model
     fresh = build_model(cfg, "cpu", seed=0).state_dict()
     log(f"step on fresh weights (seed 0), bar {PARITY_BAR}:")
@@ -1106,8 +1148,24 @@ def parity_step(cfg, r4, batch):
         if (b_loss > PARITY_BAR[0] or b_cos < PARITY_BAR[1]
                 or gap > PARITY_BAR[2]):
             fail(f"bfloat16 step with {act} gates misses the bar")
-    log("step on the trained r4 weights (read, no bar):")
-    step_readings(cfg, r4, batch, "sigmoid", log=log)
+    if not hold_r4:
+        log(f"step on {r4_name} (read, no bar):")
+        step_readings(cfg, r4, batch, "sigmoid", log=log)
+        return
+    log(f"step on {r4_name}, float32 held as above, bfloat16 kernels held "
+        f"to the bfloat16 plain step:")
+    runs = steps(cfg, r4, batch, "sigmoid")
+    d_loss, g_rel, p_err = step_readings(cfg, r4, batch, "sigmoid",
+                                         runs=runs, log=log)[:3]
+    if d_loss > 1e-5 or g_rel > F32_GRAD_REL or p_err > STEP_ATOL:
+        fail(f"float32 step on {r4_name}: kernels and plain stacks "
+             f"disagree")
+    loss, cos, _, evaluation, _ = bf16_against_plain(cfg, batch, "sigmoid",
+                                                     runs, log=log)
+    if (loss > PARITY_BAR[0] or cos < PARITY_BAR[1]
+            or evaluation > PARITY_BAR[2]):
+        fail(f"bfloat16 step on {r4_name}: the kernels and the bfloat16 "
+             f"plain step disagree")
 
 
 def route_parity_step(cfg, batch):
@@ -2897,15 +2955,9 @@ def note_depths(cfg, card):
     for L, bars in ((1, 2), (3, 2), (6, 1)):
         dcfg = cfg.replace(note_axis_layers=L, out_dir=gen_dir)
         styles = [compute_genre(i, dcfg) for i in range(3)]
-        notegen.note_sample.launches = 0
-        notegen.note_sample.streamed_launches = 0
-        notegen.note_sample_streamed.launches = 0
-        notegen.note_sample_reference.calls = 0
+        _reset_notegen_counts()
         res = Sampler(models[L]).generate(styles, num_bars=bars, seed=0)
-        counts = (notegen.note_sample.launches,
-                  notegen.note_sample.streamed_launches,
-                  notegen.note_sample_streamed.launches,
-                  notegen.note_sample_reference.calls)
+        counts = _notegen_counts()
         steps = bars * cfg.notes_per_bar
         kernel = notegen.notegen_plan(3, L, F, H, N).kernel
         log(f"generate depth {L}: {steps} timesteps; notegen launches "
@@ -3085,26 +3137,34 @@ def sm_clock_mhz() -> tuple:
     return cur, top
 
 
+PROFILE_WINDOWS = 3
+
+
 def device_ms(fn, name: str, reps: int = 20) -> float:
     """Mean device ms a launch of the kernel whose name holds `name`, from
     a profiled run of `reps` calls of `fn` after a warm-up call: the
     kernel's own time, without the host's time between launches.  The
     profiler may miss the first launches of a window (18 or 19 of 20 in a
-    full chip_smoke.py run), so the mean is over the launches it shows,
-    at least half of them."""
+    full chip_smoke.py run) and, rarely, a whole window (0 of 20), so the
+    mean is over the launches a window shows, at least half of them, from
+    the first of PROFILE_WINDOWS windows that shows that many."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and name in e.key]
-    count = sum(e.count for e in evs)
-    if not reps // 2 <= count <= reps:
-        fail(f"the profile shows {count} launches of {name} for {reps}")
-    return sum(e.self_device_time_total for e in evs) / count / 1e3
+    counts = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.key]
+        count = sum(e.count for e in evs)
+        counts.append(count)
+        if reps // 2 <= count <= reps:
+            return sum(e.self_device_time_total for e in evs) / count / 1e3
+        log(f"the profile shows {count} launches of {name} for {reps}")
+    fail(f"the profiles show {counts} launches of {name} for {reps} each")
 
 
 def time_masks(card):
@@ -3161,6 +3221,275 @@ def time_masks(card):
                 f"{bound / ms:.3f} of the bound, bit for bit stack_masks "
                 f"({card})")
     return out
+
+
+# Phase 3n: the linear time axis (time_axis_kind="linear") at
+# default_config() widths on the r4 weights rebuilt by
+# tools/common.py::linear_params(r4, seed=0).  Its training kernels a step
+# (the note axis's fused two-layer stack) and the JAX-CPU samples of
+# artifacts/linear_time_r19.
+LINEAR_STEP = {"lstm2_fwd": 1, "lstm2_bwd": 1}
+LINEAR_SAMPLES = os.path.join(ROOT, "artifacts", "linear_time_r19",
+                              "samples")
+
+
+def sample_margins(lc, state, n_steps: int) -> None:
+    """How strong a yardstick the committed samples are: every play and
+    replay draw behind each file of artifacts/linear_time_r19, replayed on
+    the card (tools/analyze_divergence.py::draw_margins, gen_dtype), and
+    how many sat within 1e-2, 1e-3 and 1e-4 of falling the other way.
+    Every play draw must fall as the file has it."""
+    from music_generator_tpu_torch import midi
+    from music_generator_tpu_torch.data.dataset import (clamp_midi,
+                                                        compute_genre)
+    from music_generator_tpu_torch.generation.sampler import Sampler
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.tools.analyze_divergence import (
+        draw_margins)
+    model = build_model(lc.replace(compute_dtype=lc.gen_dtype), "cuda",
+                        state=state)
+    play, replay = [], []
+    for i in range(3):
+        roll = midi.midi_decode(midi.read_midifile(os.path.join(
+            LINEAR_SAMPLES, f"linear_{i}.mid")), lc.midi_max_notes)
+        notes = clamp_midi(roll, lc)[:n_steps]
+        style = torch.as_tensor(compute_genre(i, lc)[None],
+                                dtype=torch.float32, device="cuda")
+        p, r = draw_margins(model, Sampler(model), style, notes, seed=0,
+                            stream_offset=i)
+        if ((p >= 0) != (notes[:, :, 0] > 0)).any():
+            fail(f"linear: a play draw of linear_{i}.mid replays the other "
+                 f"way")
+        play.append(np.abs(p).ravel())
+        replay.append(np.abs(r))
+    play, replay = np.concatenate(play), np.concatenate(replay)
+    log("linear: the committed samples' draws within 1e-2 / 1e-3 / 1e-4 of "
+        "flipping: play " + " / ".join(
+            str(int((play < m).sum())) for m in (1e-2, 1e-3, 1e-4))
+        + f" of {play.size} (closest {play.min():.4g}), replay "
+        + " / ".join(str(int((replay < m).sum())) for m in (1e-2, 1e-3,
+                                                             1e-4))
+        + f" of {replay.size} (closest {replay.min():.4g})")
+
+
+def linear_time(cfg, card) -> dict:
+    """Phase 3n.  (a) phase 3d's dropout-0 step on the linear kind: on
+    fresh weights (seed 0), both gate flavors, float32 kernels against
+    the float32 plain path (loss 1e-5 relative, gradients F32_GRAD_REL,
+    parameters STEP_ATOL) and bfloat16 kernels against the float32 plain
+    path held to PARITY_BAR; on linear_params(r4) read without a bar, as
+    3d reads r4 (its untrained time axis under a trained note axis is a
+    regime where bfloat16 moves the plain path as far as the kernels);
+    (b) Trainer.fit for 1 epoch of the 3c corpus (every count set to 0
+    just before and read just after): kernels 6 and 7 once a step, kernels
+    2-5 and 8-9 never, no plain version; the checkpoint reloads bit for
+    bit; (c) Sampler.generate, 2 bars, seed
+    0, at G = 3 and 64: kernel 1 once a timestep, and the note events of
+    streams 0-2 those of artifacts/linear_time_r19 (bytes reported); a
+    linear-kind /generate equal to its solo run; (d) the study tool's
+    three routes at B = 16.  Returns the launches of kernels 1, 6, 7."""
+    from music_generator_tpu_torch.data.dataset import compute_genre, load_all
+    from music_generator_tpu_torch.data.synth import random_batch
+    from music_generator_tpu_torch.generation.sampler import (Sampler,
+                                                              write_file)
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.params import params_from_numpy
+    from music_generator_tpu_torch.serving import (DeepJHTTPServer,
+                                                   GenerationService,
+                                                   make_handler)
+    from music_generator_tpu_torch.tools import run_parallel_scan_study
+    from music_generator_tpu_torch.tools.common import linear_params
+    from music_generator_tpu_torch.training.checkpoint import build_or_load
+    from music_generator_tpu_torch.training.trainer import (TrainConfig,
+                                                            Trainer)
+    started = time.perf_counter()
+    lc = cfg.replace(time_axis_kind="linear")
+    with np.load(PARAMS) as data:
+        state = params_from_numpy(
+            linear_params({k: data[k] for k in data.files}, seed=0))
+
+    # (a) the dropout-0 step, held as phase 3d holds it.
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in random_batch(lc, seed=0, rolled_targets=True))
+    log("linear: phase 3d's dropout-0 step on the linear kind")
+    parity_step(lc, state, batch, "linear_params(r4, seed=0)", hold_r4=True)
+
+    # (b) Trainer.fit, the checkpoint, exact launches.
+    styles = [[os.path.join(TRAIN_WORK, d) for d in g] for g in lc.styles]
+    ds = load_all(styles, lc.seq_len, lc)
+    fc = lc.replace(out_dir=os.path.join(TRAIN_WORK, "out_linear"))
+    trainer = Trainer(build_model(fc, "cuda"),
+                      TrainConfig(seed=0, tensorboard=False))
+    t = time.perf_counter()
+    reset_counts()
+    hist = trainer.fit(ds, epochs=1)
+    train_launches, plain = read_counts()
+    fit_s = time.perf_counter() - t
+    steps = hist["steps_per_epoch"][0]
+    log(f"linear: Trainer.fit {steps} steps, loss {hist['loss']}, "
+        f"{fit_s:.1f} s; kernel launches {train_launches}, plain version "
+        f"calls {plain}")
+    want = {k: LINEAR_STEP.get(k, 0) * steps for k in train_launches}
+    if train_launches != want or plain != 0:
+        fail(f"linear: launches {train_launches}, expected {want} and no "
+             f"plain call")
+    if not np.isfinite(hist["loss"]).all():
+        fail("linear: non-finite training loss")
+    model, loaded = build_or_load(fc, "cuda")
+    same = all(torch.equal(v, trainer.model.state_dict()[k])
+               for k, v in model.state_dict().items())
+    if not loaded or not same:
+        fail("linear: the checkpoint did not reload bit for bit")
+    log("linear: checkpoint reloaded bit for bit")
+
+    # (c) generation against the committed JAX-CPU samples.
+    model = build_model(lc, "cuda", state=state)
+    gen_dir = os.path.join(WORK, "linear")
+    gen_launches, n_bytes = 0, 0
+    for G in (3, 64):
+        styles = [compute_genre(i % 3, lc) for i in range(G)]
+        _reset_notegen_counts()
+        t = time.perf_counter()
+        res = Sampler(model).generate(styles, num_bars=2, seed=0)
+        gen_s = time.perf_counter() - t
+        counts = _notegen_counts()
+        n_steps = 2 * lc.notes_per_bar
+        log(f"linear: generate G={G}, {n_steps} timesteps in {gen_s:.2f} "
+            f"s; notegen launches {counts[0]} ({counts[1]} streamed), "
+            f"comparison launches {counts[2]}, plain calls {counts[3]}")
+        if counts != (n_steps, 0, 0, 0) or not np.isfinite(res.notes).all():
+            fail(f"linear: generate G={G}: counts {counts}, expected "
+                 f"{(n_steps, 0, 0, 0)}")
+        gen_launches += counts[0]
+        res.notes, res.styles = res.notes[:3], res.styles[:3]
+        out = write_file(f"linear_G{G}", res, lc.replace(out_dir=gen_dir))
+        for i, p in enumerate(out):
+            ref = os.path.join(LINEAR_SAMPLES, f"linear_{i}.mid")
+            same_bytes = check_sample(p, ref)
+            n_bytes += same_bytes
+            if not same_bytes:
+                log("divergence: " + json.dumps(_divergence(p, ref)))
+    log(f"linear: {n_bytes}/6 files byte-identical to "
+        f"artifacts/linear_time_r19, 6/6 event-identical")
+    sample_margins(lc, state, 2 * lc.notes_per_bar)
+    service = GenerationService(config=lc, params=state, warmup=False)
+    solo = service._encode_midi(Sampler(service.model).generate(
+        [compute_genre(2, lc)], num_bars=2, seed=7,
+        stream_indices=[0]).notes[0])
+    httpd = DeepJHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, _, body = _post(f"http://127.0.0.1:{httpd.server_port}",
+                                {"genre": 2, "bars": 2, "seed": 7})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    log(f"linear: /generate answered {status}, {len(body)} bytes, equal "
+        f"to its solo run {body == solo}")
+    if status != 200 or body != solo:
+        fail("linear: the served response differs from its solo run")
+
+    # (d) the study tool's routes at B = 16.
+    study = run_parallel_scan_study.study(batches=(16,), steps=30,
+                                          device="cuda", base=cfg, log=log)
+    for route, r in study["B16"].items():
+        if not np.isfinite(r["loss"]):
+            fail(f"linear study: {route} non-finite loss")
+    log(f"linear study ({card}): " + json.dumps(
+        {route: {k: v for k, v in r.items()
+                 if k != "device_ms_top_kernels"}
+         for route, r in study["B16"].items()}))
+    log("linear study, device ms a step by kernel, linear route: "
+        + "; ".join(f"{k[:60]} {v:.4f}" for k, v in
+                    study["B16"]["linear"]["device_ms_top_kernels"].items()))
+    log(f"phase 3n: {time.perf_counter() - started:.1f} s")
+    return {"notegen": gen_launches,
+            "lstm2_fwd": train_launches["lstm2_fwd"],
+            "lstm2_bwd": train_launches["lstm2_bwd"]}
+
+
+def _flip_first_note(path: str, out: str) -> tuple:
+    """Write to `out` the roll of `path` with its first played cell turned
+    off; return (t, midi pitch)."""
+    from music_generator_tpu_torch.midi import (midi_decode, midi_encode,
+                                                read_midifile,
+                                                write_midifile)
+    roll = midi_decode(read_midifile(path))
+    t, p = np.argwhere(roll[:, :, 0] > 0)[0]
+    roll[t, p] = 0.0
+    write_midifile(out, midi_encode(roll))
+    return int(t), int(p)
+
+
+def host_tools(card, short_paths) -> None:
+    """Phase 3o.  (a) the native MIDI decoder built on this machine
+    (midi/native.py) decoding every committed .mid under artifacts/ bit
+    for bit like the Python codec, ms a file for both; (b) `python -m
+    music_generator_tpu_torch.midi` round-tripping a phase-3 file, its
+    bytes those of the codec called in this process; (c) analyze_divergence
+    on the card, a phase-3 file against a copy with its first played cell
+    off: the report names that cell and the draw (u < p, as the file
+    played it)."""
+    import glob
+
+    from music_generator_tpu_torch.midi import (midi_decode, midi_encode,
+                                                native, read_midifile,
+                                                write_midifile)
+    from music_generator_tpu_torch.tools import analyze_divergence
+    started = time.perf_counter()
+    if not native.available():
+        fail(f"native decoder: {native.why_unavailable()}")
+    log(f"native decoder: {native.library_path()} loaded (built on this "
+        f"machine at its first use, the corpus loads of phase 3c)")
+    files = sorted(glob.glob(os.path.join(ROOT, "artifacts", "**", "*.mid"),
+                             recursive=True))
+    nat_s = py_s = 0.0
+    for f in files:
+        t = time.perf_counter()
+        nat = native.native_decode_file(f)
+        nat_s += time.perf_counter() - t
+        t = time.perf_counter()
+        py = midi_decode(read_midifile(f), 128)
+        py_s += time.perf_counter() - t
+        if nat.shape != py.shape or not np.array_equal(nat, py):
+            fail(f"native decoder: {f} decodes otherwise than the Python "
+                 f"codec")
+    log(f"native decoder: {len(files)} committed .mid files bit-identical "
+        f"to the Python codec; {nat_s * 1e3 / len(files):.4f} ms a file "
+        f"native, {py_s * 1e3 / len(files):.4f} ms in Python (warm page "
+        f"cache; {card})")
+
+    src = os.path.join(WORK, short_paths[0][0])
+    out = os.path.join(WORK, "codec_cli.mid")
+    proc = subprocess.run(
+        [sys.executable, "-m", "music_generator_tpu_torch.midi", src, out],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    buf = io.BytesIO()
+    write_midifile(buf, midi_encode(midi_decode(read_midifile(src))))
+    log(f"codec CLI: exit {proc.returncode}: "
+        f"{' | '.join(proc.stdout.splitlines())}")
+    if (proc.returncode != 0 or not os.path.isfile(out)
+            or open(out, "rb").read() != buf.getvalue()):
+        fail(f"codec CLI: {proc.stderr}")
+
+    flipped = os.path.join(WORK, "flipped.mid")
+    t0, pitch = _flip_first_note(src, flipped)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        analyze_divergence.main([src, flipped, "--params", PARAMS,
+                                 "--seed", "0", "--style", "genre:0",
+                                 "--stream-offset", "0"])
+    lines = text.getvalue().splitlines()
+    log("analyze_divergence: " + " | ".join(lines))
+    m = re.search(r"prob=([0-9.]+) uniform=([0-9.]+)", lines[-1])
+    if (len(lines) != 3 or not lines[0].startswith(
+            f"first divergence: t={t0}, midi pitch={pitch}, channel=play")
+            or m is None or not float(m.group(2)) < float(m.group(1))):
+        fail(f"analyze_divergence did not report the flipped cell (t={t0}, "
+             f"pitch {pitch})")
+    log(f"phase 3o: {time.perf_counter() - started:.1f} s")
 
 
 def main() -> None:
@@ -3248,10 +3577,7 @@ def main() -> None:
     os.makedirs(WORK, exist_ok=True)
     cwd = os.getcwd()
     os.chdir(WORK)
-    notegen.note_sample.launches = 0
-    notegen.note_sample.streamed_launches = 0
-    notegen.note_sample_streamed.launches = 0
-    notegen.note_sample_reference.calls = 0
+    _reset_notegen_counts()
     paths = {}
     try:
         for seed in (0, 1):
@@ -3336,6 +3662,12 @@ def main() -> None:
     # -- 3m. this slice's path: two ranks, gloo on one card ----------------
     mp_readings = multi_rank(cfg, card)
 
+    # -- 3n. this slice's path: the linear time axis -------------------------
+    linear_launches = linear_time(cfg, card)
+
+    # -- 3o. this slice's path: the native decoder, codec CLI, divergence ----
+    host_tools(card, paths)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
     for route in ROUTES:
@@ -3403,6 +3735,8 @@ def main() -> None:
             **({"generate_launches": gen_launches[L]}
                if L in gen_launches else {})}
             for L, t in depth_times.items()},
+        # Phase 3n's generate runs with the linear time axis.
+        "linear_time": {"launches": linear_launches["notegen"]},
     }]
     for name, replaces, source in BIAX_KERNELS:
         ms, plain = biax_times[name]
@@ -3426,6 +3760,9 @@ def main() -> None:
             "max_abs_err": lstm_errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
         })
+        if name in linear_launches:
+            # Phase 3n's Trainer.fit: the linear kind's note axis.
+            kernels[-1]["linear_time"] = {"launches": linear_launches[name]}
     mask_times = time_masks(card)
     ms, plain, bound, bound_by = mask_times[("time", "float32")]
     name, replaces, source = MASK_KERNEL

@@ -2,10 +2,10 @@
 `generation/sampler.py`).
 
 Per timestep: the time-axis step (octave conv, note features, the two
-time-axis LSTM cells over G*N rows; plain PyTorch ops), then the whole
-48-pitch loop at any note-axis depth as ONE launch of the notegen kernel
-(ops/notegen.py), then the adaptive-temperature update (ref:
-generate.py:60-71).  The recurrent state is O(1) per step and crosses
+time-axis LSTM cells, or GLRU steps, over G*N rows; plain PyTorch ops),
+then the whole 48-pitch loop at any note-axis depth as ONE launch of the
+notegen kernel (ops/notegen.py), then the adaptive-temperature update
+(ref: generate.py:60-71).  The recurrent state is O(1) per step and crosses
 chunk boundaries exactly.
 
 Sampling semantics and RNG discipline are the JAX package's: stream g's
@@ -61,7 +61,7 @@ def _velocity_grid(max_velocity: int) -> np.ndarray:
 
 
 class StepState(NamedTuple):
-    time_state: Tuple            # per-layer (h, c) of the time axis
+    time_state: Tuple            # per-layer (h, c), or (h,) when linear
     prev_note: torch.Tensor      # [G, N, 3] the notes chosen last step
     temperature: torch.Tensor    # [G] current (adaptive) temperature
     base_temp: torch.Tensor      # [G] reset value
@@ -309,8 +309,8 @@ class Sampler:
             return x
         if isinstance(x, StepState):
             return StepState(
-                tuple((self._local(h), self._local(c))
-                      for h, c in x.time_state),
+                tuple(tuple(self._local(t) for t in layer)
+                      for layer in x.time_state),
                 *(self._local(t) for t in x[1:]))
         n = x.shape[0] // world
         return x[mesh.rank() * n:(mesh.rank() + 1) * n]

@@ -1,6 +1,7 @@
 """MIDI ⇄ piano-roll codec (the PyTorch port's own copy of the JAX
-package's codec, without the native C++ decoder: decoding always takes the
-Python path).
+package's codec).  `load_midi` decodes with the native C++ decoder
+(midi/native.py) where it builds, as the JAX package's does, else here in
+Python; the two give the same rolls bit for bit.
 
 The roll is a float array [T, classes, 3] with channels (play, replay, volume)
 on a 16th-note grid — behavior-identical to the reference codec
@@ -323,8 +324,14 @@ def load_midi(fname: str, config: Optional[Config] = None) -> np.ndarray:
             raise OSError("stale cache")
         note_seq = np.load(cache_path)
     except Exception:
-        pattern = read_midifile(fname)
-        note_seq = midi_decode(pattern, cfg.midi_max_notes, config=cfg)
+        # The native C++ decoder where it builds (midi/native.py; bit for
+        # bit the Python codec's rolls), else the Python codec.
+        from music_generator_tpu_torch.midi import native
+        if native.available():
+            note_seq = native.native_decode_file(fname, cfg.notes_per_beat)
+        else:
+            pattern = read_midifile(fname)
+            note_seq = midi_decode(pattern, cfg.midi_max_notes, config=cfg)
         try:
             os.makedirs(os.path.dirname(cache_path), exist_ok=True)
             np.save(cache_path, note_seq)

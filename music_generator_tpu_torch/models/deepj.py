@@ -19,9 +19,11 @@ config's compute dtype, and `loss` / `primary_loss`.  `forward` routes as
 the JAX package's does with lstm_kernel="pallas": both axes as the biaxial
 stacks of ops/biax.py (`_forward_biax_v3`), or per axis the fused
 two-layer stack of ops/lstm2.py, or one ops/lstm.py `lstm_scan` per layer
-(any depth).  Dropout draws come from an explicit `torch.Generator`;
-without one (or with train=False) there is no dropout, like Keras
-`predict`.
+(any depth).  With `time_axis_kind="linear"` the time axis is one
+ops/linear_scan.py `glru_scan` per layer and the biaxial stacks are off,
+as in the JAX package.  Dropout draws come from an explicit
+`torch.Generator`; without one (or with train=False) there is no dropout,
+like Keras `predict`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from music_generator_tpu_torch.device import DeviceLike, resolve_device
 from music_generator_tpu_torch.ops import notegen
 from music_generator_tpu_torch.ops.biax import (biax_note_stack,
                                                 biax_time_stack)
+from music_generator_tpu_torch.ops.linear_scan import (GLRUParams, glru_scan,
+                                                       glru_step)
 from music_generator_tpu_torch.ops.lstm import (check_recurrent_activation,
                                                 lstm_scan, lstm_step)
 from music_generator_tpu_torch.ops.lstm2 import lstm2_stack
@@ -106,10 +110,16 @@ class LSTMParams(nn.Module):
 
 
 class AxisLayer(nn.Module):
-    def __init__(self, style_units: int, input_dim: int, hidden: int):
+    """A style projection and a recurrent unit: an LSTM, or on the time
+    axis of `time_axis_kind="linear"` a GLRUParams (ops/linear_scan.py),
+    held under the same `lstm` name as the JAX package holds it."""
+
+    def __init__(self, style_units: int, input_dim: int, hidden: int,
+                 kind: str = "lstm"):
         super().__init__()
         self.style_proj = Dense(style_units, input_dim)
-        self.lstm = LSTMParams(input_dim, hidden)
+        self.lstm = (GLRUParams(input_dim, hidden) if kind == "linear"
+                     else LSTMParams(input_dim, hidden))
 
 
 class DeepJ(nn.Module):
@@ -118,16 +128,18 @@ class DeepJ(nn.Module):
     def __init__(self, cfg: Config, device: DeviceLike = None):
         super().__init__()
         check_recurrent_activation(cfg.lstm_recurrent_activation)
-        if cfg.time_axis_kind != "lstm":
-            raise NotImplementedError(
-                f"time_axis_kind={cfg.time_axis_kind!r} is not ported yet")
+        if cfg.time_axis_kind not in ("lstm", "linear"):
+            raise ValueError(
+                f"unknown time_axis_kind={cfg.time_axis_kind!r}; expected "
+                f"'lstm' or 'linear'")
         self.cfg = cfg
         f = feature_dim(cfg)
         self.style_embed = Dense(cfg.num_styles, cfg.style_units)
         self.conv = Conv1D(2 * cfg.octave, cfg.note_units, cfg.octave_units)
         dims = [f] + [cfg.time_axis_units] * cfg.time_axis_layers
         self.time_axis = nn.ModuleList(
-            AxisLayer(cfg.style_units, dims[i], cfg.time_axis_units)
+            AxisLayer(cfg.style_units, dims[i], cfg.time_axis_units,
+                      cfg.time_axis_kind)
             for i in range(cfg.time_axis_layers))
         dims = ([cfg.time_axis_units + cfg.note_units]
                 + [cfg.note_axis_units] * cfg.note_axis_layers)
@@ -146,7 +158,8 @@ class DeepJ(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Fresh Keras-default weights drawn from a seeded CPU generator:
         glorot-uniform kernels, orthogonal recurrent matrices, zero biases
-        with a unit forget-gate bias.  The same distributions as the JAX
+        with a unit forget-gate bias on the LSTMs (a GLRU layer: glorot
+        kernel, zero bias).  The same distributions as the JAX
         package's `init_params`, NOT its bits (jax.random keys and
         torch.Generator streams differ)."""
         def glorot(p: torch.Tensor, fan_in: int, fan_out: int) -> None:
@@ -168,8 +181,9 @@ class DeepJ(nn.Module):
             else:
                 p.zero_()
         for layer in list(self.time_axis) + list(self.note_axis):
-            h = layer.lstm.recurrent.shape[0]
-            layer.lstm.bias[h:2 * h] = 1.0
+            if isinstance(layer.lstm, LSTMParams):
+                h = layer.lstm.recurrent.shape[0]
+                layer.lstm.bias[h:2 * h] = 1.0
 
     # -- features (ref: model.py:22-49) ------------------------------------
 
@@ -216,12 +230,13 @@ class DeepJ(nn.Module):
     # -- streaming single-step paths (generation) --------------------------
 
     def init_time_state(self, batch: int) -> Tuple:
-        """Per-layer (h, c) of the time-axis LSTMs over G·N rows."""
+        """Per-layer (h, c) of the time-axis LSTMs over G·N rows, or (h,)
+        of the linear kind's GLRU layers."""
         cfg = self.cfg
         shape = (batch * cfg.num_notes, cfg.time_axis_units)
+        n = 1 if cfg.time_axis_kind == "linear" else 2
         return tuple(
-            (torch.zeros(shape, device=self.device),
-             torch.zeros(shape, device=self.device))
+            tuple(torch.zeros(shape, device=self.device) for _ in range(n))
             for _ in range(cfg.time_axis_layers))
 
     def time_axis_step(self, note_row: torch.Tensor, beat_row: torch.Tensor,
@@ -239,12 +254,17 @@ class DeepJ(nn.Module):
         beat = beat_row[:, None]
         x = self.note_features(notes, beat, self.octave_conv(notes))[:, 0]
         new_state = []
-        for layer, (h, c) in zip(self.time_axis, state):
+        for layer, layer_state in zip(self.time_axis, state):
             proj = torch.tanh(layer.style_proj(style_emb))
             x = x + proj[:, None, :]
-            h, c = lstm_step(layer.lstm, x.reshape(G * N, x.shape[-1]), h, c,
-                             self.cfg.lstm_recurrent_activation)
-            new_state.append((h, c))
+            xin = x.reshape(G * N, x.shape[-1])
+            if isinstance(layer.lstm, LSTMParams):
+                h, c = lstm_step(layer.lstm, xin, *layer_state,
+                                 self.cfg.lstm_recurrent_activation)
+                new_state.append((h, c))
+            else:
+                h = glru_step(layer.lstm, xin, layer_state[0])
+                new_state.append((h,))
             x = h.reshape(G, N, -1)
         return x, tuple(new_state)
 
@@ -284,7 +304,11 @@ class DeepJ(nn.Module):
 
     @staticmethod
     def _two_equal(layers) -> bool:
-        return (len(layers) == 2 and layers[0].lstm.recurrent.shape
+        """Two LSTM layers of one width (a GLRU axis never is: it has no
+        recurrent matrix to fuse)."""
+        return (len(layers) == 2
+                and all(isinstance(l.lstm, LSTMParams) for l in layers)
+                and layers[0].lstm.recurrent.shape
                 == layers[1].lstm.recurrent.shape)
 
     def _use_biax_v3(self) -> bool:
@@ -353,8 +377,8 @@ class DeepJ(nn.Module):
         tanh of the style projection of `emb`, broadcast along the new
         dimension `dim` to the layer's input, then dropout.  A fused axis
         runs one lstm2_stack (mask seed `seed`, drawn when None); otherwise
-        each layer is one lstm_scan.  Every layer's output goes through
-        dropout (on a fused axis, the last)."""
+        each layer is one lstm_scan, or a GLRU layer's glru_scan.  Every
+        layer's output goes through dropout (on a fused axis, the last)."""
         cfg = self.cfg
         S, A, B, _ = x.shape
 
@@ -374,10 +398,14 @@ class DeepJ(nn.Module):
                            train)
         for layer in layers:
             x = x + style(layer, x.shape)
-            hs, _ = lstm_scan(layer.lstm, x.reshape(S, A * B, -1),
-                              compute_dtype=self._dt(),
-                              recurrent_activation=(
-                                  cfg.lstm_recurrent_activation))
+            if isinstance(layer.lstm, LSTMParams):
+                hs, _ = lstm_scan(layer.lstm, x.reshape(S, A * B, -1),
+                                  compute_dtype=self._dt(),
+                                  recurrent_activation=(
+                                      cfg.lstm_recurrent_activation))
+            else:
+                hs = glru_scan(layer.lstm, x.reshape(S, A * B, -1),
+                               compute_dtype=self._dt())
             x = dropout(hs.reshape(S, A, B, -1), cfg.dropout, generator,
                         train)
         return x

@@ -22,6 +22,7 @@ releases the lock when its holder exits, however it exits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -65,11 +66,20 @@ def build(names: Iterable[str]) -> List[Path]:
     processes started together; returns the library paths.  Raises with
     the compiler's output when a build fails."""
     names = list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock(BUILD_DIR):
         _build_locked(names)
     return [library_path(n) for n in names]
+
+
+@contextlib.contextmanager
+def build_lock(directory: Path):
+    """Hold an exclusive `fcntl` lock on `directory`/lock (created with the
+    directory), so that the processes of one machine build one at a time;
+    the kernel releases it when its holder exits, however it exits."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
 
 
 def _build_locked(names: List[str]) -> None:

@@ -1,7 +1,8 @@
 """What the verification tools share with chip_smoke.py: the float32 bars a
 kernel is held to against its plain version, worst-leaf statistics, the
 card's name and power limit, CUDA-event timing, and weights at other
-note-axis depths built from a two-layer checkpoint."""
+note-axis depths, or of the linear time axis, built from a two-layer
+checkpoint."""
 
 from __future__ import annotations
 
@@ -111,4 +112,32 @@ def depth_params(params: Mapping[str, np.ndarray], L: int,
         out[p + "lstm.kernel"] = glorot((H, 4 * H))
         out[p + "lstm.recurrent"] = glorot((H, 4 * H))
         out[p + "lstm.bias"] = bias
+    return out
+
+
+_TIME_UNIT = re.compile(r"^\.time_axis\[(\d+)\]\.lstm\.")
+
+
+def linear_params(params: Mapping[str, np.ndarray],
+                  seed: int = 0) -> Dict[str, np.ndarray]:
+    """A checkpoint's keystr-keyed leaves (a params.npz of the LSTM time
+    axis) rebuilt for `time_axis_kind="linear"`: every leaf outside the
+    time axis's LSTMs kept, and each time layer's GLRU drawn with numpy
+    from `seed` at the JAX package's leaf shapes and names:
+    `.time_axis[l].lstm.kernel` [in, 2H] glorot-uniform (its `glru_init`),
+    `.time_axis[l].lstm.bias` [2H] zero.  No trained checkpoint of the
+    linear kind exists; the same arrays go through the JAX package and
+    through params.py."""
+    out = {k: np.asarray(v, np.float32) for k, v in params.items()
+           if not _TIME_UNIT.match(k)}
+    layers = sorted({int(_TIME_UNIT.match(k).group(1)) for k in params
+                     if _TIME_UNIT.match(k)})
+    rng = np.random.default_rng(seed)
+    for l in layers:
+        p = f".time_axis[{l}].lstm."
+        d_in, h4 = params[p + "kernel"].shape
+        shape = (d_in, h4 // 2)
+        lim = math.sqrt(6.0 / (shape[0] + shape[1]))
+        out[p + "kernel"] = rng.uniform(-lim, lim, shape).astype(np.float32)
+        out[p + "bias"] = np.zeros(shape[1], np.float32)
     return out

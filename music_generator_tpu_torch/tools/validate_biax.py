@@ -212,6 +212,43 @@ def step_bars(readings, what: str, log=print) -> None:
         f"gap {gap:.3g} <= {PARITY_BAR[2]}")
 
 
+def bf16_against_plain(cfg, batch, act, runs, log=print) -> tuple:
+    """The bfloat16 kernels against the bfloat16 plain path of steps()'
+    `runs`, which parts the kernels' own error from what bfloat16 does to
+    the step where the bfloat16 plain path itself misses PARITY_BAR: (loss
+    relative difference, worst-leaf gradient cosine, the share of gradient
+    elements whose signs differ, the post-update gap's evaluation part
+    |L_k(k') - L_p(k')| and its update part |L_p(k') - L_p(p')|), logged.
+    k' and p' are the parameters after the kernels' and the plain path's
+    Nadam step, L_k and L_p the kernels' and the plain path's bfloat16
+    loss.  The first Nadam step moves each weight by about the learning
+    rate in its gradient's sign, so a gradient element whose sign differs
+    moves the update by twice that, and how far such moves shift the loss
+    depends on the weights, not on the kernels."""
+    k16, p16 = runs["fused-bf16"], runs["plain-bf16"]
+    names = list(p16[1])
+    loss = abs(k16[0] - p16[0]) / abs(p16[0])
+    _, _, cos = leaf_stats([k16[1][n] for n in names],
+                           [p16[1][n] for n in names])
+    flips = sum(int((torch.sign(k16[1][n]) != torch.sign(p16[1][n])).sum())
+                for n in names) / sum(p16[1][n].numel() for n in names)
+    c16 = cfg.replace(dropout=0.0, input_dropout=0.0,
+                      lstm_recurrent_activation=act,
+                      compute_dtype="bfloat16")
+    model = build_model(c16, batch[0].device, state=k16[2], trainable=True)
+    with plain_stacks(), torch.no_grad():
+        plain_at_k = float(model.loss(batch, generator=None,
+                                      train=False)[0])
+    evaluation, update = abs(k16[3] - plain_at_k), abs(plain_at_k - p16[3])
+    log(f"  {act} bfloat16 kernels vs bfloat16 plain: loss rel diff "
+        f"{loss:.4g}, worst-leaf gradient cosine {cos:.6f}, gradient signs "
+        f"differing {flips:.4%}; post-update gap {abs(k16[3] - p16[3]):.3g}"
+        f" = evaluation {evaluation:.3g} (both paths on the kernels' "
+        f"update) and update {update:.3g} (the two updates on the plain "
+        f"path)")
+    return loss, cos, flips, evaluation, update
+
+
 def worst_leaf(ga: Dict[str, torch.Tensor], gb: Dict[str, torch.Tensor]):
     """The JAX tool's worst leaves of ga against the reference gb: (lowest
     cosine, its leaf, highest ||a - b|| / ||b||, its leaf)."""

@@ -7,7 +7,8 @@ parameters as float32 CPU tensors under their keystr names (params.py, the
 `.npz` layout), the optimizer state, the step and the seed.  As in the
 JAX package the optimizer state and step are kept (the reference saved
 weights only), and a missing or unreadable checkpoint is reported and
-skipped, never fatal."""
+skipped, never fatal.  A checkpoint of the other `time_axis_kind` is
+refused by name before any parameter is copied (`check_kind`)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,23 @@ from music_generator_tpu_torch.utils import param_summary
 
 def model_path(cfg: Config) -> str:
     return os.path.join(cfg.out_dir, "model.pt")
+
+
+def time_axis_kind(params) -> str:
+    """The time axis's unit of keystr-named parameters: "lstm" where its
+    layers hold a recurrent matrix, else "linear" (the GLRU has none)."""
+    return ("lstm" if any(k.startswith(".time_axis[")
+                          and k.endswith(".lstm.recurrent") for k in params)
+            else "linear")
+
+
+def check_kind(params, cfg: Config) -> None:
+    """Raise unless the parameters' time-axis kind is the config's."""
+    kind = time_axis_kind(params)
+    if kind != cfg.time_axis_kind:
+        raise ValueError(
+            f"the checkpoint's time axis is time_axis_kind={kind!r}; this "
+            f"model's is {cfg.time_axis_kind!r}")
 
 
 class CheckpointStore:
@@ -51,6 +69,7 @@ class CheckpointStore:
     def restore(self, state) -> None:
         """Load the checkpoint into `state`'s model and optimizer."""
         ckpt = self.load()
+        check_kind(ckpt["params"], state.model.cfg)
         state.model.load_state_dict(params_from_numpy(
             {k: v.numpy() for k, v in ckpt["params"].items()}))
         state.optimizer.load_state_dict(ckpt["optimizer"])
@@ -75,6 +94,7 @@ def build_or_load(cfg: Config, device: DeviceLike = None, seed: int = 0,
         return model, False
     try:
         params = store.load()["params"]
+        check_kind(params, cfg)
         model.load_state_dict(params_from_numpy(
             {k: v.numpy() for k, v in params.items()}))
         print("Loaded model from file.")

@@ -38,6 +38,8 @@ import torch
 
 from music_generator_tpu_torch.config import Config
 from music_generator_tpu_torch.models.deepj import feature_dim
+from music_generator_tpu_torch.params import name_to_keystr
+from music_generator_tpu_torch.training.checkpoint import time_axis_kind
 from music_generator_tpu_torch.utils import hdf5
 
 # The reference training model's Model.layers in Keras depth order (the
@@ -100,7 +102,11 @@ def save_keras_weights(state: Mapping[str, torch.Tensor], path: str) -> None:
     (the inverse of load_keras_weights): every layer of
     REFERENCE_LAYER_TABLE a group, weightless ones with an empty
     `weight_names`, and the root attributes `layer_names`, `backend` and
-    `keras_version`."""
+    `keras_version`.  A linear time axis (no recurrent matrix) has no
+    Keras layout and is refused."""
+    if time_axis_kind([name_to_keystr(n) for n in state]) != "lstm":
+        raise ValueError("the state's time axis is time_axis_kind='linear',"
+                         " which has no Keras mapping")
     with hdf5.Writer(path) as f:
         for group_name, kind in REFERENCE_LAYER_TABLE:
             g = f.create_group(group_name)
@@ -198,7 +204,13 @@ def load_keras_weights(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
     weight names), the wrapper-scoped variant (classified by shape), the
     JAX package's pre-r3 bare-layer layout, and `save_model` files
     (everything under 'model_weights').  Raises ValueError when the file's
-    layer inventory does not match the DeepJ architecture for `cfg`."""
+    layer inventory does not match the DeepJ architecture for `cfg`, and
+    for `time_axis_kind="linear"`: Keras 2 files hold LSTM time axes, and
+    the linear kind has no Keras mapping (nor has the JAX importer)."""
+    if cfg.time_axis_kind != "lstm":
+        raise ValueError(
+            f"Keras 2 weights hold an LSTM time axis; time_axis_kind="
+            f"{cfg.time_axis_kind!r} has no Keras mapping")
     with hdf5.File(path) as f:
         root = f["model_weights"] if "model_weights" in f else f
         layer_names = _decode(root.attrs["layer_names"])

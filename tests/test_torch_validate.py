@@ -115,3 +115,24 @@ def test_step_bars(readings, ok):
     else:
         with pytest.raises(CheckFailed):
             validate_biax.step_bars(readings, "case", log=lambda *a: None)
+
+
+def test_bf16_against_plain_at_test_dims():
+    """bf16_against_plain on the linear kind at test_config() dims: on the
+    CPU the kernels are the plain stacks, so the bfloat16 step agrees with
+    itself exactly and the post-update gap splits into two zero parts."""
+    from music_generator_tpu_torch.data.synth import random_batch
+    from music_generator_tpu_torch.models.deepj import build_model
+    cfg = small_config(time_axis_kind="linear")
+    batch = tuple(torch.from_numpy(a)
+                  for a in random_batch(cfg, seed=0, rolled_targets=True))
+    state = build_model(cfg, "cpu", seed=1).state_dict()
+    runs = validate_biax.steps(cfg, state, batch, "sigmoid")
+    lines = []
+    loss, cos, flips, evaluation, update = validate_biax.bf16_against_plain(
+        cfg, batch, "sigmoid", runs, log=lines.append)
+    assert (loss, flips, evaluation, update) == (0.0, 0.0, 0.0, 0.0)
+    assert cos == pytest.approx(1.0, abs=1e-12)     # a @ a / |a|^2
+    assert lines[0].startswith("  sigmoid bfloat16 kernels vs bfloat16 "
+                               "plain: loss rel diff 0, worst-leaf "
+                               "gradient cosine 1.000000")
