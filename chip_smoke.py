@@ -39,6 +39,19 @@ Phases (any failure exits non-zero, before the result line):
      both axes' shapes and small odd widths, with the same scan routes;
      and the lstm2 mask dump (kernel 10) against its plain version, bit
      for bit;
+  2b. kernel 1's bfloat16 instances, both flavors ("scan", the JAX
+     Sampler's default arithmetic, and "fused", pallas_note_sample's at
+     compute_dtype=bfloat16), against their bfloat16 plain versions
+     (draws_agree, edge 2^-6, volumes within 2^-8 -- one bfloat16 ULP
+     below 1 -- with quantize off and 2^-6 with it on) at note depths 1,
+     2, 3 and 6 (8- and 16-block clusters), G = 3 and 64, both gate
+     flavors, quantize on and off, and at depth 2 on bfloat16 features
+     (the linear time axis's), each also against the streamed kernel bit
+     for bit; with quantize off each must be nearer its own flavor's
+     plain version than the other flavor's (mean volume gap at most a
+     quarter), so an instance wired to the other arithmetic fails; their
+     plans; ms a launch at depth 2 beside the plain version and the bound
+     with 2-byte weights at the bfloat16 rate;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -76,8 +89,8 @@ Phases (any failure exits non-zero, before the result line):
   3h. primed generation: generate_main --prime, the committed primed demos
      regenerated from their own first 8 bars (event identity required,
      byte identity reported), a self-consistency run, and check_fidelity
-     at seeds 0 and 1 (event identity required on every file); every
-     kernel must have been launched in 3g-3h;
+     at seeds 0 and 1 (event identity required on every file; its bf16
+     control printed); every kernel must have been launched in 3g-3h;
   3i. serving: the HTTP service (music_generator_tpu_torch/serving) at
      default_config() with the r4 weights, every batch bucket warmed up,
      over a real socket: /healthz, solo requests, 16 concurrent ones
@@ -151,6 +164,21 @@ Phases (any failure exits non-zero, before the result line):
      both), `python -m music_generator_tpu_torch.midi` round-tripping a
      phase-3 file, and tools/analyze_divergence.py on the card naming the
      flipped cell of a phase-3 file's copy;
+  3p. generation at gen_dtype="bfloat16" through generate_main (the r4
+     weights, 3 genres, 8 bars, seed 0), once for each flavor (the
+     default config, and fused_gen_kernel with lstm_kernel="pallas"):
+     every timestep one launch of that flavor's bfloat16 instance, no
+     plain version, no float32 instance; the notes held to the same
+     generate_main run on the CPU (the plain version, which the tests tie
+     to the JAX package): each stream's first differing draw within
+     BF16_EDGE of its probability, replayed on the CPU in the flavor's
+     arithmetic, and volumes before it within BF16_VOLUME_ATOL; the
+     files' byte and event matches against the float32 samples of phase
+     3 printed (the control: no threshold);
+  3q. tools/run_convergence.py at default_config() on a small corpus (2
+     styles, 1 file of 16 bars each, --epochs 3 --patience 1, 2-bar
+     samples): training stops, the best checkpoint is written, reloaded
+     and generated from, the samples and report.json are written;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -170,7 +198,9 @@ Phases (any failure exits non-zero, before the result line):
      at the card's issue rate; the loop must hold no division).
 The line before the last holds the per-kernel JSON (kernel 1 with the
 note depths it ran; kernels 1, 6 and 7 with phase 3n's launches under
-"linear_time"), the one before it phase 3m's readings; the last
+"linear_time"; kernel 1's bfloat16 instances as notegen_bf16_scan and
+notegen_bf16_fused with phase 3p's launches), the one before it phase
+3m's readings; the last
 line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.
@@ -299,6 +329,12 @@ DEMOS = os.path.join(ROOT, "artifacts", "primed_demos_r4")
 
 EDGE = 1e-5          # a draw with |u - p| below this may fall either way
 VOLUME_ATOL = 1e-5   # float32 sums in another order: ULP-scale drift
+# The pitch loop's bfloat16 instances: a float32 sum taken in another order
+# can round a product, h or a head to the other bfloat16 neighbour.
+BF16_EDGE = 2.0 ** -6
+BF16_VOLUME_ATOL = 2.0 ** -6
+# With quantize off, one bfloat16 ULP at the top of the volume's [0, 1].
+BF16_VOLUME_ULP = 2.0 ** -8
 
 
 def log(*args) -> None:
@@ -324,6 +360,7 @@ def _reset_notegen_counts():
     from music_generator_tpu_torch.ops import notegen
     notegen.note_sample.launches = 0
     notegen.note_sample.streamed_launches = 0
+    notegen.note_sample.bf16_launches = {"scan": 0, "fused": 0}
     notegen.note_sample_streamed.launches = 0
     notegen.note_sample_reference.calls = 0
 
@@ -357,21 +394,28 @@ def notegen_inputs(model, G: int, T: float, seed: int):
     return [t.cuda() for t in (feats, us, temp, emb)]
 
 
-def notegen_bound_ms(G: int, N: int, F: int, H: int, L: int = 2):
+def notegen_bound_ms(G: int, N: int, F: int, H: int, L: int = 2,
+                     esize: int = 4):
     """Least time for one pitch loop at note depth L, and what sets it:
     every input read once and the output written once at HBM rate, or its
-    multiply-adds at the float32 peak.  Returns (ms, "bytes" or
-    "operations")."""
+    multiply-adds at the card's peak for their inputs' type (float32, or
+    bfloat16 with float32 sums for the bfloat16 instances).  `esize`: the
+    bytes of a weight and a feature (4 float32, 2 bfloat16; the bfloat16
+    scan flavor's style table [G, L, H] is float32).  Returns (ms,
+    "bytes" or "operations")."""
     H4 = 4 * H
     R = 2 * L - 1                                 # U_0, and W_l, U_l
-    floats = (G * N * F + G * N * 2 + G          # feats, uniforms, T
+    narrow = (G * N * F                           # feats
               + F * H4 + 3 * H4 + R * H * H4      # W0f, W0c, U, W
+              + 3 * H)                            # heads' kernels
+    floats = (G * N * 2 + G                       # uniforms, T
               + L * G * H4                        # a_l
-              + 3 * H + 3                         # heads
+              + 3                                 # heads' biases
+              + (G * L * H if esize == 2 else 0)  # style table
               + G * N * 3)                        # output
     flops = 2 * G * N * (F * H4 + 3 * H4 + R * H * H4 + 3 * H)
-    t_bytes = 4 * floats / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_bytes = (esize * narrow + 4 * floats) / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOP_PER_S if esize == 2 else F32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1824,7 +1868,8 @@ def primed_generation(cfg):
     regenerate from their own first 8 bars (events required, bytes
     reported); priming with a run's own first K steps (K not bar-aligned)
     continues it bit for bit; check_fidelity at seeds 0 and 1 certifies
-    the card's files against the CPU (events required on every file)."""
+    the card's files against the CPU (events required on every file; its
+    bf16 control is printed, with no threshold)."""
     from music_generator_tpu_torch.cli import generate_main
     from music_generator_tpu_torch.data.dataset import (compute_genre,
                                                         decode_prime)
@@ -1895,6 +1940,11 @@ def primed_generation(cfg):
         if not r["event_identical"]:
             fail(f"check_fidelity {key}: notes differ in "
                  f"{r['event_mismatches']}")
+    r = report["bf16_vs_cpu"]
+    log(f"check_fidelity bf16_vs_cpu (the control, no threshold): "
+        f"{r['files'] - len(r['mismatches'])}/{r['files']} byte-identical, "
+        f"{r['files'] - len(r['event_mismatches'])}/{r['files']} "
+        f"event-identical")
     return report
 
 
@@ -3000,6 +3050,143 @@ def note_depths(cfg, card):
     return times, launches, max_err
 
 
+def flavor_gaps(got, own, other):
+    """The mean |volume| gap of the kernel's notes `got` [G, N, 3] from
+    its own flavor's plain version and from the other flavor's, over the
+    played pitches before each stream's first pitch where any two of the
+    three draw differently.  Returns (own gap, other gap, pitches)."""
+    got, own, other = (t.float().cpu() for t in (got, own, other))
+    same = ((got[..., :2] == own[..., :2]).all(-1)
+            & (got[..., :2] == other[..., :2]).all(-1))
+    keep = same.int().cumprod(dim=1).bool() & (got[..., 0] > 0)
+    v = got[..., 2][keep]
+    if not v.numel():
+        return 0.0, 0.0, 0
+    return (float((v - own[..., 2][keep]).abs().mean()),
+            float((v - other[..., 2][keep]).abs().mean()), v.numel())
+
+
+def check_notegen_bf16(cfg, card):
+    """Phase 2b: kernel 1's bfloat16 instances against their plain
+    versions (ops/notegen.py: `note_sample_reference` at bfloat16 in the
+    flavor's arithmetic) at depths 1, 2, 3 and 6 on the r4 weights
+    (tools/common.py::depth_params), G = 3 and 64, both gate flavors,
+    quantize on and off, at depth 2 also on bfloat16 features (the
+    linear time axis's, which the scan flavor's chosen note is rounded
+    to), and bit for bit against the streamed kernel.  With quantize off
+    the volumes are held to one bfloat16 ULP (BF16_VOLUME_ULP) and the
+    kernel must lie nearer its own flavor's plain version than the other
+    flavor's (`flavor_gaps`: its mean gap at most a quarter of the
+    other's).  Then each flavor's ms a launch at depth 2 beside its plain
+    version and its bound.  Returns {flavor: (max |dv|, {G: (ms, plain
+    ms, bound ms, bound_by)})}."""
+    from music_generator_tpu_torch.generation.sampler import _velocity_grid
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.ops import notegen
+    from music_generator_tpu_torch.params import params_from_numpy
+    from music_generator_tpu_torch.tools.common import depth_params
+    bf16 = torch.bfloat16
+    with np.load(PARAMS) as data:
+        r4 = {k: data[k] for k in data.files}
+    F, H, N = cfg.time_axis_units, cfg.note_axis_units, cfg.num_notes
+    vgrid = torch.from_numpy(_velocity_grid(cfg.max_velocity)).cuda()
+    out = {"scan": [0.0, {}], "fused": [0.0, {}]}
+    cases = 0
+    for L in (2, 1, 3, 6):
+        model = build_model(cfg.replace(note_axis_layers=L), "cuda",
+                            state=params_from_numpy(depth_params(r4, L)))
+        heads = (model.note_dense, model.volume_dense)
+        weights = notegen.note_weights(model.note_axis, *heads, F)
+        for G in (3, 64):
+            plan = notegen.notegen_plan(G, L, F, H, N, 2)
+            note = ""
+            if plan.kernel == "cluster":
+                active = notegen.active_clusters(G, L, F, H, N, 2)
+                note = (f"; {active} clusters resident at once: "
+                        f"{-(-plan.clusters // max(active, 1))} wave(s)")
+            log(f"notegen bf16 depth {L} G={G}: plan {plan.kernel} kernel, "
+                f"C={plan.C}, Gc={plan.Gc}, {plan.clusters} "
+                f"{'clusters' if plan.C else 'blocks'}, {plan.smem} bytes "
+                f"a block{note}")
+            kinds = [("sigmoid", None, 1.0, torch.float32),
+                     ("hard_sigmoid", vgrid, 0.9, torch.float32)]
+            if L == 2:
+                kinds.append(("sigmoid", None, 1.1, bf16))
+            for flavor in ("scan", "fused"):
+                other = "fused" if flavor == "scan" else "scan"
+                for i, (act, grid, T, fdt) in enumerate(kinds):
+                    cases += 1
+                    feats, us, temp, emb = notegen_inputs(
+                        model, G, T, 3000 + 100 * L + 2 * G + i)
+                    feats = feats.to(fdt)
+                    args = (feats, us, temp, model.note_axis, *heads,
+                            emb.to(bf16), act, grid, bf16, flavor)
+                    got = notegen.note_sample(*args, weights)
+                    if not torch.equal(got, notegen.note_sample_streamed(
+                            *args, weights)):
+                        fail(f"notegen bf16 {flavor} depth {L} G={G} {act}: "
+                             f"the cluster kernel differs from the streamed "
+                             f"kernel")
+                    want = notegen.note_sample_reference(*args)
+                    probs = notegen.tempered_probs(
+                        feats, got, temp, model.note_axis, *heads,
+                        emb.to(bf16), act, bf16, flavor)
+                    tol = BF16_VOLUME_ULP if grid is None else BF16_VOLUME_ATOL
+                    ok, err, report = notegen.draws_agree(
+                        got, want, us, probs, BF16_EDGE, tol)
+                    out[flavor][0] = max(out[flavor][0], err)
+                    what = (f"notegen bf16 {flavor} depth {L} G={G} {act} "
+                            f"quantize={grid is not None} features "
+                            f"{str(fdt)[6:]}")
+                    log(f"{what}: max|dv|={err:.3g} (atol {tol}), {report}")
+                    if not ok or not torch.isfinite(got).all():
+                        fail(f"{what} disagrees with its plain version: "
+                             f"{report}")
+                    if grid is not None:
+                        continue
+                    # The other flavor's arithmetic on the same inputs:
+                    # its probabilities along the kernel's trajectory
+                    # differ, and the kernel's volumes lie nearer its own.
+                    want_o = notegen.note_sample_reference(
+                        *args[:-1], other)
+                    probs_o = notegen.tempered_probs(
+                        feats, got, temp, model.note_axis, *heads,
+                        emb.to(bf16), act, bf16, other)
+                    dp = float((probs - probs_o).abs().max())
+                    own, oth, n = flavor_gaps(got, want, want_o)
+                    log(f"{what}: mean |dv| over {n} played pitches "
+                        f"{own:.3g} from its own flavor's plain version, "
+                        f"{oth:.3g} from the {other} flavor's; max|dp| "
+                        f"between the flavors {dp:.3g}")
+                    if not (n and dp > 0 and 4 * own < oth):
+                        fail(f"{what}: the kernel is not told apart from "
+                             f"the {other} flavor (mean |dv| {own:.3g} "
+                             f"against {oth:.3g} over {n} pitches, "
+                             f"max|dp| {dp:.3g})")
+            if L != 2:
+                continue
+            feats, us, temp, emb = notegen_inputs(model, G, 1.0, 100 + G)
+            for flavor in ("scan", "fused"):
+                args = (feats, us, temp, model.note_axis, *heads,
+                        emb.to(bf16), "sigmoid", None, bf16, flavor)
+                ops = notegen._kernel_operands(*args[:7], None, bf16,
+                                               flavor, weights)
+                ms = cuda_ms(lambda: notegen._launch(ops, False), 50)
+                plain = cuda_ms(lambda: notegen.note_sample_reference(*args),
+                                5)
+                bound, bound_by = notegen_bound_ms(G, N, F, H, 2, 2)
+                out[flavor][1][G] = (ms, plain, bound, bound_by)
+                log(f"notegen bf16 {flavor} depth 2 G={G}: {ms:.4f} "
+                    f"ms/launch, plain version {plain:.4f} ms, bound "
+                    f"{bound:.6f} ms by {bound_by} ({card})")
+    log(f"notegen bf16: {cases} cases of both flavors agree with their "
+        f"plain versions (|u-p| edge {BF16_EDGE}, volume atol "
+        f"{BF16_VOLUME_ULP} with quantize off, {BF16_VOLUME_ATOL} on), "
+        f"each unquantized case nearer its own flavor than the other, and "
+        f"the cluster kernel equals the streamed kernel bit for bit")
+    return out
+
+
 def check_notegen_plans(cfg):
     """Print the cluster pitch-loop kernel's plan at G = 1, 3, 8, 64 and
     256 beside the clusters the card holds at once
@@ -3492,6 +3679,177 @@ def host_tools(card, short_paths) -> None:
     log(f"phase 3o: {time.perf_counter() - started:.1f} s")
 
 
+def first_draw_gap(model, sampler, style, notes, g: int, t: int,
+                   n: int, k: int, flavor: str) -> float:
+    """|u - p| of draw (t, n, channel k) of stream g behind the roll
+    `notes` [T, N, 3] (seed 0): the time axis teacher-forced through the
+    roll's steps 0..t-1 as the Sampler runs a prime, then step t's
+    tempered probabilities along the roll in the flavor's arithmetic
+    (notegen.tempered_probs)."""
+    from music_generator_tpu_torch.ops import notegen
+    dev = model.device
+    style_emb = model.style_embedding(torch.as_tensor(style[None],
+                                                      device=dev))
+    state = sampler._init_state(1, 0, sampler.default_temp, g)
+    state = sampler._advance_through_prime(style_emb, state,
+                                           notes[None, :t])
+    feats, _ = model.time_axis_step(state.prev_note,
+                                    sampler._beat_row(t, 1), style_emb,
+                                    state.time_state)
+    us = sampler._chunk_uniforms(state.stream_keys, t, 1)[0]
+    probs = notegen.tempered_probs(
+        feats, torch.as_tensor(notes[t][None], device=dev),
+        state.temperature, model.note_axis, model.note_dense,
+        model.volume_dense, style_emb, model.cfg.lstm_recurrent_activation,
+        torch.bfloat16, flavor)
+    return abs(float(us[0, n, k] - probs[0, n, k]))
+
+
+def bf16_generation(cfg) -> dict:
+    """Phase 3p: generate_main at gen_dtype="bfloat16" for each flavor
+    (every count set to 0 just before and read just after): the r4
+    weights, 3 genres, 8 bars, seed 0.  Every timestep must launch that
+    flavor's bfloat16 instance once.  The notes are held to the same
+    generate_main run on the CPU (the plain version): up to each stream's
+    first differing draw the volumes agree within BF16_VOLUME_ATOL, and
+    that draw's |u - p|, replayed on the CPU in the flavor's arithmetic
+    (`first_draw_gap`), lies below BF16_EDGE.  The files' byte and event
+    matches against phase 3's float32 samples (artifacts/short_samples_r4)
+    are printed, the control, with no threshold.  Returns {flavor:
+    launches}."""
+    from music_generator_tpu_torch import cli
+    from music_generator_tpu_torch.generation.sampler import Sampler
+    from music_generator_tpu_torch.midi import midi_decode, read_midifile
+    from music_generator_tpu_torch.models.deepj import build_model
+    from music_generator_tpu_torch.ops import notegen
+    from music_generator_tpu_torch.params import load_params_npz
+    steps = 8 * cfg.notes_per_bar
+    launches = {}
+    real, real_write = cli.default_config, cli.write_file
+    results = []
+
+    def capture(name, result, c):
+        results.append(result)
+        return real_write(name, result, c)
+    cli.write_file = capture
+    cwd = os.getcwd()
+    os.chdir(WORK)
+    try:
+        for flavor, over in (("scan", {}), ("fused", dict(
+                fused_gen_kernel=True, lstm_kernel="pallas"))):
+            bcfg = real().replace(gen_dtype="bfloat16", **over)
+            cli.default_config = lambda: bcfg
+            argv = ["--params", PARAMS, "--bars", "8", "--seed", "0"]
+            results.clear()
+            _reset_notegen_counts()
+            paths = cli.generate_main(argv + ["--out", f"bf16_{flavor}"])
+            counts = (notegen.note_sample.launches,
+                      dict(notegen.note_sample.bf16_launches),
+                      notegen.note_sample.streamed_launches,
+                      notegen.note_sample_streamed.launches,
+                      notegen.note_sample_reference.calls)
+            log(f"bf16 generate ({flavor}): notegen launches {counts[0]} "
+                f"for {steps} timesteps, bfloat16 instances {counts[1]}, "
+                f"streamed {counts[2]} + {counts[3]}, plain version calls "
+                f"{counts[4]}")
+            if (counts[0] != steps or counts[1][flavor] != steps
+                    or sum(counts[1].values()) != steps or counts[2]
+                    or counts[3] or counts[4]):
+                fail(f"bf16 generate ({flavor}): not every timestep ran "
+                     f"the {flavor} bfloat16 cluster kernel")
+            got = results[0]
+            t0 = time.perf_counter()
+            cli.generate_main(argv + ["--out", f"bf16_{flavor}_cpu",
+                                      "--device", "cpu"])
+            want = results[1]
+            cpu_s = time.perf_counter() - t0
+            model = build_model(bcfg, "cpu",
+                                state=load_params_npz(PARAMS))
+            sampler = Sampler(model)
+            N, verdicts = bcfg.num_notes, []
+            for g in range(got.notes.shape[0]):
+                w = want.notes[g].reshape(-1, 3)
+                o = got.notes[g].reshape(-1, 3)
+                diff = np.nonzero((w[:, :2] != o[:, :2]).any(-1))[0]
+                stop = int(diff[0]) if len(diff) else len(w)
+                dv = float(np.abs(w[:stop, 2] - o[:stop, 2]).max(
+                    initial=0.0))
+                if dv > BF16_VOLUME_ATOL:
+                    fail(f"bf16 generate ({flavor}) stream {g}: volumes "
+                         f"{dv:.3g} from the CPU run before any draw "
+                         f"differs")
+                if stop == len(w):
+                    verdicts.append(f"stream {g}: all {len(w)} draws equal, "
+                                    f"max|dv| {dv:.3g}")
+                    continue
+                t, n = divmod(stop, N)
+                k = 0 if w[stop, 0] != o[stop, 0] else 1
+                with torch.no_grad():
+                    gap = first_draw_gap(model, sampler, want.styles[g],
+                                         want.notes[g], g, t, n, k, flavor)
+                verdicts.append(f"stream {g}: first differing draw t={t} "
+                                f"pitch {n} channel {k} |u-p| {gap:.3g}, "
+                                f"max|dv| before it {dv:.3g}")
+                if not gap < BF16_EDGE:
+                    fail(f"bf16 generate ({flavor}) stream {g}: draw t={t} "
+                         f"pitch {n} channel {k} differs from the CPU run "
+                         f"with |u - p| = {gap:.3g}")
+            log(f"bf16 generate ({flavor}) against the CPU run ({cpu_s:.1f} "
+                f"s there): " + "; ".join(verdicts))
+            same_bytes = same_events = 0
+            for i, p in enumerate(paths):
+                ref = os.path.join(SHORT, f"short_s0_{i}.mid")
+                got = midi_decode(read_midifile(p))
+                want = midi_decode(read_midifile(ref))
+                same_bytes += open(p, "rb").read() == open(ref, "rb").read()
+                same_events += (got.shape == want.shape and bool(
+                    (got[..., :2] == want[..., :2]).all()))
+                if not np.isfinite(got).all() or not got[..., 0].any():
+                    fail(f"bf16 generate ({flavor}): {p} holds no notes")
+            log(f"bf16 generate ({flavor}) against the float32 samples "
+                f"(the control, no threshold): {same_bytes}/{len(paths)} "
+                f"byte-identical, {same_events}/{len(paths)} "
+                f"event-identical")
+            launches[flavor] = counts[1][flavor]
+    finally:
+        cli.default_config = real
+        cli.write_file = real_write
+        os.chdir(cwd)
+    return launches
+
+
+def convergence(card) -> None:
+    """Phase 3q: tools/run_convergence.py at default_config() on a small
+    corpus: it must stop training within --epochs 3 (--patience 1), write
+    and reload the best checkpoint, generate and write one sample a
+    style, and write report.json with the card's line."""
+    from music_generator_tpu_torch.tools import run_convergence
+    run_dir = os.path.join(WORK, "convergence")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t = time.perf_counter()
+    report = run_convergence.main([
+        "--run-dir", run_dir, "--styles", "0", "1", "--files-per-style",
+        "1", "--bars", "16", "--epochs", "3", "--patience", "1",
+        "--sample-bars", "2"])
+    secs = time.perf_counter() - t
+    losses = report["loss_curve"]
+    samples = [os.path.join(run_dir, r["sample"]) for r in report["fidelity"]]
+    log(f"run_convergence: {report['windows']} windows, "
+        f"{report['epochs_run']} epochs, loss {losses[0]:.4f} -> "
+        f"{report['best_loss']:.4f}, {len(samples)} samples, own overlap "
+        f"{[round(r['own_overlap'], 3) for r in report['fidelity']]}, "
+        f"{secs:.1f} s ({card})")
+    if not (1 <= report["epochs_run"] <= 3 and len(losses)
+            == report["epochs_run"] and np.isfinite(losses).all()):
+        fail(f"run_convergence: {report['epochs_run']} epochs, {losses}")
+    if not os.path.isfile(os.path.join(run_dir, "out", "model.pt")):
+        fail("run_convergence wrote no checkpoint")
+    if (len(samples) != 2 or not all(map(os.path.isfile, samples))
+            or report["card"] != card
+            or not os.path.isfile(os.path.join(run_dir, "report.json"))):
+        fail("run_convergence did not write its samples and report")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a machine with a GPU")
@@ -3562,6 +3920,7 @@ def main() -> None:
         f"kernel bit for bit and agree with the plain version (|u-p| edge "
         f"{EDGE}, volume atol {VOLUME_ATOL})")
     check_notegen_plans(cfg)
+    bf16_checks = check_notegen_bf16(cfg, card)
     biax_errs = check_biax_kernels(cfg)
     for kind in ("time", "note"):
         check_fwd_staged(cfg, kind)
@@ -3594,9 +3953,10 @@ def main() -> None:
     log(f"main path: notegen launches {launches} for {steps} timesteps, "
         f"streamed kernel launches {streamed_launches}, plain version calls "
         f"{plain_calls}")
-    if launches != steps or plain_calls != 0 or streamed_launches != 0:
+    if (launches != steps or plain_calls != 0 or streamed_launches != 0
+            or sum(notegen.note_sample.bf16_launches.values())):
         fail("the main path did not run every timestep through the cluster "
-             "kernel")
+             "kernel's float32 instance")
     n_bytes = 0
     for seed, ps in paths.items():
         for i, p in enumerate(ps):
@@ -3668,6 +4028,12 @@ def main() -> None:
     # -- 3o. this slice's path: the native decoder, codec CLI, divergence ----
     host_tools(card, paths)
 
+    # -- 3p. this slice's path: generation at gen_dtype="bfloat16" -----------
+    bf16_launches = bf16_generation(cfg)
+
+    # -- 3q. this slice's path: tools/run_convergence.py ----------------------
+    convergence(card)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
     for route in ROUTES:
@@ -3738,6 +4104,21 @@ def main() -> None:
         # Phase 3n's generate runs with the linear time axis.
         "linear_time": {"launches": linear_launches["notegen"]},
     }]
+    # Kernel 1's bfloat16 instances: phase 3p's launches, phase 2b's
+    # largest volume gap, ms at depth 2 and G = 3 (G = 64 beside it).
+    for flavor in ("scan", "fused"):
+        err, t = bf16_checks[flavor]
+        ms, plain, bound, bound_by = t[3]
+        kernels.append({
+            "name": f"notegen_bf16_{flavor}", "route": "cuda",
+            "source": "music_generator_tpu_torch/csrc/notegen.cu",
+            "replaces": "music_generator_tpu/ops/pallas_notegen.py:35",
+            "launches": bf16_launches[flavor], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None,
+            "G64": {"ms": t[64][0], "plain_ms": t[64][1],
+                    "bound_ms": t[64][2], "bound_by": t[64][3]},
+        })
     for name, replaces, source in BIAX_KERNELS:
         ms, plain = biax_times[name]
         bound, bound_by = biax_bound_ms(name, cfg, cfg.seq_len, True)

@@ -11,11 +11,18 @@ the config is an explicit immutable object threaded through every API, with
 What the port reads differently:
   * On CUDA, generation always runs the hand-written pitch-loop kernel
     (ops/notegen.py, csrc/notegen.cu) for every generation batch size and
-    with or without `gen_volume_quantize`.  `fused_gen_kernel` and
-    `fused_gen_max_batch` were TPU VMEM gates; the port does not read them.
-  * Generation always runs in float32 with TF32 off for both matmuls and
-    cuDNN convolutions (device.full_f32), the counterpart of the JAX
-    package's `gen_dtype="float32"` / `gen_matmul_precision="highest"`.
+    with or without `gen_volume_quantize`.
+  * Generation follows `gen_dtype` as the JAX Sampler does on its model
+    rebuilt at compute_dtype=gen_dtype: the model's generation steps
+    read `gen_dtype`.  In float32 (the default) TF32 is off for both
+    matmuls and cuDNN convolutions (device.full_f32), the counterpart of
+    `gen_matmul_precision="highest"`.  In bfloat16 the card's matmuls
+    sum in float32 while the Sampler runs (device.bf16_f32_sums) and the
+    pitch loop runs the kernel's bfloat16 instance of one of two
+    flavors, the arithmetic of the JAX route the Sampler would take:
+    `fused_gen_kernel`, `fused_gen_max_batch` and `lstm_kernel` are read
+    only to choose that flavor (generation/sampler.py::gen_flavor; with
+    "auto" meaning "xla" off a TPU), never to skip the kernel.
   * Training runs in `compute_dtype` through hand-written kernels on
     CUDA and their plain versions on the CPU, routed as the JAX package
     routes with lstm_kernel="pallas": `fused_biax_v3` with two equal-width
@@ -23,8 +30,9 @@ What the port reads differently:
     (ops/biax.py); otherwise an axis of two equal-width layers with
     `fused_axis_kernel` runs the fused two-layer stack (ops/lstm2.py), and
     any other axis one recurrence per layer (ops/lstm.py `lstm_scan`), so
-    every depth trains.  `lstm_kernel` is not read (so `test_config()`'s
-    `lstm_kernel="xla"` trains the same way as "pallas").
+    every depth trains.  Training does not read `lstm_kernel` (so
+    `test_config()`'s `lstm_kernel="xla"` trains the same way as
+    "pallas").
     `fast_dropout_rng` is not read either: dropout draws come from a
     torch.Generator.
 """

@@ -75,8 +75,28 @@
 // resident weights overflow every cluster (6-8 at the flagship widths);
 // elsewhere it holds the cluster kernel to bit for bit and is timed
 // against it.
+//
+// Both kernels have bfloat16 instances (template parameter FL), for
+// generation at gen_dtype="bfloat16", in the two arithmetics of the JAX
+// Sampler's routes (ops/notegen.py's docstring has them and their rounding
+// points).  Features and weights are stored in bfloat16 (half the shared
+// memory a layer takes, so the plan, with 2-byte weights, keeps depths
+// 6-8 in 16-block clusters), converted to float32 where they are read;
+// every product and sum is float32, in the same fmaf chains and order as
+// the float32 instance.  FL 2, the fused flavor (pallas_note_sample at
+// compute_dtype=bfloat16): the float32 kernel with every dot's inputs
+// rounded to bfloat16 (h, the chosen note).  FL 1, the scan flavor (the
+// JAX scan of note_axis_cell): a layer's input is bf16(x + its style
+// term) (layer 0's feature part formed by the wrapper, the chosen note's
+// part and the further layers' from the style table `proj`); each
+// product's sum and the two products' sum are rounded to bfloat16 and the
+// bias added in float32 (z_scan); the heads' sums rounded, plus the
+// rounded bias, rounded; the sigmoid of the heads as three rounded steps
+// (sigmoid_bf16).  The float32 instance is unchanged: FL 0 makes each
+// rounding an identity.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,8 +105,56 @@
 
 namespace {
 
+// The instances: FL 0 the float32 kernels; FL 1 and 2 the bfloat16 ones,
+// 1 the scan flavor and 2 the fused flavor (see the comment above).  The
+// weights a kernel reads (W0f, W0c, U_l, W_l, the heads' kernels) and its
+// features are of type NgW<FL>::T; everything else is float32.
+template <int FL> struct NgW { using T = float; };
+template <> struct NgW<1> { using T = __nv_bfloat16; };
+template <> struct NgW<2> { using T = __nv_bfloat16; };
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// A dot's input: rounded to bfloat16 in both bfloat16 flavors.
+template <int FL>
+__device__ __forceinline__ float rin(float x) {
+  return FL ? bf16r(x) : x;
+}
+
+// Loads of weight and feature elements as float32.
+__device__ __forceinline__ float ldw(const float* p) { return *p; }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ldgw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldgw(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+// Two neighbouring elements (8- or 4-byte aligned).
+__device__ __forceinline__ float2 ldw2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ldw2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// Four neighbouring elements (16- or 8-byte aligned).
+__device__ __forceinline__ float4 ldw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ldw4(const __nv_bfloat16* p) {
+  const float2 a = ldw2(p), b = ldw2(p + 2);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The scan flavor's head sigmoid: 1 / (1 + exp(-s)) with each of the three
+// steps rounded to bfloat16, as XLA on the CPU expands a bfloat16 logistic.
+__device__ __forceinline__ float sigmoid_bf16(float s) {
+  return bf16r(1.f / bf16r(__fadd_rn(1.f, bf16r(expf(-s)))));
 }
 
 __device__ __forceinline__ float gate_f(float x, int hard) {
@@ -109,16 +177,31 @@ __device__ __forceinline__ float cell_f(float zi, float zf, float zg,
   return __fmul_rn(og, tanhf(cn));
 }
 
+// A head's output from its dot `sum` and bias: the scan flavor rounds the
+// dot and the biased sum to bfloat16.
+template <int FL>
+__device__ __forceinline__ float head_out(float sum, float bias) {
+  return FL == 1 ? bf16r(__fadd_rn(bf16r(sum), bias)) : __fadd_rn(sum, bias);
+}
+
+// The scan flavor's z of a layer from its input product xw (unrounded),
+// recurrent product rec and bias b: bf16(bf16(xw) + bf16(rec)) + b, the
+// last sum float32.
+__device__ __forceinline__ float z_scan(float xw, float rec, float b) {
+  return __fadd_rn(bf16r(__fadd_rn(bf16r(xw), bf16r(rec))), b);
+}
+
 // Temperature, draws and volume of one stream at one pitch from its head
 // outputs hd[0..2] and uniforms (ua, ub): res = (play, replay * play,
 // volume * play).
+template <int FL>
 __device__ __forceinline__ void draw_note(const float* hd, float T, float ua,
                                           float ub, const float* vgrid,
                                           int max_velocity, float* res) {
   float p[2];
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
-    float q = sigmoid_f(hd[o]);
+    float q = FL == 1 ? sigmoid_bf16(hd[o]) : sigmoid_f(hd[o]);
     q = fminf(fmaxf(q, 1e-7f), (float)(1.0 - 1e-7));
     const float logit = -logf(__fsub_rn(1.f / q, 1.f));
     p[o] = sigmoid_f(logit / T);
@@ -134,6 +217,15 @@ __device__ __forceinline__ void draw_note(const float* hd, float T, float ua,
   res[2] = __fmul_rn(v, play);
 }
 
+// The chosen note's input k (0..2) to layer 0 of stream g: the note itself
+// (float32), rounded (fused), or the scan flavor's bf16(c + its style
+// term), c rounded first where the features are bfloat16 (`cround`).
+template <int FL>
+__device__ __forceinline__ float chosen_in(float c, float term, int cround) {
+  if (FL != 1) return rin<FL>(c);
+  return bf16r(__fadd_rn(cround ? bf16r(c) : c, term));
+}
+
 // The four-gate nonlinearity of z (i, f, g, o) into (h, c) in place.
 __device__ __forceinline__ void lstm_gates(const float* z, float* h,
                                            float* c, int H, int hard,
@@ -144,37 +236,46 @@ __device__ __forceinline__ void lstm_gates(const float* z, float* h,
 
 constexpr int NG_LMAX = 8;  // note-axis layers, at most
 
-// The depth with a cluster-kernel instance of its own (the layer loop
-// fixed at compile time); every other depth runs the run-time loop.  A
-// build with -DNG_FIXED_DEPTH=0 runs every depth through the run-time
-// loop: tools/notegen_depth_probe.py times the two at depth 2.
+// The depth with a float32 cluster-kernel instance of its own (the layer
+// loop fixed at compile time); every other depth, and every depth of the
+// bfloat16 instances, runs the run-time loop.  A build with
+// -DNG_FIXED_DEPTH=0 runs every depth through the run-time loop:
+// tools/notegen_depth_probe.py times the two at depth 2.
 #ifndef NG_FIXED_DEPTH
 #define NG_FIXED_DEPTH 2
 #endif
 
-// The per-layer operands: a[l] [G][4H] (the folded style terms), u[l]
-// [H][4H] (the recurrent weights) and, for l >= 1, w[l] [H][4H] (the
-// input weights; w[0] is unused: layer 0's are W0f and W0c).
+// The per-layer operands: a[l] [G][4H] (the folded style terms, or the
+// scan flavor's biases), u[l] [H][4H] (the recurrent weights) and, for
+// l >= 1, w[l] [H][4H] (the input weights; w[0] is unused: layer 0's are
+// W0f and W0c).
+template <typename W>
 struct NgLayers {
   const float* a[NG_LMAX];
-  const float* u[NG_LMAX];
-  const float* w[NG_LMAX];
+  const W* u[NG_LMAX];
+  const W* w[NG_LMAX];
 };
 
+// `proj` (the scan flavor only, else null): [G][L][H] float32, row 0 the
+// style terms of the chosen note's three inputs to layer 0, row l >= 1
+// those of layer l's input.
+template <int FL>
 __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
-    const float* __restrict__ feats,     // [G, N, F]
-    const float* __restrict__ uniforms,  // [G, N, 2]
-    const float* __restrict__ temp,      // [G]
-    const float* __restrict__ w0f,       // [F, 4H]
-    const float* __restrict__ w0c,       // [3, 4H]
-    const __grid_constant__ NgLayers lw,
-    const float* __restrict__ wnd,       // [H, 2]
-    const float* __restrict__ bnd,       // [2]
-    const float* __restrict__ wvd,       // [H, 1]
-    const float* __restrict__ bvd,       // [1]
-    const float* __restrict__ vgrid,     // [max_velocity + 1], or null
-    float* __restrict__ out,             // [G, N, 3]
-    int N, int F, int H, int L, int hard, int max_velocity) {
+    const typename NgW<FL>::T* __restrict__ feats,  // [G, N, F]
+    const float* __restrict__ uniforms,             // [G, N, 2]
+    const float* __restrict__ temp,                 // [G]
+    const typename NgW<FL>::T* __restrict__ w0f,    // [F, 4H]
+    const typename NgW<FL>::T* __restrict__ w0c,    // [3, 4H]
+    const __grid_constant__ NgLayers<typename NgW<FL>::T> lw,
+    const typename NgW<FL>::T* __restrict__ wnd,    // [H, 2]
+    const float* __restrict__ bnd,                  // [2]
+    const typename NgW<FL>::T* __restrict__ wvd,    // [H, 1]
+    const float* __restrict__ bvd,                  // [1]
+    const float* __restrict__ vgrid,  // [max_velocity + 1], or null
+    const float* __restrict__ proj,   // [G, L, H], or null
+    float* __restrict__ out,          // [G, N, 3]
+    int N, int F, int H, int L, int hard, int max_velocity, int cround) {
+  using W = typename NgW<FL>::T;
   extern __shared__ float smem[];
   const int H4 = 4 * H;
   const int g = blockIdx.x;  // one block per stream
@@ -193,11 +294,12 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
   for (int i = tid; i < 2 * L * H; i += nt) smem[i] = 0.f;
   if (tid < 8) ch[tid] = 0.f;
   const float* a0 = lw.a[0] + (size_t)g * H4;
-  const float* u0 = lw.u[0];
+  const W* u0 = lw.u[0];
+  const float* pg = FL == 1 ? proj + (size_t)g * L * H : nullptr;
 
   for (int n = 0; n < N; ++n) {
-    const float* feat = feats + ((size_t)g * N + n) * F;
-    for (int k = tid; k < F; k += nt) x[k] = feat[k];
+    const W* feat = feats + ((size_t)g * N + n) * F;
+    for (int k = tid; k < F; k += nt) x[k] = ldw(feat + k);
     __syncthreads();
 
     // Layer 0: z0 = (feat W0f + chosen W0c + a0) + h0 U0.
@@ -205,14 +307,19 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
       float acc = 0.f, rec = 0.f;
 #pragma unroll 8
       for (int k = 0; k < F; ++k)
-        acc = fmaf(x[k], __ldg(w0f + (size_t)k * H4 + j), acc);
+        acc = fmaf(x[k], ldgw(w0f + (size_t)k * H4 + j), acc);
 #pragma unroll 8
       for (int k = 0; k < H; ++k)
-        rec = fmaf(smem[k], __ldg(u0 + (size_t)k * H4 + j), rec);
-      float zc = __fmul_rn(ch[0], w0c[j]);
-      zc = fmaf(ch[1], w0c[H4 + j], zc);
-      zc = fmaf(ch[2], w0c[2 * H4 + j], zc);
-      z[j] = __fadd_rn(__fadd_rn(__fadd_rn(acc, zc), a0[j]), rec);
+        rec = fmaf(rin<FL>(smem[k]), ldgw(u0 + (size_t)k * H4 + j), rec);
+      float c3[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        c3[i] = chosen_in<FL>(ch[i], FL == 1 ? pg[i] : 0.f, cround);
+      float zc = __fmul_rn(c3[0], ldw(w0c + j));
+      zc = fmaf(c3[1], ldw(w0c + H4 + j), zc);
+      zc = fmaf(c3[2], ldw(w0c + 2 * H4 + j), zc);
+      z[j] = FL == 1 ? z_scan(__fadd_rn(acc, zc), rec, a0[j])
+                     : __fadd_rn(__fadd_rn(__fadd_rn(acc, zc), a0[j]), rec);
     }
     __syncthreads();
     lstm_gates(z, smem, smem + H, H, hard, tid, nt);
@@ -222,17 +329,21 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
     for (int l = 1; l < L; ++l) {
       const float* hin = smem + 2 * (l - 1) * H;
       float* h = smem + 2 * l * H;
-      const float* w = lw.w[l];
-      const float* u = lw.u[l];
+      const W* w = lw.w[l];
+      const W* u = lw.u[l];
       const float* al = lw.a[l] + (size_t)g * H4;
+      const float* pl = FL == 1 ? pg + (size_t)l * H : nullptr;
       for (int j = tid; j < H4; j += nt) {
         float acc = 0.f, rec = 0.f;
 #pragma unroll 8
         for (int k = 0; k < H; ++k) {
-          acc = fmaf(hin[k], __ldg(w + (size_t)k * H4 + j), acc);
-          rec = fmaf(h[k], __ldg(u + (size_t)k * H4 + j), rec);
+          const float xk = FL == 1 ? bf16r(__fadd_rn(hin[k], __ldg(pl + k)))
+                                   : rin<FL>(hin[k]);
+          acc = fmaf(xk, ldgw(w + (size_t)k * H4 + j), acc);
+          rec = fmaf(rin<FL>(h[k]), ldgw(u + (size_t)k * H4 + j), rec);
         }
-        z[j] = __fadd_rn(__fadd_rn(acc, al[j]), rec);
+        z[j] = FL == 1 ? z_scan(acc, rec, al[j])
+                       : __fadd_rn(__fadd_rn(acc, al[j]), rec);
       }
       __syncthreads();
       lstm_gates(z, h, h + H, H, hard, tid, nt);
@@ -244,12 +355,13 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
     if (warp < 3) {
       float sum = 0.f;
       for (int k = lane; k < H; k += 32)
-        sum = fmaf(hl[k], warp < 2 ? wnd[k * 2 + warp] : wvd[k], sum);
+        sum = fmaf(rin<FL>(hl[k]), warp < 2 ? ldw(wnd + k * 2 + warp)
+                                            : ldw(wvd + k), sum);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (lane == 0)
-        hd[warp] = __fadd_rn(sum, warp < 2 ? bnd[warp] : bvd[0]);
+        hd[warp] = head_out<FL>(sum, warp < 2 ? bnd[warp] : bvd[0]);
     }
     __syncthreads();
 
@@ -257,7 +369,7 @@ __global__ void __launch_bounds__(1024) notegen_streamed_kernel(
     if (tid == 0) {
       const float* u = uniforms + ((size_t)g * N + n) * 2;
       float res[3];
-      draw_note(hd, temp[g], u[0], u[1], vgrid, max_velocity, res);
+      draw_note<FL>(hd, temp[g], u[0], u[1], vgrid, max_velocity, res);
       float* o = out + ((size_t)g * N + n) * 3;
       for (int i = 0; i < 3; ++i) ch[i] = o[i] = res[i];
     }
@@ -285,22 +397,34 @@ __host__ __device__ inline int ng_hbufs(int L) { return L == 1 ? 2 : L + 2; }
 __host__ __device__ inline int ng_zbufs(int L) {
   return 1 + (L - 1 < 2 ? L - 1 : 2);
 }
+// The floats that the resident weights' [KW][COLS] elements of `esize`
+// bytes take, padded to 16 bytes.
+__host__ __device__ inline long long ng_wfloats(long long KW, long long COLS,
+                                                int esize) {
+  return (KW * COLS * esize + 15) / 16 * 4;
+}
+// The floats of the prologue's two staged chunks of x [2][NG_PB][F].
+__host__ __device__ inline long long ng_xfloats(int F, int esize) {
+  return (2LL * NG_PB * F * esize + 3) / 4;
+}
 
 // Dynamic shared memory of one block, in bytes: W0f's column slice in the
 // prologue, then U_0 and the W_l, U_l of the further layers ([max((2L-1)H,
-// F)][COLS]); W0c's columns [3][COLS]; the heads' weights [3][H]; acc_F
+// F)][COLS] elements of `esize` bytes, padded to 16 bytes); in float32
+// W0c's columns [3][COLS]; the heads' weights [3][H]; acc_F
 // [N][Gp][COLS]; the h buffers [ng_hbufs(L)][H][Gp] with the z buffers
 // [ng_zbufs(L)][Gp][COLS], which in the prologue hold two staged chunks of
-// x [2][NG_PB][F] instead; chosen notes and head outputs [2][Gp][4].  Gp:
-// the streams padded to a multiple of 4.
-inline long long ng_smem_bytes(int C, int Gc, int L, int N, int F, int H) {
+// x [2][NG_PB][F] (elements of `esize` bytes) instead; chosen notes and
+// head outputs [2][Gp][4].  Gp: the streams padded to a multiple of 4.
+inline long long ng_smem_bytes(int C, int Gc, int L, int N, int F, int H,
+                               int esize) {
   const long long COLS = 4 * (H / C), Gp = ng_pad4(Gc);
   const long long KW = std::max((2LL * L - 1) * H, (long long)F);
   const long long hz =
       std::max((long long)ng_hbufs(L) * H * Gp + ng_zbufs(L) * Gp * COLS,
-               2LL * NG_PB * F);
-  return 4 * (KW * COLS + 3 * COLS + 3LL * H + (long long)N * Gp * COLS +
-              hz + 8 * Gp);
+               ng_xfloats(F, esize));
+  return 4 * (ng_wfloats(KW, COLS, esize) + 3 * COLS + 3LL * H +
+              (long long)N * Gp * COLS + hz + 8 * Gp);
 }
 
 // The work warps (one cell thread per unit and stream; one product
@@ -324,19 +448,20 @@ inline int ng_streamed_threads(int H) {
 // The cluster plan at depth L: C from {8, 4, 16} dividing H, the first for
 // which some Gc fits; Gc the most streams that fit (at most NG_GC_MAX and
 // G), then spread evenly over the ceil(G / Gc) clusters.
-inline bool ng_cluster_plan(int G, int L, int N, int F, int H, NgPlan* p) {
+inline bool ng_cluster_plan(int G, int L, int N, int F, int H, int esize,
+                            NgPlan* p) {
   for (int C : {8, 4, 16}) {
     if (H % C != 0) continue;
     int gmax = 0;
     for (int gc = 1; gc <= NG_GC_MAX && gc <= G; ++gc)
-      if (ng_smem_bytes(C, gc, L, N, F, H) <= NG_SMEM_MAX &&
+      if (ng_smem_bytes(C, gc, L, N, F, H, esize) <= NG_SMEM_MAX &&
           ng_threads(C, gc, H) <= NG_THREADS)
         gmax = gc;
     if (gmax == 0) continue;
     p->C = C;
     p->clusters = (G + gmax - 1) / gmax;
     p->Gc = (G + p->clusters - 1) / p->clusters;
-    p->smem = (int)ng_smem_bytes(C, p->Gc, L, N, F, H);
+    p->smem = (int)ng_smem_bytes(C, p->Gc, L, N, F, H, esize);
     return true;
   }
   return false;
@@ -345,25 +470,31 @@ inline bool ng_cluster_plan(int G, int L, int N, int F, int H, NgPlan* p) {
 // The plan: the cluster kernel where a cluster holds the L layers' weights;
 // else, at widths where a cluster serves one layer, the streamed kernel
 // (C = 0, G blocks).  False where nothing fits.
-inline bool ng_plan(int G, int L, int N, int F, int H, NgPlan* p) {
+inline bool ng_plan(int G, int L, int N, int F, int H, int esize,
+                    NgPlan* p) {
   if (G <= 0 || N <= 0 || F <= 0 || H <= 0 || F % 4 != 0 || L < 1 ||
       L > NG_LMAX)
     return false;
-  if (ng_cluster_plan(G, L, N, F, H, p)) return true;
+  if (ng_cluster_plan(G, L, N, F, H, esize, p)) return true;
   NgPlan one;
-  if (!ng_cluster_plan(G, 1, N, F, H, &one) ||
+  if (!ng_cluster_plan(G, 1, N, F, H, esize, &one) ||
       ng_streamed_smem(L, F, H) > NG_SMEM_MAX)
     return false;
   *p = NgPlan{0, 1, G, (int)ng_streamed_smem(L, F, H)};
   return true;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -380,17 +511,22 @@ __device__ __forceinline__ void cp_wait() {
 // the loops over streams and the h strides are fixed at compile time.
 // LC: the depth fixed at compile time (2), or 0 for a run-time loop over
 // the depth `Lrt` (the layer loop's c and a_l then live in local and
-// global memory instead of registers).
-template <int GP, int LC>
+// global memory instead of registers).  FL: the instance (see NgW).
+template <int GP, int LC, int FL>
 __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
-    const float* __restrict__ feats, const float* __restrict__ uniforms,
-    const float* __restrict__ temp, const float* __restrict__ w0f,
-    const float* __restrict__ w0c, const __grid_constant__ NgLayers lw,
-    const float* __restrict__ wnd, const float* __restrict__ bnd,
-    const float* __restrict__ wvd, const float* __restrict__ bvd,
-    const float* __restrict__ vgrid, float* __restrict__ out, int G, int N,
-    int F, int H, int Lrt, int hard, int max_velocity, NgPlan P,
+    const typename NgW<FL>::T* __restrict__ feats,
+    const float* __restrict__ uniforms, const float* __restrict__ temp,
+    const typename NgW<FL>::T* __restrict__ w0f,
+    const typename NgW<FL>::T* __restrict__ w0c,
+    const __grid_constant__ NgLayers<typename NgW<FL>::T> lw,
+    const typename NgW<FL>::T* __restrict__ wnd,
+    const float* __restrict__ bnd,
+    const typename NgW<FL>::T* __restrict__ wvd,
+    const float* __restrict__ bvd, const float* __restrict__ vgrid,
+    const float* __restrict__ proj, float* __restrict__ out, int G, int N,
+    int F, int H, int Lrt, int hard, int max_velocity, int cround, NgPlan P,
     unsigned long long* prof) {
+  using W = typename NgW<FL>::T;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned long long kstart = clock64();
@@ -406,16 +542,16 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   // wr: U_0 at row 0, W_l at row (2l - 1) H and U_l at row 2l H.
-  float* wr = sm;                          // [KW][COLS]
-  float* w0cs = wr + (size_t)KW * COLS;    // [3][COLS]
+  W* wr = reinterpret_cast<W*>(sm);        // [KW][COLS]
+  float* w0cs = sm + ng_wfloats(KW, COLS, sizeof(W));  // [3][COLS]
   float* hw = w0cs + 3 * COLS;             // [3][H]
   float* accF = hw + 3 * H;                // [N][Gp][COLS]
   float* hb = accF + (size_t)N * Gp * COLS;  // [HB][H][Gp]
   float* zs = hb + HB * H * Gp;            // [Gp][COLS]
   float* zr = zs + Gp * COLS;              // [2][Gp][COLS] (L > 2)
-  float* xb = hb;                          // prologue: [2][NG_PB][F]
-  float* ch = hb + max(HB * H * Gp + ng_zbufs(L) * Gp * COLS,
-                       2 * NG_PB * F);
+  W* xb = reinterpret_cast<W*>(hb);        // prologue: [2][NG_PB][F]
+  float* ch = hb + max((long long)HB * H * Gp + ng_zbufs(L) * Gp * COLS,
+                       ng_xfloats(F, sizeof(W)));
   float* hd = ch + 4 * Gp;                 // [Gp][4]
   // h_l of pitch parity par: buffers 0-1 h_0, 2-3 h_{L-1}, 4.. the middle.
   auto hbuf = [&](int l, int par) -> float* {
@@ -427,19 +563,26 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   auto col = [&](int lc) { return (lc / UJ) * H + j0 + lc % UJ; };
 
   // Copies rows [0, K) of this block's columns of a [K][4H] matrix into
-  // dst [K][COLS] with cp.async: 16 bytes at a time where a gate's UJ
-  // columns split into aligned float4s, else 4.
-  auto gather = [&](float* dst, const float* src, int K) {
-    if (UJ % 4 == 0) {
-      const int V = COLS / 4;
-      for (int i = tid; i < K * V; i += nt) {
-        const int k = i / V, lc = 4 * (i - k * V);
+  // dst [K][COLS]: with cp.async 16 bytes at a time where a gate's UJ
+  // columns split into aligned 16-byte pieces, else 4 (float32) or one
+  // element at a time by plain loads and stores (bfloat16).
+  auto gather = [&](W* dst, const W* src, int K) {
+    constexpr int V = 16 / sizeof(W);  // elements of 16 bytes
+    if (UJ % V == 0) {
+      const int NV = COLS / V;
+      for (int i = tid; i < K * NV; i += nt) {
+        const int k = i / NV, lc = V * (i - k * NV);
         cp_async16(dst + k * COLS + lc, src + (size_t)k * H4 + col(lc));
+      }
+    } else if (sizeof(W) == 4) {
+      for (int i = tid; i < K * COLS; i += nt) {
+        const int k = i / COLS, lc = i - k * COLS;
+        cp_async4(dst + i, src + (size_t)k * H4 + col(lc));
       }
     } else {
       for (int i = tid; i < K * COLS; i += nt) {
         const int k = i / COLS, lc = i - k * COLS;
-        cp_async4(dst + i, src + (size_t)k * H4 + col(lc));
+        dst[i] = src[(size_t)k * H4 + col(lc)];
       }
     }
   };
@@ -458,10 +601,14 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   const unsigned long long kgath = clock64();
   auto stage = [&](int c) {
     const int n0 = (c % NCH) * NG_PB, np = min(NG_PB, N - n0);
-    const float* src = feats + ((size_t)(g0 + c / NCH) * N + n0) * F;
-    float* dst = xb + (c & 1) * NG_PB * F;
-    for (int i = 4 * tid; i < np * F; i += 4 * nt)
-      cp_async16(dst + i, src + i);
+    const W* src = feats + ((size_t)(g0 + c / NCH) * N + n0) * F;
+    W* dst = xb + (c & 1) * NG_PB * F;
+    for (int i = 4 * tid; i < np * F; i += 4 * nt) {
+      if (sizeof(W) == 4)
+        cp_async16(dst + i, src + i);
+      else
+        cp_async8(dst + i, src + i);
+    }
     cp_commit();
   };
   stage(0);
@@ -475,12 +622,12 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     __syncthreads();
     const int s = c / NCH, n0 = (c % NCH) * NG_PB;
     const int np = min(NG_PB, N - n0);
-    const float* x = xb + (c & 1) * NG_PB * F;
+    const W* x = xb + (c & 1) * NG_PB * F;
     // Item (columns lc, lc + 1; pitches p0, p0 + 1): four independent
-    // chains over k; x read as float4s along k (a broadcast for the warp),
-    // the weights as float2s.  Rows past np hold another chunk's x: their
-    // chains run unguarded (a branch would stall every load) and are not
-    // stored.
+    // chains over k; x read four elements at a time along k (a broadcast
+    // for the warp), the weights two.  Rows past np hold another chunk's
+    // x: their chains run unguarded (a branch would stall every load) and
+    // are not stored.
     for (int it = tid; it < (COLS / 2) * (NG_PB / 2); it += nt) {
       const int lc = 2 * (it % (COLS / 2)), p0 = (it / (COLS / 2)) * 2;
       if (p0 >= np) continue;
@@ -489,12 +636,10 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       for (int k = 0; k < F; k += 4) {
         float2 w[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w[j] = *reinterpret_cast<const float2*>(wr + (k + j) * COLS + lc);
+        for (int j = 0; j < 4; ++j) w[j] = ldw2(wr + (k + j) * COLS + lc);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(x + (p0 + p) * F + k);
+          const float4 v = ldw4(x + (p0 + p) * F + k);
           acc[p][0] = fmaf(v.x, w[0].x, acc[p][0]);
           acc[p][1] = fmaf(v.x, w[0].y, acc[p][1]);
           acc[p][0] = fmaf(v.y, w[1].x, acc[p][0]);
@@ -523,11 +668,11 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   }
   cp_commit();
   for (int i = tid; i < 3 * COLS; i += nt)
-    w0cs[i] = w0c[(size_t)(i / COLS) * H4 + col(i % COLS)];
+    w0cs[i] = ldw(w0c + (size_t)(i / COLS) * H4 + col(i % COLS));
   for (int k = tid; k < H; k += nt) {
-    hw[k] = wnd[2 * k];
-    hw[H + k] = wnd[2 * k + 1];
-    hw[2 * H + k] = wvd[k];
+    hw[k] = ldw(wnd + 2 * k);
+    hw[H + k] = ldw(wnd + 2 * k + 1);
+    hw[2 * H + k] = ldw(wvd + k);
   }
   for (int i = tid; i < HB * H * Gp; i += nt) hb[i] = 0.f;
   for (int i = tid; i < 4 * Gp; i += nt) ch[i] = 0.f;
@@ -562,19 +707,61 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       a1r[i][e] = v && LC == 2 ? lw.a[1][aoff[i][e]] : 0.f;
     }
   }
+  // The scan flavor's style rows of the items' streams (a padded stream
+  // reads its cluster's last real one), and the chosen note's terms.
+  const float* pjs[4];
+  float p0c[4][3];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    pjs[i] = FL == 1 ? proj + (size_t)(g0 + min(4 * grp + i, ng - 1)) * L * H
+                     : nullptr;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      p0c[i][k] = FL == 1 && role == 0 && prod ? pjs[i][k] : 0.f;
+  }
   // Each cell thread's c, one a layer.
   float cst[LC ? LC : NG_LMAX];
 #pragma unroll
   for (int l = 0; l < (LC ? LC : NG_LMAX); ++l) cst[l] = 0.f;
   // acc[i][e] = the fmaf chain over k of h[k][4 grp + i] w[k][plc + e], for
-  // h one [H][Gp] buffer and w one [H][COLS] weight slice.
-  auto chain = [&](float (&acc)[4][2], const float* h, const float* w) {
+  // h one [H][Gp] buffer and w one [H][COLS] weight slice; h rounded to
+  // bfloat16 in the bfloat16 instances.
+  auto chain = [&](float (&acc)[4][2], const float* h, const W* w) {
     h += 4 * grp;
     w += plc;
 #pragma unroll 8
     for (int k = 0; k < H; ++k) {
-      const float2 wv = *reinterpret_cast<const float2*>(w + k * COLS);
-      const float4 hv = *reinterpret_cast<const float4*>(h + k * Gp);
+      const float2 wv = ldw2(w + k * COLS);
+      const float4 hr = *reinterpret_cast<const float4*>(h + k * Gp);
+      const float4 hv =
+          make_float4(rin<FL>(hr.x), rin<FL>(hr.y), rin<FL>(hr.z),
+                      rin<FL>(hr.w));
+      acc[0][0] = fmaf(hv.x, wv.x, acc[0][0]);
+      acc[0][1] = fmaf(hv.x, wv.y, acc[0][1]);
+      acc[1][0] = fmaf(hv.y, wv.x, acc[1][0]);
+      acc[1][1] = fmaf(hv.y, wv.y, acc[1][1]);
+      acc[2][0] = fmaf(hv.z, wv.x, acc[2][0]);
+      acc[2][1] = fmaf(hv.z, wv.y, acc[2][1]);
+      acc[3][0] = fmaf(hv.w, wv.x, acc[3][0]);
+      acc[3][1] = fmaf(hv.w, wv.y, acc[3][1]);
+    }
+  };
+  // The scan flavor's input product of layer l: the chain of
+  // bf16(h_{l-1}[k] + its style term) w[k].
+  auto chain_x = [&](float (&acc)[4][2], const float* h, const W* w, int l) {
+    h += 4 * grp;
+    w += plc;
+    const float *p0 = pjs[0] + l * H, *p1 = pjs[1] + l * H,
+                *p2 = pjs[2] + l * H, *p3 = pjs[3] + l * H;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float2 wv = ldw2(w + k * COLS);
+      const float4 hr = *reinterpret_cast<const float4*>(h + k * Gp);
+      const float4 hv = make_float4(
+          bf16r(__fadd_rn(hr.x, __ldg(p0 + k))),
+          bf16r(__fadd_rn(hr.y, __ldg(p1 + k))),
+          bf16r(__fadd_rn(hr.z, __ldg(p2 + k))),
+          bf16r(__fadd_rn(hr.w, __ldg(p3 + k))));
       acc[0][0] = fmaf(hv.x, wv.x, acc[0][0]);
       acc[0][1] = fmaf(hv.x, wv.y, acc[0][1]);
       acc[1][0] = fmaf(hv.y, wv.x, acc[1][0]);
@@ -636,10 +823,10 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
 #pragma unroll
       for (int s = 0; s < Gp; s += 4) {
         const float4 h = *reinterpret_cast<const float4*>(hp + k * Gp + s);
-        sum[s] = fmaf(h.x, w, sum[s]);
-        sum[s + 1] = fmaf(h.y, w, sum[s + 1]);
-        sum[s + 2] = fmaf(h.z, w, sum[s + 2]);
-        sum[s + 3] = fmaf(h.w, w, sum[s + 3]);
+        sum[s] = fmaf(rin<FL>(h.x), w, sum[s]);
+        sum[s + 1] = fmaf(rin<FL>(h.y), w, sum[s + 1]);
+        sum[s + 2] = fmaf(rin<FL>(h.z), w, sum[s + 2]);
+        sum[s + 3] = fmaf(rin<FL>(h.w), w, sum[s + 3]);
       }
     }
 #pragma unroll
@@ -650,12 +837,12 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     if (lane == 0)
 #pragma unroll
       for (int s = 0; s < Gp; ++s)
-        hd[4 * s + hwarp] = __fadd_rn(sum[s], hbias);
+        hd[4 * s + hwarp] = head_out<FL>(sum[s], hbias);
     bar(3, 3);
     if (drawer) {
       const int g = g0 + dt;
       float res[3];
-      draw_note(hd + 4 * dt, T, ua, ub, vgrid, max_velocity, res);
+      draw_note<FL>(hd + 4 * dt, T, ua, ub, vgrid, max_velocity, res);
       for (int i = 0; i < 3; ++i) ch[4 * dt + i] = res[i];
       if (q == 0) {
         float* o = out + ((size_t)g * N + m) * 3;
@@ -695,15 +882,23 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float* cs = ch + 4 * (4 * grp + i);
+          float c3[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            c3[k] = chosen_in<FL>(cs[k], p0c[i][k], cround);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = plc + e;
-            float zc = __fmul_rn(cs[0], w0cs[c]);
-            zc = fmaf(cs[1], w0cs[COLS + c], zc);
-            zc = fmaf(cs[2], w0cs[2 * COLS + c], zc);
-            zs[(4 * grp + i) * COLS + c] = __fadd_rn(
-                __fadd_rn(__fadd_rn(ap[i * COLS + e], zc), a0r[i][e]),
-                r[i][e]);
+            float zc = __fmul_rn(c3[0], w0cs[c]);
+            zc = fmaf(c3[1], w0cs[COLS + c], zc);
+            zc = fmaf(c3[2], w0cs[2 * COLS + c], zc);
+            zs[(4 * grp + i) * COLS + c] =
+                FL == 1
+                    ? z_scan(__fadd_rn(ap[i * COLS + e], zc), r[i][e],
+                             a0r[i][e])
+                    : __fadd_rn(__fadd_rn(__fadd_rn(ap[i * COLS + e], zc),
+                                          a0r[i][e]),
+                                r[i][e]);
           }
         }
       }
@@ -740,7 +935,10 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
         float hv = 0.f;
         if (prod) {
           float a[4][2] = {};
-          chain(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS);
+          if (FL == 1)
+            chain_x(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS, l);
+          else
+            chain(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -749,7 +947,8 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
               const float ar =
                   LC == 2 ? a1r[i][e]
                           : (aoff[i][e] < 0 ? 0.f : __ldg(al + aoff[i][e]));
-              zs[o] = __fadd_rn(__fadd_rn(a[i][e], ar), zrl[o]);
+              zs[o] = FL == 1 ? z_scan(a[i][e], zrl[o], ar)
+                              : __fadd_rn(__fadd_rn(a[i][e], ar), zrl[o]);
             }
         }
         bar(2, WW);
@@ -794,14 +993,14 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
 
 // The cluster kernel's attributes, set once per process and instance: the
 // opt-in shared memory limit, and clusters of 16 (beyond the portable 8).
-template <int GP, int LC>
+template <int GP, int LC, int FL>
 cudaError_t ng_attributes() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        notegen_cluster_kernel<GP, LC>,
+        notegen_cluster_kernel<GP, LC, FL>,
         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(notegen_cluster_kernel<GP, LC>,
+      e = cudaFuncSetAttribute(notegen_cluster_kernel<GP, LC, FL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                NG_SMEM_MAX);
     return e;
@@ -825,44 +1024,25 @@ cudaLaunchConfig_t ng_config(const NgPlan& p, int H,
   return cfg;
 }
 
-// The instance for the plan's padded streams and the depth.
-template <int GP, int LC>
-int ng_launch(const float* feats, const float* uniforms, const float* temp,
-              const float* w0f, const float* w0c, const NgLayers& lw,
-              const float* wnd, const float* bnd, const float* wvd,
-              const float* bvd, const float* vgrid, float* out, int G, int N,
-              int F, int H, int L, int hard, int max_velocity,
-              const NgPlan& p, unsigned long long* prof, cudaStream_t st) {
-  cudaError_t err = ng_attributes<GP, LC>();
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = ng_config(p, H, &attr, st);
-  err = cudaLaunchKernelEx(&cfg, notegen_cluster_kernel<GP, LC>, feats,
-                           uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd,
-                           vgrid, out, G, N, F, H, L, hard, max_velocity, p,
-                           prof);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-template <int GP, int LC>
-int ng_active(const NgPlan& p, int H, int* active) {
-  const cudaError_t err = ng_attributes<GP, LC>();
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = ng_config(p, H, &attr, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(
-      active, notegen_cluster_kernel<GP, LC>, &cfg);
-}
+// One kernel's operands as the C entries receive them.
+struct NgArgs {
+  const void *feats, *w0f, *w0c, *wnd, *wvd;
+  const float *uniforms, *temp, *bnd, *bvd, *vgrid, *proj;
+  float* out;
+  int G, N, F, H, L, hard, max_velocity, cround;
+};
 
 // The table of per-layer pointers from the C entries' flat array `layers`
 // [3][NG_LMAX] (a, u, w); false if a pointer the depth needs is null or a
 // weight is not 16-byte aligned (cp.async).
-bool ng_layers(const float* const* layers, int L, NgLayers* lw) {
+template <typename W>
+bool ng_layers(const void* const* layers, int L, NgLayers<W>* lw) {
   for (int l = 0; l < NG_LMAX; ++l) {
-    lw->a[l] = l < L ? layers[l] : nullptr;
-    lw->u[l] = l < L ? layers[NG_LMAX + l] : nullptr;
-    lw->w[l] = l >= 1 && l < L ? layers[2 * NG_LMAX + l] : nullptr;
+    lw->a[l] = l < L ? static_cast<const float*>(layers[l]) : nullptr;
+    lw->u[l] = l < L ? static_cast<const W*>(layers[NG_LMAX + l]) : nullptr;
+    lw->w[l] = l >= 1 && l < L
+                   ? static_cast<const W*>(layers[2 * NG_LMAX + l])
+                   : nullptr;
     if (l >= L) continue;
     if (lw->a[l] == nullptr || lw->u[l] == nullptr ||
         reinterpret_cast<uintptr_t>(lw->u[l]) % 16 != 0)
@@ -874,14 +1054,124 @@ bool ng_layers(const float* const* layers, int L, NgLayers* lw) {
   return true;
 }
 
+// The instance for the plan's padded streams, the depth and the flavor.
+template <int GP, int LC, int FL>
+int ng_launch(const NgArgs& a, const NgLayers<typename NgW<FL>::T>& lw,
+              const NgPlan& p, unsigned long long* prof, cudaStream_t st) {
+  using W = typename NgW<FL>::T;
+  cudaError_t err = ng_attributes<GP, LC, FL>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ng_config(p, a.H, &attr, st);
+  err = cudaLaunchKernelEx(
+      &cfg, notegen_cluster_kernel<GP, LC, FL>,
+      static_cast<const W*>(a.feats), a.uniforms, a.temp,
+      static_cast<const W*>(a.w0f), static_cast<const W*>(a.w0c), lw,
+      static_cast<const W*>(a.wnd), a.bnd, static_cast<const W*>(a.wvd),
+      a.bvd, a.vgrid, a.proj, a.out, a.G, a.N, a.F, a.H, a.L, a.hard,
+      a.max_velocity, a.cround, p, prof);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int GP, int LC, int FL>
+int ng_active(const NgPlan& p, int H, int* active) {
+  const cudaError_t err = ng_attributes<GP, LC, FL>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ng_config(p, H, &attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      active, notegen_cluster_kernel<GP, LC, FL>, &cfg);
+}
+
+constexpr int ng_esize(int FL) { return FL ? 2 : 4; }
+
+// The cluster kernel of flavor FL with the caller's plan, which must be
+// ng_plan's.
+template <int FL>
+int ng_cluster(const NgArgs& a, const void* const* layers, const NgPlan& want,
+               unsigned long long* prof, void* stream) {
+  NgPlan p;
+  if (!ng_plan(a.G, a.L, a.N, a.F, a.H, ng_esize(FL), &p) || p.C == 0 ||
+      p.C != want.C || p.Gc != want.Gc || p.clusters != want.clusters ||
+      p.smem != want.smem)
+    return (int)cudaErrorInvalidValue;
+  NgLayers<typename NgW<FL>::T> lw;
+  if (!ng_layers(layers, a.L, &lw)) return (int)cudaErrorInvalidValue;
+  for (const void* t : {a.feats, a.w0f})
+    if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  if (FL == 1 && a.proj == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool four = ng_pad4(p.Gc) == 4;
+  if constexpr (FL == 0) {
+    if (a.L == NG_FIXED_DEPTH)
+      return four ? ng_launch<4, NG_FIXED_DEPTH, 0>(a, lw, p, prof, st)
+                  : ng_launch<8, NG_FIXED_DEPTH, 0>(a, lw, p, prof, st);
+  }
+  return four ? ng_launch<4, 0, FL>(a, lw, p, prof, st)
+              : ng_launch<8, 0, FL>(a, lw, p, prof, st);
+}
+
+template <int FL>
+int ng_active_clusters(int G, int L, int N, int F, int H, int* active) {
+  NgPlan p;
+  if (!ng_plan(G, L, N, F, H, ng_esize(FL), &p) || p.C == 0)
+    return (int)cudaErrorInvalidValue;
+  const bool four = ng_pad4(p.Gc) == 4;
+  if constexpr (FL == 0) {
+    if (L == NG_FIXED_DEPTH)
+      return four ? ng_active<4, NG_FIXED_DEPTH, 0>(p, H, active)
+                  : ng_active<8, NG_FIXED_DEPTH, 0>(p, H, active);
+  }
+  return four ? ng_active<4, 0, FL>(p, H, active)
+              : ng_active<8, 0, FL>(p, H, active);
+}
+
+template <int FL>
+int ng_streamed(const NgArgs& a, const void* const* layers, void* stream) {
+  using W = typename NgW<FL>::T;
+  if (a.G <= 0 || a.N <= 0 || a.F <= 0 || a.H <= 0 || a.L < 1 ||
+      a.L > NG_LMAX)
+    return (int)cudaErrorInvalidValue;
+  NgLayers<W> lw;
+  if (!ng_layers(layers, a.L, &lw)) return (int)cudaErrorInvalidValue;
+  if (FL == 1 && a.proj == nullptr) return (int)cudaErrorInvalidValue;
+  const long long smem = ng_streamed_smem(a.L, a.F, a.H);
+  if (smem > NG_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        notegen_streamed_kernel<FL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // One thread per gate column, at least 3 warps (one per head), at most
+  // 1024 (the loops over j stride by the block size).
+  notegen_streamed_kernel<FL><<<a.G, ng_streamed_threads(a.H), (size_t)smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const W*>(a.feats), a.uniforms, a.temp,
+      static_cast<const W*>(a.w0f), static_cast<const W*>(a.w0c), lw,
+      static_cast<const W*>(a.wnd), a.bnd, static_cast<const W*>(a.wvd),
+      a.bvd, a.vgrid, a.proj, a.out, a.N, a.F, a.H, a.L, a.hard,
+      a.max_velocity, a.cround);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entries for ctypes.  Every pointer is a float32 CUDA buffer the
-// caller allocated (contiguous, row-major, shapes as in the kernels);
-// `vgrid` may be null (no quantization); `layers` is a host array of
-// 3 * 8 pointers: a_0..a_7 [G][4H], U_0..U_7 [H][4H], W_0..W_7 [H][4H]
-// (W_0 unused), those past the depth L unused.  Each launches on `stream`
-// and returns cudaGetLastError(): 0 when the launch was accepted.
+// Plain C entries for ctypes.  Every pointer is a CUDA buffer the caller
+// allocated (contiguous, row-major, shapes as in the kernels), float32 in
+// the float32 entries; `vgrid` may be null (no quantization); `layers` is
+// a host array of 3 * 8 pointers: a_0..a_7 [G][4H], U_0..U_7 [H][4H],
+// W_0..W_7 [H][4H] (W_0 unused), those past the depth L unused.  Each
+// launches on `stream` and returns cudaGetLastError(): 0 when the launch
+// was accepted.  The `_bf16` entries take feats, W0f, W0c, U_l, W_l and
+// the heads' kernels in bfloat16 (a_l, the biases, uniforms and
+// temperatures float32), `proj` [G][L][H] float32 (the scan flavor's
+// style terms; null for the fused flavor), `flavor` (1 scan, 2 fused) and
+// `cround` (the features are bfloat16, so the chosen note is rounded
+// before its style term is added: the scan flavor's), and plan with
+// 2-byte weights.
 
 // The cluster kernel, with the plan (C, Gc, clusters, smem) of
 // ops/notegen.py::notegen_plan: cudaErrorInvalidValue when it is not
@@ -891,28 +1181,31 @@ bool ng_layers(const float* const* layers, int L, NgLayers* lw) {
 // kernel).
 extern "C" int notegen_launch(
     const float* feats, const float* uniforms, const float* temp,
-    const float* w0f, const float* w0c, const float* const* layers,
+    const float* w0f, const float* w0c, const void* const* layers,
     const float* wnd, const float* bnd, const float* wvd, const float* bvd,
     const float* vgrid, float* out, int G, int N, int F, int H, int L,
     int hard, int max_velocity, int C, int Gc, int clusters, int smem,
     unsigned long long* prof, void* stream) {
-  NgPlan p;
-  if (!ng_plan(G, L, N, F, H, &p) || p.C == 0 || p.C != C || p.Gc != Gc ||
-      p.clusters != clusters || p.smem != smem)
-    return (int)cudaErrorInvalidValue;
-  NgLayers lw;
-  if (!ng_layers(layers, L, &lw)) return (int)cudaErrorInvalidValue;
-  for (const float* t : {feats, w0f})
-    if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool four = ng_pad4(p.Gc) == 4;
-  auto launch = L == NG_FIXED_DEPTH
-                    ? (four ? ng_launch<4, NG_FIXED_DEPTH>
-                            : ng_launch<8, NG_FIXED_DEPTH>)
-                    : (four ? ng_launch<4, 0> : ng_launch<8, 0>);
-  return launch(feats, uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd,
-                vgrid, out, G, N, F, H, L, hard, max_velocity, p, prof, st);
+  const NgArgs a{feats, w0f, w0c, wnd, wvd, uniforms, temp, bnd, bvd, vgrid,
+                 nullptr, out, G, N, F, H, L, hard, max_velocity, 0};
+  return ng_cluster<0>(a, layers, NgPlan{C, Gc, clusters, smem}, prof,
+                       stream);
+}
+
+extern "C" int notegen_launch_bf16(
+    const void* feats, const float* uniforms, const float* temp,
+    const void* w0f, const void* w0c, const void* const* layers,
+    const void* wnd, const float* bnd, const void* wvd, const float* bvd,
+    const float* vgrid, float* out, int G, int N, int F, int H, int L,
+    int hard, int max_velocity, const float* proj, int flavor, int cround,
+    int C, int Gc, int clusters, int smem, unsigned long long* prof,
+    void* stream) {
+  const NgArgs a{feats, w0f, w0c, wnd, wvd, uniforms, temp, bnd, bvd, vgrid,
+                 proj, out, G, N, F, H, L, hard, max_velocity, cround};
+  const NgPlan p{C, Gc, clusters, smem};
+  if (flavor == 1) return ng_cluster<1>(a, layers, p, prof, stream);
+  if (flavor == 2) return ng_cluster<2>(a, layers, p, prof, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The clusters of the plan for (G, L, N, F, H) that the card holds at once
@@ -920,15 +1213,14 @@ extern "C" int notegen_launch(
 // cudaErrorInvalidValue where the plan is not a cluster's.
 extern "C" int notegen_active_clusters(int G, int L, int N, int F, int H,
                                        int* active) {
-  NgPlan p;
-  if (!ng_plan(G, L, N, F, H, &p) || p.C == 0)
-    return (int)cudaErrorInvalidValue;
-  const bool four = ng_pad4(p.Gc) == 4;
-  auto query = L == NG_FIXED_DEPTH
-                   ? (four ? ng_active<4, NG_FIXED_DEPTH>
-                           : ng_active<8, NG_FIXED_DEPTH>)
-                   : (four ? ng_active<4, 0> : ng_active<8, 0>);
-  return query(p, H, active);
+  return ng_active_clusters<0>(G, L, N, F, H, active);
+}
+
+// The same for the bfloat16 instances (both flavors share their plan and
+// their shared memory).
+extern "C" int notegen_active_clusters_bf16(int G, int L, int N, int F,
+                                            int H, int* active) {
+  return ng_active_clusters<1>(G, L, N, F, H, active);
 }
 
 // The streamed kernel: one block per stream, at any depth 1..8 whose block
@@ -936,27 +1228,25 @@ extern "C" int notegen_active_clusters(int G, int L, int N, int F, int H,
 // cluster kernel's yardstick everywhere).
 extern "C" int notegen_streamed_launch(
     const float* feats, const float* uniforms, const float* temp,
-    const float* w0f, const float* w0c, const float* const* layers,
+    const float* w0f, const float* w0c, const void* const* layers,
     const float* wnd, const float* bnd, const float* wvd, const float* bvd,
     const float* vgrid, float* out, int G, int N, int F, int H, int L,
     int hard, int max_velocity, void* stream) {
-  if (G <= 0 || N <= 0 || F <= 0 || H <= 0 || L < 1 || L > NG_LMAX)
-    return (int)cudaErrorInvalidValue;
-  NgLayers lw;
-  if (!ng_layers(layers, L, &lw)) return (int)cudaErrorInvalidValue;
-  const long long smem = ng_streamed_smem(L, F, H);
-  if (smem > NG_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        notegen_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // One thread per gate column, at least 3 warps (one per head), at most
-  // 1024 (the loops over j stride by the block size).
-  notegen_streamed_kernel<<<G, ng_streamed_threads(H), (size_t)smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      feats, uniforms, temp, w0f, w0c, lw, wnd, bnd, wvd, bvd, vgrid, out, N,
-      F, H, L, hard, max_velocity);
-  return (int)cudaGetLastError();
+  const NgArgs a{feats, w0f, w0c, wnd, wvd, uniforms, temp, bnd, bvd, vgrid,
+                 nullptr, out, G, N, F, H, L, hard, max_velocity, 0};
+  return ng_streamed<0>(a, layers, stream);
+}
+
+extern "C" int notegen_streamed_launch_bf16(
+    const void* feats, const float* uniforms, const float* temp,
+    const void* w0f, const void* w0c, const void* const* layers,
+    const void* wnd, const float* bnd, const void* wvd, const float* bvd,
+    const float* vgrid, float* out, int G, int N, int F, int H, int L,
+    int hard, int max_velocity, const float* proj, int flavor, int cround,
+    void* stream) {
+  const NgArgs a{feats, w0f, w0c, wnd, wvd, uniforms, temp, bnd, bvd, vgrid,
+                 proj, out, G, N, F, H, L, hard, max_velocity, cround};
+  if (flavor == 1) return ng_streamed<1>(a, layers, stream);
+  if (flavor == 2) return ng_streamed<2>(a, layers, stream);
+  return (int)cudaErrorInvalidValue;
 }

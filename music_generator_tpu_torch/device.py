@@ -6,7 +6,8 @@ cannot silently measure the CPU one."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -33,3 +34,22 @@ def full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def bf16_f32_sums(on: bool = True) -> Iterator[None]:
+    """Inside the block, bfloat16 matmuls on the card sum their products in
+    float32 and round once, as XLA's bfloat16 dots do (cuBLAS's reduced
+    precision reduction off; PyTorch allows it by default).  The setting
+    before the block is restored on exit, so it reaches no later work of
+    the process.  `on=False` leaves the setting alone."""
+    if not on:
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before

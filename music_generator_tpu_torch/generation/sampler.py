@@ -8,6 +8,14 @@ notegen kernel (ops/notegen.py), then the adaptive-temperature update
 (ref: generate.py:60-71).  The recurrent state is O(1) per step and crosses
 chunk boundaries exactly.
 
+Generation runs in `cfg.gen_dtype`, as the JAX Sampler does on its model
+rebuilt at that compute dtype (sampler.py:80-81): the model's generation
+steps read gen_dtype (models/deepj.py).  In float32 every matmul is full
+float32 (device.full_f32).  In bfloat16 the card's matmuls sum in float32
+while the Sampler runs (device.bf16_f32_sums), and the pitch loop runs
+the kernel's bfloat16 instance of the flavor that the JAX Sampler's
+route gives (`gen_flavor`), on weights cast once per Sampler.
+
 Sampling semantics and RNG discipline are the JAX package's: stream g's
 step-t uniforms are `uniform(fold_in(fold_in(key(seed), offset + g), t),
 (N, 2))` (deviation #10), reproduced bit for bit by generation/prng.py and
@@ -41,12 +49,12 @@ import torch
 
 from music_generator_tpu_torch.config import Config
 from music_generator_tpu_torch.data.dataset import unclamp_midi
-from music_generator_tpu_torch.device import full_f32
+from music_generator_tpu_torch.device import bf16_f32_sums, full_f32
 from music_generator_tpu_torch.generation import prng
 from music_generator_tpu_torch.midi.codec import midi_encode
 from music_generator_tpu_torch.midi.io import write_midifile
 from music_generator_tpu_torch.models.deepj import DeepJ
-from music_generator_tpu_torch.ops.notegen import note_sample
+from music_generator_tpu_torch.ops.notegen import note_sample, note_weights
 from music_generator_tpu_torch.parallel import mesh
 
 
@@ -58,6 +66,19 @@ def _velocity_grid(max_velocity: int) -> np.ndarray:
     through the encoder's int(v*max_velocity)."""
     return (np.arange(max_velocity + 1, dtype=np.float32)
             / np.float32(max_velocity))
+
+
+def gen_flavor(cfg: Config, G: int, L: int) -> str:
+    """The pitch loop's bfloat16 flavor for G streams at note depth L:
+    "fused" exactly where the JAX Sampler takes the Pallas kernel
+    (sampler.py:119-122: fused_gen_kernel, the LSTM kernel "pallas" --
+    "auto" is "xla" off a TPU, deepj.py:195-205 -- two note layers,
+    G <= fused_gen_max_batch and no gen_volume_quantize), else "scan".
+    In float32 the two are one arithmetic."""
+    fused = (cfg.fused_gen_kernel and cfg.lstm_kernel == "pallas" and L == 2
+             and G <= cfg.fused_gen_max_batch
+             and not cfg.gen_volume_quantize)
+    return "fused" if fused else "scan"
 
 
 class StepState(NamedTuple):
@@ -76,7 +97,10 @@ class GenerationResult:
 
 
 class Sampler:
-    """Generates from a DeepJ on its device, in float32 with TF32 off."""
+    """Generates from a DeepJ on its device in `cfg.gen_dtype` (float32
+    with TF32 off by default).  In bfloat16 the note axis's weights are
+    cast when the Sampler is made: it generates from the weights as they
+    were then."""
 
     def __init__(self, model: DeepJ, default_temp: float = 1.0):
         full_f32()
@@ -85,6 +109,14 @@ class Sampler:
         self.default_temp = default_temp
         self.device = model.device
         cfg = self.cfg
+        self._dt = model._gen_dt()
+        self._weights = None
+        self._bf16_card = (self._dt == torch.bfloat16
+                           and self.device.type == "cuda")
+        if self._bf16_card:
+            self._weights = note_weights(model.note_axis, model.note_dense,
+                                         model.volume_dense,
+                                         cfg.time_axis_units)
         # Row r of _beats is the one-hot of beat r; the last row, all
         # zeros, is the beat row of step 0 (see _beat_row).
         self._beats = torch.cat([
@@ -99,11 +131,16 @@ class Sampler:
                    temperature: torch.Tensor,
                    us: torch.Tensor) -> torch.Tensor:
         """Sample all pitches of one timestep: feats [G, N, time_units],
-        us [G, N, 2] -> [G, N, 3].  One kernel launch on the card."""
+        us [G, N, 2] -> [G, N, 3].  One kernel launch on the card.  The
+        flavor's G is the whole batch, every rank's streams, as the JAX
+        Sampler's is under a mesh."""
         m = self.model
+        flavor = gen_flavor(self.cfg, feats.shape[0] * mesh.world(),
+                            len(m.note_axis))
         return note_sample(feats, us, temperature, m.note_axis,
                            m.note_dense, m.volume_dense, style_emb,
-                           self.cfg.lstm_recurrent_activation, self._vgrid)
+                           self.cfg.lstm_recurrent_activation, self._vgrid,
+                           self._dt, flavor, self._weights)
 
     def _beat_row(self, t: int, G: int) -> torch.Tensor:
         """The beat of step t-1 (the note consumed at step t was chosen at
@@ -160,8 +197,9 @@ class Sampler:
         padding."""
         rows = torch.from_numpy(prime.transpose(1, 0, 2, 3).copy()).to(
             self.device)                                    # [T_p, G, N, 3]
-        for t in range(rows.shape[0]):
-            state = self._prime_step(style_emb, state, t, rows[t])
+        with bf16_f32_sums(self._bf16_card):
+            for t in range(rows.shape[0]):
+                state = self._prime_step(style_emb, state, t, rows[t])
         return state
 
     # -- whole piece -------------------------------------------------------
@@ -225,9 +263,11 @@ class Sampler:
         cfg = self.cfg
         us_all = self._chunk_uniforms(state.stream_keys, t0, num_steps)
         notes = []
-        for i in range(num_steps):
-            state, note = self._step(style_emb, state, t0 + i, us_all[i])
-            notes.append(note)
+        with bf16_f32_sums(self._bf16_card):
+            for i in range(num_steps):
+                state, note = self._step(style_emb, state, t0 + i,
+                                         us_all[i])
+                notes.append(note)
         notes = torch.stack(notes, dim=1)                 # [G, C, N, 3]
         playreplay = (notes[..., 0] + 2.0 * notes[..., 1]).to(torch.uint8)
         vol = notes[..., 2]
@@ -286,8 +326,9 @@ class Sampler:
                                          int, 0, 2 ** 32)
         styles_np = np.stack([np.asarray(s) for s in styles]).astype(
             np.float32)
-        style_emb = self.model.style_embedding(
-            torch.from_numpy(self._local(styles_np)).to(self.device))
+        with bf16_f32_sums(self._bf16_card):
+            style_emb = self.model.style_embedding(
+                torch.from_numpy(self._local(styles_np)).to(self.device))
         if temperature is None:
             temp = self.default_temp
         elif np.ndim(temperature) == 0:

@@ -14,12 +14,16 @@ batch, time and pitch.
 
 Generation runs `style_embedding`, `octave_conv`, `note_features`,
 `init_time_state`/`time_axis_step` and `init_note_state`/`note_axis_cell`
-(with ops/notegen.py's heads) in float32.  Training runs `forward` in the
-config's compute dtype, and `loss` / `primary_loss`.  `forward` routes as
-the JAX package's does with lstm_kernel="pallas": both axes as the biaxial
-stacks of ops/biax.py (`_forward_biax_v3`), or per axis the fused
-two-layer stack of ops/lstm2.py, or one ops/lstm.py `lstm_scan` per layer
-(any depth).  With `time_axis_kind="linear"` the time axis is one
+(with ops/notegen.py's heads) in the config's `gen_dtype` (float32 by
+default).  The JAX Sampler runs them on a model rebuilt at
+compute_dtype=gen_dtype; reading gen_dtype here gives the same
+arithmetic without a second model, and keeps a model called directly
+(the default config trains in bfloat16) streaming as its Sampler would.  Training runs
+`forward` in the config's compute dtype, and `loss` / `primary_loss`.
+`forward` routes as the JAX package's does with lstm_kernel="pallas":
+both axes as the biaxial stacks of ops/biax.py (`_forward_biax_v3`), or
+per axis the fused two-layer stack of ops/lstm2.py, or one ops/lstm.py
+`lstm_scan` per layer (any depth).  With `time_axis_kind="linear"` the time axis is one
 ops/linear_scan.py `glru_scan` per layer and the biaxial stacks are off,
 as in the JAX package.  Dropout draws come from an explicit
 `torch.Generator`; without one (or with train=False) there is no dropout,
@@ -224,8 +228,9 @@ class DeepJ(nn.Module):
     # -- style ------------------------------------------------------------
 
     def style_embedding(self, style: torch.Tensor) -> torch.Tensor:
-        """The shared 'style' Dense layer (ref: model.py:141-142)."""
-        return self.style_embed(style)
+        """The shared 'style' Dense layer (ref: model.py:141-142), in the
+        generation dtype (deepj.py:257-259 under the Sampler's model)."""
+        return dense_apply(self.style_embed, style, self._gen_dt())
 
     # -- streaming single-step paths (generation) --------------------------
 
@@ -248,22 +253,29 @@ class DeepJ(nn.Module):
         beat_row: [G, notes_per_bar], style_emb: [G, style_units].
         Returns ([G, N, time_units], new_state): O(1) recurrent state per
         step instead of the reference's 128-step window recompute
-        (ref: generate.py:106-109)."""
+        (ref: generate.py:106-109).  Runs in the generation dtype as the
+        JAX Sampler's step does (deepj.py:567-598): the octave conv, the
+        note features, each layer's tanh style projection (float32 on the
+        rounded dense, as XLA keeps it, `notegen.style_term`) and its
+        cell; an LSTM cell's h and c come back float32, a GLRU's h in the
+        generation dtype."""
         G, N, _ = note_row.shape
+        dt = self._gen_dt()
         notes = note_row[:, None]
         beat = beat_row[:, None]
-        x = self.note_features(notes, beat, self.octave_conv(notes))[:, 0]
+        x = self.note_features(notes, beat,
+                               self.octave_conv(notes, dt=dt))[:, 0]
         new_state = []
         for layer, layer_state in zip(self.time_axis, state):
-            proj = torch.tanh(layer.style_proj(style_emb))
+            proj = notegen.style_term(layer, style_emb, dt)
             x = x + proj[:, None, :]
             xin = x.reshape(G * N, x.shape[-1])
             if isinstance(layer.lstm, LSTMParams):
                 h, c = lstm_step(layer.lstm, xin, *layer_state,
-                                 self.cfg.lstm_recurrent_activation)
+                                 self.cfg.lstm_recurrent_activation, dt)
                 new_state.append((h, c))
             else:
-                h = glru_step(layer.lstm, xin, layer_state[0])
+                h = glru_step(layer.lstm, xin, layer_state[0], dt)
                 new_state.append((h,))
             x = h.reshape(G, N, -1)
         return x, tuple(new_state)
@@ -286,12 +298,13 @@ class DeepJ(nn.Module):
         x = torch.cat([feat_n, prev_chosen.to(feat_n.dtype)], dim=-1)
         return notegen.note_cell(x, self.note_axis, style_emb, state,
                                  self.note_dense, self.volume_dense,
-                                 self.cfg.lstm_recurrent_activation)
+                                 self.cfg.lstm_recurrent_activation,
+                                 self._gen_dt())
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         """sigmoid(play, replay) ++ linear volume in the compute dtype,
         returned as float32 (ref: model.py:94-95,125; deepj.py:436-442).
-        Generation runs its own float32 heads (ops/notegen.py)."""
+        Generation runs ops/notegen.py's `heads`."""
         dt = self._dt()
         notes_out = torch.sigmoid(dense_apply(self.note_dense, x, dt))
         volume_out = dense_apply(self.volume_dense, x, dt)
@@ -301,6 +314,9 @@ class DeepJ(nn.Module):
 
     def _dt(self) -> torch.dtype:
         return _DTYPES[self.cfg.compute_dtype]
+
+    def _gen_dt(self) -> torch.dtype:
+        return _DTYPES[self.cfg.gen_dtype]
 
     @staticmethod
     def _two_equal(layers) -> bool:

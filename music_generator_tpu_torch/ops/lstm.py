@@ -45,12 +45,20 @@ def gates(z: torch.Tensor, c: torch.Tensor, hidden: int,
 
 def lstm_step(params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               recurrent_activation: str = "sigmoid",
+              compute_dtype: Optional[torch.dtype] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One cell step: x [B, D], h/c [B, H] -> (h', c').  `params` carries
-    `kernel` [D, 4H], `recurrent` [H, 4H] and `bias` [4H]; c stays f32."""
+    """One cell step: x [B, D], h/c [B, H] -> (h', c') float32.  `params`
+    carries `kernel` [D, 4H], `recurrent` [H, 4H] and `bias` [4H].  The
+    JAX `lstm_step` (ops/lstm.py:75-85) in `compute_dtype` (x's dtype when
+    None): x, h and the weights rounded to it, each product and their sum
+    rounded to it, then the bias (rounded to it) added in float32, where
+    XLA on the CPU keeps the sum that feeds the float32 gates; c stays
+    float32."""
     hidden = params.recurrent.shape[0]
-    z = x @ params.kernel + h @ params.recurrent + params.bias
-    return gates(z.float(), c.float(), hidden, recurrent_activation)
+    dt = compute_dtype or x.dtype
+    z = ((x.to(dt) @ params.kernel.to(dt) + h.to(dt) @ params.recurrent.to(dt))
+         .float() + params.bias.to(dt).float())
+    return gates(z, c.float(), hidden, recurrent_activation)
 
 
 def lstm_scan(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,

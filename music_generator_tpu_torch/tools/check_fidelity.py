@@ -19,17 +19,21 @@ Variants:
             the notegen kernel (ops/notegen.py);
   padded    the same with every batch padded to 8 streams (the serving
             bucket shape); equal to the unpadded run since the uniforms
-            are keyed by stream index (deviation #10).
+            are keyed by stream index (deviation #10);
+  bf16      the control: generation at gen_dtype="bfloat16" (the pitch
+            loop on the kernel's bfloat16 instance), held against the same
+            float32 CPU run, which measures what the float32 discipline
+            buys (the JAX tool's bf16 variant, docs/FIDELITY.md).
 Each variant's matrix: per seed a solo stream (G = 1), the 3 genres, and a
 primed continuation of the solo run's first half (teacher-forced, then
-continued at absolute steps).  The report's `<device>_vs_cpu` and
-`padded_vs_cpu` hold file counts, byte mismatches and event (play and
-replay) mismatches.
+continued at absolute steps).  The report's `<device>_vs_cpu`,
+`padded_vs_cpu` and `bf16_vs_cpu` hold file counts, byte mismatches and
+event (play and replay) mismatches.
 
-The JAX tool's other TPU variants do not apply: `mesh8` (the port has no
-mesh yet, ROADMAP.md section 1 item 7), `fused` (on the card the notegen
-kernel is the only pitch loop, so it is the unpadded variant) and `bf16`
-(the port generates only in float32; it has no gen_dtype="bfloat16").
+The JAX tool's other variants do not apply: `mesh8` (its 8 virtual CPU
+devices; the port's data parallelism is one process a card, which
+chip_smoke.py phase 3m holds to one process) and `fused` (in float32 the
+notegen kernel is the only pitch loop, so it is the unpadded variant).
 """
 
 from __future__ import annotations
@@ -67,11 +71,14 @@ def generate_suite(out_dir: str, variant: str, params_npz: str,
                    quantize_volume: bool = False, seeds=SEEDS,
                    device="cuda") -> None:
     """Generate the seed/style matrix into out_dir on `device`: variant
-    'unpadded', or 'padded' (every batch padded to 8 streams).  Without
-    params_npz, fresh weights from torch seed 0 are drawn and saved there
-    first, so the child reads the same ones."""
+    'unpadded', 'padded' (every batch padded to 8 streams) or 'bf16'
+    (gen_dtype="bfloat16").  Without params_npz, fresh weights from torch
+    seed 0 are drawn and saved there first, so the child reads the same
+    ones."""
     dev = resolve_device(device)
     cfg = default_config().replace(gen_volume_quantize=quantize_volume)
+    if variant == "bf16":
+        cfg = cfg.replace(gen_dtype="bfloat16")
     if os.path.exists(params_npz):
         state = load_params_npz(params_npz)
     else:
@@ -196,7 +203,7 @@ def main(argv=None) -> dict:
         print(f"certifying trained params from {args.params}")
 
     dev = resolve_device(args.device)
-    for variant in ("unpadded", "padded"):
+    for variant in ("unpadded", "padded", "bf16"):
         generate_suite(os.path.join(out, f"{dev.type}-{variant}"), variant,
                        params_npz, device=dev, **suite)
     child = [sys.executable, "-m", "music_generator_tpu_torch.tools."
@@ -215,6 +222,9 @@ def main(argv=None) -> dict:
                   os.path.join(out, "cpu")),
               "padded_vs_cpu": compare_dirs(
                   os.path.join(out, f"{dev.type}-padded"),
+                  os.path.join(out, "cpu")),
+              "bf16_vs_cpu": compare_dirs(
+                  os.path.join(out, f"{dev.type}-bf16"),
                   os.path.join(out, "cpu"))}
     with open(os.path.join(out, "FIDELITY.json"), "w") as f:
         json.dump(report, f, indent=2)
