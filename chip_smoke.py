@@ -179,6 +179,13 @@ Phases (any failure exits non-zero, before the result line):
      styles, 1 file of 16 bars each, --epochs 3 --patience 1, 2-bar
      samples): training stops, the best checkpoint is written, reloaded
      and generated from, the samples and report.json are written;
+  3r. tools/run_augment_study.py at default_config() on a small corpus (2
+     styles, 1 file of 16 bars each, --epochs 3 --patience 1 --augment 1):
+     three times the windows in the augmented run, a checkpoint a run,
+     twelve finite eval entries, each fit's steps one launch of each
+     biaxial kernel and no plain version; tools/render_audio.py on the
+     host rendering artifacts/short_samples_r2/short_s0_{0,1,2}.mid to the
+     committed .wav bytes;
   4. time the generation step (and, from a profiled bar, the device's
      share of it), the training step of each route, the 3 + 3 layer stack
      included (and its busy share),
@@ -198,7 +205,8 @@ Phases (any failure exits non-zero, before the result line):
      at the card's issue rate; the loop must hold no division).
 The line before the last holds the per-kernel JSON (kernel 1 with the
 note depths it ran; kernels 1, 6 and 7 with phase 3n's launches under
-"linear_time"; kernel 1's bfloat16 instances as notegen_bf16_scan and
+"linear_time"; kernels 2-5 with phase 3r's launches under
+"augment_study"; kernel 1's bfloat16 instances as notegen_bf16_scan and
 notegen_bf16_fused with phase 3p's launches), the one before it phase
 3m's readings; the last
 line is
@@ -3850,6 +3858,103 @@ def convergence(card) -> None:
         fail("run_convergence did not write its samples and report")
 
 
+def augment_study(card) -> dict:
+    """Phase 3r.  (a) tools/run_augment_study.py at default_config() on a
+    small corpus (2 styles, 1 file of 16 bars each, --epochs 3 --patience
+    1 --augment 1): three times the baseline's windows in the augmented
+    run, 1-3 epochs a run with finite losses, a checkpoint in each run's
+    out/, twelve finite entries in the eval matrix and the card's line in
+    the report; every count set to 0 just before each fit and read just
+    after it: each step one launch of each biaxial kernel (kernels 2-5),
+    no other training kernel and no plain version, and no plain version in
+    the evaluations either.  (b) tools/render_audio.py on the host:
+    artifacts/short_samples_r2/short_s0_{0,1,2}.mid rendered into WORK,
+    each the committed .wav's bytes, ms a file.  Returns the biaxial
+    kernels' launches summed over the two fits."""
+    from music_generator_tpu_torch.tools import render_audio, run_augment_study
+    from music_generator_tpu_torch.training import trainer as trainer_mod
+    started = time.perf_counter()
+    run_dir = os.path.join(WORK, "augment")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    real_fit = trainer_mod.Trainer.fit
+    fits = []                       # (steps, launches, plain calls) a fit
+
+    def counted_fit(self, ds, epochs=None):
+        reset_counts()
+        hist = real_fit(self, ds, epochs)
+        launches, plain = read_counts()
+        fits.append((sum(hist["steps_per_epoch"]), launches, plain))
+        reset_counts()
+        return hist
+    trainer_mod.Trainer.fit = counted_fit
+    try:
+        report = run_augment_study.main([
+            "--run-dir", run_dir, "--styles", "0", "1", "--files-per-style",
+            "1", "--bars", "16", "--epochs", "3", "--patience", "1",
+            "--augment", "1"])
+    finally:
+        trainer_mod.Trainer.fit = real_fit
+    _, eval_plain = read_counts()   # the evaluations after the last fit
+    secs = time.perf_counter() - started
+    runs = report["runs"]
+    matrix = [v for rows in report["eval_loss"].values()
+              for row in rows.values() for v in row.values()]
+    log(f"augment study: windows {runs['baseline']['windows']} / "
+        f"{runs['augmented']['windows']}, epochs "
+        f"{runs['baseline']['epochs_run']} / {runs['augmented']['epochs_run']}"
+        f", best loss {runs['baseline']['best_loss']:.4f} / "
+        f"{runs['augmented']['best_loss']:.4f}; eval matrix "
+        f"{json.dumps(report['eval_loss'])}; {secs:.1f} s ({card})")
+    log(f"augment study: fits (steps, kernel launches, plain calls) {fits}; "
+        f"plain calls in the evaluations {eval_plain}")
+    if runs["augmented"]["windows"] != 3 * runs["baseline"]["windows"]:
+        fail("augment study: the augmented run does not hold three times "
+             "the baseline's windows")
+    for name, run in runs.items():
+        if not (1 <= run["epochs_run"] <= 3
+                and len(run["loss_curve"]) == run["epochs_run"]
+                and np.isfinite(run["loss_curve"]).all()):
+            fail(f"augment study: {name} ran {run['epochs_run']} epochs, "
+                 f"losses {run['loss_curve']}")
+        if not os.path.isfile(os.path.join(run_dir, name, "out",
+                                           "model.pt")):
+            fail(f"augment study: {name} wrote no checkpoint")
+    if len(matrix) != 12 or not np.isfinite(matrix).all():
+        fail(f"augment study: eval matrix {report['eval_loss']}")
+    if report["card"] != card or not os.path.isfile(
+            os.path.join(run_dir, "report.json")):
+        fail("augment study: report.json not written with the card's line")
+    if len(fits) != 2 or eval_plain != 0 or any(
+            plain != 0 or any(v != (steps if k.startswith("biax") else 0)
+                              for k, v in launches.items())
+            for steps, launches, plain in fits):
+        fail("augment study: the fits did not run every step through each "
+             "biaxial kernel, and only through them, or a plain version "
+             "ran on the card")
+    study_launches = {k: sum(f[1][k] for f in fits) for k in fits[0][1]}
+
+    out = os.path.join(WORK, "render")
+    os.makedirs(out, exist_ok=True)
+    for i in range(3):
+        mid = os.path.join(ROOT, "artifacts", "short_samples_r2",
+                           f"short_s0_{i}.mid")
+        wav = os.path.join(out, f"short_s0_{i}.wav")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            render_audio.render_file(mid, wav)
+        ms = (time.perf_counter() - t) * 1e3
+        same = (open(wav, "rb").read()
+                == open(os.path.splitext(mid)[0] + ".wav", "rb").read())
+        log(f"render_audio: short_s0_{i}: {ms:.1f} ms, "
+            f"{'byte-identical to' if same else 'differs from'} the "
+            f"committed .wav (host numpy {np.__version__}; {card})")
+        if not same:
+            fail(f"render_audio: short_s0_{i}.wav differs from the "
+                 f"committed file")
+    log(f"phase 3r: {time.perf_counter() - started:.1f} s")
+    return study_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a machine with a GPU")
@@ -4034,6 +4139,9 @@ def main() -> None:
     # -- 3q. this slice's path: tools/run_convergence.py ----------------------
     convergence(card)
 
+    # -- 3r. this slice's path: the augmentation study, the .wav renderer ----
+    study_launches = augment_study(card)
+
     # -- 4. times ------------------------------------------------------------
     time_train_step(cfg, r4, batch, card)
     for route in ROUTES:
@@ -4127,6 +4235,8 @@ def main() -> None:
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": biax_errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            # Phase 3r's two fits of the augmentation study.
+            "augment_study": {"launches": study_launches[name]},
         })
     # The per-axis kernels' times at the time axis's shapes; the note
     # axis's are logged above.

@@ -64,6 +64,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def steady_epoch(history: dict, seq_len: int) -> tuple:
+    """(seconds, timesteps/s) of a fit's steady epoch: the median epoch of
+    `Trainer.fit`'s history without epoch 0, which builds the kernels, at
+    the geometry the trainer ran."""
+    steady = sorted(history["epoch_seconds"][1:]) or history["epoch_seconds"]
+    secs = steady[len(steady) // 2]
+    return secs, (history["steps_per_epoch"][0] * history["batch_size"]
+                  * seq_len / secs)
+
+
 class CheckFailed(AssertionError):
     """A tool's check missed its stated bar."""
 

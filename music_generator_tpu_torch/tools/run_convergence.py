@@ -95,7 +95,8 @@ def main(argv=None, cfg: Optional[Config] = None) -> dict:
     from music_generator_tpu_torch.generation.sampler import (Sampler,
                                                               write_file)
     from music_generator_tpu_torch.models.deepj import DeepJ
-    from music_generator_tpu_torch.tools.common import card_line
+    from music_generator_tpu_torch.tools.common import (card_line,
+                                                        steady_epoch)
     from music_generator_tpu_torch.training.checkpoint import build_or_load
     from music_generator_tpu_torch.training.trainer import (TrainConfig,
                                                             Trainer)
@@ -127,13 +128,7 @@ def main(argv=None, cfg: Optional[Config] = None) -> dict:
         history = trainer.fit(ds)
         train_s = time.time() - t0
         epochs_run = len(history["loss"])
-        # Steady epoch throughput: the median epoch without epoch 0 (which
-        # builds the kernels), at the geometry the trainer ran.
-        ts_per_epoch = (history["steps_per_epoch"][0] * history["batch_size"]
-                        * cfg.seq_len)
-        steady = (sorted(history["epoch_seconds"][1:])
-                  or history["epoch_seconds"])
-        median_epoch_s = steady[len(steady) // 2]
+        median_epoch_s, steady_rate = steady_epoch(history, cfg.seq_len)
         print(f"trained {epochs_run} epochs in {train_s:.0f}s; loss "
               f"{history['loss'][0]:.4f} -> {min(history['loss']):.4f}")
 
@@ -168,7 +163,7 @@ def main(argv=None, cfg: Optional[Config] = None) -> dict:
             "loss_curve": history["loss"],
             "train_seconds": train_s,
             "median_epoch_seconds": median_epoch_s,
-            "steady_epoch_timesteps_per_sec": ts_per_epoch / median_epoch_s,
+            "steady_epoch_timesteps_per_sec": steady_rate,
             "epoch_scan_mode": history["epoch_scan_mode"],
             "fidelity": fidelity,
         }
