@@ -50,8 +50,9 @@ Phases (any failure exits non-zero, before the result line):
      for bit; with quantize off each must be nearer its own flavor's
      plain version than the other flavor's (mean volume gap at most a
      quarter), so an instance wired to the other arithmetic fails; their
-     plans; ms a launch at depth 2 beside the plain version and the bound
-     with 2-byte weights at the bfloat16 rate;
+     plans; ms a launch at depth 2 beside the float32 instance's on the
+     same inputs (in turns), the plain version and the bound with 2-byte
+     weights at the bfloat16 rate, and block 0's cycles per pitch by phase;
   3. drive the generation main path through the CLI's code (generate_main):
      the trained flagship weights, 3 genres, 8 bars, seeds 0 and 1, and
      check the written .mid files against artifacts/short_samples_r4 (event
@@ -238,7 +239,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from music_generator_tpu_torch.tools.common import (F32_ATOL, F32_GRAD_REL,
                                                     CheckFailed, card_line,
-                                                    cuda_ms, leaf_stats)
+                                                    cuda_ms, leaf_stats,
+                                                    notegen_inputs)
 from music_generator_tpu_torch.tools.validate_biax import (
     PARITY_BAR, STEP_ATOL, bf16_against_plain, step_bars, step_readings,
     steps)
@@ -387,19 +389,6 @@ def check_sample(path: str, ref: str) -> bool:
     if not events:
         fail(f"{ref}: the notes differ from the committed sample")
     return same_bytes
-
-
-def notegen_inputs(model, G: int, T: float, seed: int):
-    """Random pitch-loop inputs at the model's widths: time-axis features
-    in (-1, 1) like an LSTM's h, uniforms in [0, 1), a style embedding."""
-    gen = torch.Generator().manual_seed(seed)
-    F = model.cfg.time_axis_units
-    N = model.cfg.num_notes
-    feats = torch.rand(G, N, F, generator=gen) * 2 - 1
-    us = torch.rand(G, N, 2, generator=gen)
-    emb = torch.randn(G, model.cfg.style_units, generator=gen)
-    temp = torch.full((G,), T)
-    return [t.cuda() for t in (feats, us, temp, emb)]
 
 
 def notegen_bound_ms(G: int, N: int, F: int, H: int, L: int = 2,
@@ -3085,9 +3074,11 @@ def check_notegen_bf16(cfg, card):
     the volumes are held to one bfloat16 ULP (BF16_VOLUME_ULP) and the
     kernel must lie nearer its own flavor's plain version than the other
     flavor's (`flavor_gaps`: its mean gap at most a quarter of the
-    other's).  Then each flavor's ms a launch at depth 2 beside its plain
-    version and its bound.  Returns {flavor: (max |dv|, {G: (ms, plain
-    ms, bound ms, bound_by)})}."""
+    other's).  Then each flavor's ms a launch at depth 2 beside the
+    float32 instance's on the same inputs (in turns), its plain version,
+    its bound and block 0's cycles per pitch by phase (`notegen_cycles`).
+    Returns {flavor: (max |dv|, {G: (ms, plain ms, bound ms, bound_by,
+    float32 ms, cycles)})}."""
     from music_generator_tpu_torch.generation.sampler import _velocity_grid
     from music_generator_tpu_torch.models.deepj import build_model
     from music_generator_tpu_torch.ops import notegen
@@ -3174,19 +3165,31 @@ def check_notegen_bf16(cfg, card):
             if L != 2:
                 continue
             feats, us, temp, emb = notegen_inputs(model, G, 1.0, 100 + G)
+            ops32 = notegen._kernel_operands(feats, us, temp,
+                                             model.note_axis, *heads, emb,
+                                             None)
             for flavor in ("scan", "fused"):
                 args = (feats, us, temp, model.note_axis, *heads,
                         emb.to(bf16), "sigmoid", None, bf16, flavor)
                 ops = notegen._kernel_operands(*args[:7], None, bf16,
                                                flavor, weights)
-                ms = cuda_ms(lambda: notegen._launch(ops, False), 50)
+                # The flavor and the float32 instance on the same inputs,
+                # in turns (flavor, float32, float32, flavor).
+                runs = [cuda_ms(lambda: notegen._launch(o, False), 50)
+                        for o in (ops, ops32, ops32, ops)]
+                ms, ms32 = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
                 plain = cuda_ms(lambda: notegen.note_sample_reference(*args),
                                 5)
                 bound, bound_by = notegen_bound_ms(G, N, F, H, 2, 2)
-                out[flavor][1][G] = (ms, plain, bound, bound_by)
-                log(f"notegen bf16 {flavor} depth 2 G={G}: {ms:.4f} "
-                    f"ms/launch, plain version {plain:.4f} ms, bound "
+                log(f"notegen bf16 {flavor} depth 2 G={G}: {runs[0]:.4f} / "
+                    f"{runs[3]:.4f} ms/launch, the float32 instance on the "
+                    f"same inputs {runs[1]:.4f} / {runs[2]:.4f} (ratio "
+                    f"{ms / ms32:.4f}), plain version {plain:.4f} ms, bound "
                     f"{bound:.6f} ms by {bound_by} ({card})")
+                cycles = notegen_cycles(
+                    ops, f"notegen bf16 {flavor} depth 2 G={G}")
+                out[flavor][1][G] = (ms, plain, bound, bound_by, ms32,
+                                     cycles)
     log(f"notegen bf16: {cases} cases of both flavors agree with their "
         f"plain versions (|u-p| edge {BF16_EDGE}, volume atol "
         f"{BF16_VOLUME_ULP} with quantize off, {BF16_VOLUME_ATOL} on), "
@@ -3235,11 +3238,6 @@ def time_notegen(model, card):
                 cuda_ms(lambda: notegen._launch(ops, False), 50)]
         plain = (cuda_ms(lambda: notegen.note_sample_reference(*args), 5)
                  if G <= 64 else None)
-        prof = torch.zeros(14, dtype=torch.int64, device="cuda")
-        notegen._launch(ops, False, prof=prof)
-        torch.cuda.synchronize()
-        pr = prof.tolist()
-        per = [c / pr[11] for c in pr[:6]]
         bound, bound_by = notegen_bound_ms(
             G, cfg.num_notes, cfg.time_axis_units, cfg.note_axis_units)
         ms, streamed = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
@@ -3248,15 +3246,31 @@ def time_notegen(model, card):
             f"ms/launch, streamed kernel {runs[1]:.4f} / {runs[2]:.4f}, "
             f"plain version {'-' if plain is None else f'{plain:.4f}'} ms, "
             f"bound {bound:.6f} ms by {bound_by} ({card})")
-        log(f"notegen G={G} block 0 (C={pr[8]}, Gc={pr[9]}, {pr[10]} "
-            f"clusters), cycles per pitch: layer 0 h0 U0 {per[0]:.0f}, wait "
-            f"for the draw with z0 and cells {per[1]:.0f}, h0 exchange and "
-            f"barrier 1 {per[2]:.0f}, layer 1 with cells {per[3]:.0f}, h1 "
-            f"exchange and barrier 2 {per[4]:.0f} (sum "
-            f"{sum(per[:5]):.0f}); heads and draw, beside layer 0, "
-            f"{per[5]:.0f}; prologue {pr[6]} cycles ({pr[12]} before the "
-            f"acc_F chunks, {pr[13]} in them), launch {pr[7]} cycles")
+        notegen_cycles(ops, f"notegen G={G}")
     return times
+
+
+def notegen_cycles(ops, what: str) -> list:
+    """Block 0's clock cycles per pitch by phase at depth 2, from one
+    launch of the cluster kernel on `ops` with `prof`
+    (ops/notegen.py::_launch), logged after `what`.  Returns [h0 U0, the
+    wait for the draw with z0 and cells, h0 exchange and barrier 1, layer
+    1 with cells, h1 exchange and barrier 2, heads and draw]."""
+    from music_generator_tpu_torch.ops import notegen
+    prof = torch.zeros(14, dtype=torch.int64, device="cuda")
+    notegen._launch(ops, False, prof=prof)
+    torch.cuda.synchronize()
+    pr = prof.tolist()
+    per = [c / pr[11] for c in pr[:6]]
+    log(f"{what} block 0 (C={pr[8]}, Gc={pr[9]}, {pr[10]} "
+        f"clusters), cycles per pitch: layer 0 h0 U0 {per[0]:.0f}, wait "
+        f"for the draw with z0 and cells {per[1]:.0f}, h0 exchange and "
+        f"barrier 1 {per[2]:.0f}, layer 1 with cells {per[3]:.0f}, h1 "
+        f"exchange and barrier 2 {per[4]:.0f} (sum "
+        f"{sum(per[:5]):.0f}); heads and draw, beside layer 0, "
+        f"{per[5]:.0f}; prologue {pr[6]} cycles ({pr[12]} before the "
+        f"acc_F chunks, {pr[13]} in them), launch {pr[7]} cycles")
+    return per
 
 
 # Kernel 10's instances in the SASS of its library: (dtype, units a 16-byte
@@ -4213,19 +4227,21 @@ def main() -> None:
         "linear_time": {"launches": linear_launches["notegen"]},
     }]
     # Kernel 1's bfloat16 instances: phase 3p's launches, phase 2b's
-    # largest volume gap, ms at depth 2 and G = 3 (G = 64 beside it).
+    # largest volume gap, ms at depth 2 and G = 3 (G = 64 beside it), each
+    # with the float32 instance's ms on the same inputs in the same loop.
     for flavor in ("scan", "fused"):
         err, t = bf16_checks[flavor]
-        ms, plain, bound, bound_by = t[3]
+        ms, plain, bound, bound_by, ms32, _ = t[3]
         kernels.append({
             "name": f"notegen_bf16_{flavor}", "route": "cuda",
             "source": "music_generator_tpu_torch/csrc/notegen.cu",
             "replaces": "music_generator_tpu/ops/pallas_notegen.py:35",
             "launches": bf16_launches[flavor], "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": None, "float32_ms": ms32,
             "G64": {"ms": t[64][0], "plain_ms": t[64][1],
-                    "bound_ms": t[64][2], "bound_by": t[64][3]},
+                    "bound_ms": t[64][2], "bound_by": t[64][3],
+                    "float32_ms": t[64][4]},
         })
     for name, replaces, source in BIAX_KERNELS:
         ms, plain = biax_times[name]

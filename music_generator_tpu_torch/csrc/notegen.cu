@@ -48,8 +48,10 @@
 // sums land in its own shared memory and only h crosses blocks.  A cluster
 // serves Gc streams.  A block's warps have three roles: work warps (a
 // product thread owns two columns and four streams, so each weight read
-// serves eight chains; a cell thread one unit and stream), rec warps (the
-// h_l U_l, which depend only on the previous pitch) and three head warps.
+// serves eight chains, or in the bfloat16 instances one column, so that
+// every work warp takes a share; a cell thread one unit and stream), rec
+// warps (the h_l U_l, which depend only on the previous pitch; two
+// columns an item) and three head warps.
 // Per pitch, phase 0: h_0 U_0 and h_1 U_1 while the head warps compute
 // the heads and draws of the previous pitch from the full h_{L-1} (every
 // block itself, 3 H MACs a stream, so the chosen note needs no exchange;
@@ -92,8 +94,23 @@
 // product's sum and the two products' sum are rounded to bfloat16 and the
 // bias added in float32 (z_scan); the heads' sums rounded, plus the
 // rounded bias, rounded; the sigmoid of the heads as three rounded steps
-// (sigmoid_bf16).  The float32 instance is unchanged: FL 0 makes each
-// rounding an identity.
+// (sigmoid_bf16).
+//
+// Where h is rounded.  Every reader of an h in a bfloat16 instance takes
+// a value that depends only on that h (and, for the scan flavor's input
+// of layer l + 1, on the style term proj[g, l + 1, j], constant over the
+// launch).  So the streamed kernel rounds at each read, and the cluster
+// kernel rounds once, where the cell thread that owns (unit j, stream g)
+// makes h and writes it to every block (`hstore`): the fused flavor
+// writes bf16(h); the scan flavor writes bf16(h) for its last layer (read
+// by h U and the heads), and for every other layer the pair bf16(h) (high
+// half) and bf16(h + proj[g, l + 1, j]) (low half) in the 4 bytes of one
+// float32 h, so the plan and the shared memory stay as they are.  Each
+// product then reads a ready operand (`hget`: the float, or a half of the
+// pair moved into a float32), and every fmaf takes the same operands in
+// the same k order as when it rounded at the read: the two kernels stay
+// bit for bit alike.  The float32 instance is unchanged: FL 0 makes each
+// rounding an identity and writes h itself.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -125,25 +142,33 @@ __device__ __forceinline__ float rin(float x) {
 // Loads of weight and feature elements as float32.
 __device__ __forceinline__ float ldw(const float* p) { return *p; }
 __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+  return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p)
+                         << 16);
 }
 __device__ __forceinline__ float ldgw(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldgw(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
+}
+// The two bfloat16 of a 4-byte word as float32, exactly: the low one
+// (the lower address) shifted into the high half, the high one masked.
+__device__ __forceinline__ float2 bf16x2_float2(unsigned v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
 }
 // Two neighbouring elements (8- or 4-byte aligned).
 __device__ __forceinline__ float2 ldw2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 ldw2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return bf16x2_float2(*reinterpret_cast<const unsigned*>(p));
 }
 // Four neighbouring elements (16- or 8-byte aligned).
 __device__ __forceinline__ float4 ldw4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float4 ldw4(const __nv_bfloat16* p) {
-  const float2 a = ldw2(p), b = ldw2(p + 2);
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = bf16x2_float2(v.x), b = bf16x2_float2(v.y);
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
@@ -236,11 +261,11 @@ __device__ __forceinline__ void lstm_gates(const float* z, float* h,
 
 constexpr int NG_LMAX = 8;  // note-axis layers, at most
 
-// The depth with a float32 cluster-kernel instance of its own (the layer
-// loop fixed at compile time); every other depth, and every depth of the
-// bfloat16 instances, runs the run-time loop.  A build with
-// -DNG_FIXED_DEPTH=0 runs every depth through the run-time loop:
-// tools/notegen_depth_probe.py times the two at depth 2.
+// The depth with cluster-kernel instances of its own (the layer loop fixed
+// at compile time), for the float32 instance and both bfloat16 ones; every
+// other depth runs the run-time loop.  A build with -DNG_FIXED_DEPTH=0
+// runs every depth through the run-time loop: tools/notegen_depth_probe.py
+// times the two at depth 2.
 #ifndef NG_FIXED_DEPTH
 #define NG_FIXED_DEPTH 2
 #endif
@@ -507,11 +532,52 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// How a product reads an element of an h buffer of the cluster kernel: the
+// float32 as written (NG_H), or the high (NG_HI: bf16(h)) or low (NG_LO:
+// bf16(h + its style term)) bfloat16 of the scan flavor's pair, moved
+// into a float32 exactly.
+enum { NG_H = 0, NG_HI = 1, NG_LO = 2 };
+template <int RD>
+__device__ __forceinline__ float hget(float v) {
+  if (RD == NG_HI) return __uint_as_float(__float_as_uint(v) & 0xffff0000u);
+  if (RD == NG_LO) return __uint_as_float(__float_as_uint(v) << 16);
+  return v;
+}
+
+// acc[i][e] += the fmaf chain over k of hget<RD>(h[k][i]) w[k][e], for h
+// four streams' columns of one [H][GP] buffer and w NC (1 or 2)
+// neighbouring columns of one [H][COLS] weight slice.  The loop over k is
+// unrolled 8 times for float32 weights and 16 times for bfloat16 ones,
+// which hides more of the shared loads' latency in those instances.
+template <int RD, int GP, int NC, typename W>
+__device__ __forceinline__ void ng_chain(float (&acc)[4][NC], const float* h,
+                                         const W* w, int H, int COLS) {
+#pragma unroll(sizeof(W) == 2 ? 16 : 8)
+  for (int k = 0; k < H; ++k) {
+    float wv[NC];
+    if (NC == 2) {
+      const float2 v = ldw2(w + k * COLS);
+      wv[0] = v.x;
+      wv[NC - 1] = v.y;
+    } else {
+      wv[0] = ldw(w + k * COLS);
+    }
+    const float4 hr = *reinterpret_cast<const float4*>(h + k * GP);
+    const float hv[4] = {hget<RD>(hr.x), hget<RD>(hr.y), hget<RD>(hr.z),
+                         hget<RD>(hr.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < NC; ++e) acc[i][e] = fmaf(hv[i], wv[e], acc[i][e]);
+  }
+}
+
 // GP: the cluster's streams padded to a multiple of 4 (4 or 8), so that
 // the loops over streams and the h strides are fixed at compile time.
 // LC: the depth fixed at compile time (2), or 0 for a run-time loop over
-// the depth `Lrt` (the layer loop's c and a_l then live in local and
-// global memory instead of registers).  FL: the instance (see NgW).
+// the depth `Lrt` (the layer loop's c, the scan flavor's style terms and
+// a_l then live in local and global memory instead of registers).  FL: the
+// instance (see NgW).
 template <int GP, int LC, int FL>
 __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     const typename NgW<FL>::T* __restrict__ feats,
@@ -679,16 +745,24 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
   cp_wait<0>();
   // Roles by warp: WW work warps (cell thread tid < P0: unit gj, stream
   // gs, four neighbouring lanes holding four streams of one unit, which
-  // one of them writes to every peer as a float4; product thread tid < P1:
-  // columns plc, plc + 1 and streams 4 grp .. 4 grp + 3), WR rec warps
-  // (the same product items for the h_l U_l), and three head warps (head
-  // w for every stream, then the draw on lane s of the first).
+  // one of them writes to every peer as a float4; product thread: PC
+  // columns plc .. plc + PC - 1 and streams 4 grp .. 4 grp + 3), WR rec
+  // warps (product items of two columns for the h_l U_l), and three head
+  // warps (head w for every stream, then the draw on lane s of the first).
+  // PC: the float32 instance's work items have two columns (tid < P1, so
+  // half the work warps wait out the products); the bfloat16 instances'
+  // one (tid < P0), so every work warp takes products, each thread half
+  // the fmaf of a k step, and each weight element is loaded and unpacked
+  // as one.  The order of every fmaf chain is the same either way.
+  constexpr int PC = FL ? 1 : 2;
   const int P0 = UJ * Gp, P1 = P0 / 2;
   const int WW = (P0 + 31) / 32, WR = (P1 + 31) / 32;
   const int role = warp < WW ? 0 : (warp < WW + WR ? 1 : 2);
   const int pt = role == 1 ? tid - 32 * WW : tid;  // product item
-  const bool prod = role < 2 && pt < P1, cellt = role == 0 && tid < P0;
-  const int plc = 2 * (pt % (COLS / 2)), grp = pt / (COLS / 2);
+  const int npc = role == 0 ? PC : 2;  // the item's columns
+  const bool prod = role < 2 && pt < (role == 0 ? P0 / PC : P1);
+  const bool cellt = role == 0 && tid < P0;
+  const int plc = npc * (pt % (COLS / npc)), grp = pt / (COLS / npc);
   const int gs = tid % Gp, gj = tid / Gp;
   const int hwarp = warp - WW - WR, dt = tid - 32 * (WW + WR);  // heads
   // The style terms of a product's items: a_0, and a_1 at depth 2; at
@@ -702,81 +776,68 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
     const bool v = role == 0 && prod && s < ng;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      aoff[i][e] = v ? (g0 + s) * H4 + col(plc + e) : -1;
-      a0r[i][e] = v ? lw.a[0][aoff[i][e]] : 0.f;
-      a1r[i][e] = v && LC == 2 ? lw.a[1][aoff[i][e]] : 0.f;
+      aoff[i][e] = v && e < PC ? (g0 + s) * H4 + col(plc + e) : -1;
+      a0r[i][e] = aoff[i][e] >= 0 ? lw.a[0][aoff[i][e]] : 0.f;
+      a1r[i][e] = aoff[i][e] >= 0 && LC == 2 ? lw.a[1][aoff[i][e]] : 0.f;
     }
   }
-  // The scan flavor's style rows of the items' streams (a padded stream
-  // reads its cluster's last real one), and the chosen note's terms.
-  const float* pjs[4];
+  // The scan flavor's style terms of the chosen note's three inputs, for
+  // the items' streams (a padded stream takes its cluster's last real one).
   float p0c[4][3];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    pjs[i] = FL == 1 ? proj + (size_t)(g0 + min(4 * grp + i, ng - 1)) * L * H
-                     : nullptr;
+    const float* pj =
+        FL == 1 ? proj + (size_t)(g0 + min(4 * grp + i, ng - 1)) * L * H
+                : nullptr;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      p0c[i][k] = FL == 1 && role == 0 && prod ? pjs[i][k] : 0.f;
+      p0c[i][k] = FL == 1 && role == 0 && prod ? pj[k] : 0.f;
   }
-  // Each cell thread's c, one a layer.
-  float cst[LC ? LC : NG_LMAX];
+  // Each cell thread's c, one a layer, and in the scan flavor the style
+  // term that its h_l meets at the input of layer l + 1 (l < L - 1):
+  // proj[g, l + 1, j] of its unit j and stream g (a padded stream, its
+  // cluster's last real one), loaded once: it holds for every pitch.
+  float cst[LC ? LC : NG_LMAX], pst[LC ? LC : NG_LMAX];
 #pragma unroll
-  for (int l = 0; l < (LC ? LC : NG_LMAX); ++l) cst[l] = 0.f;
+  for (int l = 0; l < (LC ? LC : NG_LMAX); ++l) {
+    cst[l] = 0.f;
+    pst[l] = FL == 1 && cellt && l + 1 < L
+                 ? proj[((size_t)(g0 + min(gs, ng - 1)) * L + l + 1) * H +
+                        j0 + gj]
+                 : 0.f;
+  }
+  // What the cell thread writes of its h_l for every reader (see the
+  // header): h (float32), bf16(h) (fused; the scan flavor's last layer),
+  // or the scan flavor's pair, bf16(h) high and bf16(h + pst[l]) low.
+  auto hstore = [&](float h, int l) -> float {
+    if (FL == 0) return h;
+    if (FL == 2 || l == L - 1) return bf16r(h);
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(h));
+    const unsigned lo =
+        __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(h, pst[l])));
+    return __uint_as_float(hi << 16 | lo);
+  };
   // acc[i][e] = the fmaf chain over k of h[k][4 grp + i] w[k][plc + e], for
-  // h one [H][Gp] buffer and w one [H][COLS] weight slice; h rounded to
-  // bfloat16 in the bfloat16 instances.
-  auto chain = [&](float (&acc)[4][2], const float* h, const W* w) {
+  // h one [H][Gp] buffer, read as `rd` says (the scan flavor's pairs: NG_HI
+  // for h_l U_l, NG_LO for the input of layer l + 1; else NG_H), and w one
+  // [H][COLS] weight slice.
+  auto chain = [&](auto& acc, const float* h, const W* w, int rd) {
     h += 4 * grp;
     w += plc;
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) {
-      const float2 wv = ldw2(w + k * COLS);
-      const float4 hr = *reinterpret_cast<const float4*>(h + k * Gp);
-      const float4 hv =
-          make_float4(rin<FL>(hr.x), rin<FL>(hr.y), rin<FL>(hr.z),
-                      rin<FL>(hr.w));
-      acc[0][0] = fmaf(hv.x, wv.x, acc[0][0]);
-      acc[0][1] = fmaf(hv.x, wv.y, acc[0][1]);
-      acc[1][0] = fmaf(hv.y, wv.x, acc[1][0]);
-      acc[1][1] = fmaf(hv.y, wv.y, acc[1][1]);
-      acc[2][0] = fmaf(hv.z, wv.x, acc[2][0]);
-      acc[2][1] = fmaf(hv.z, wv.y, acc[2][1]);
-      acc[3][0] = fmaf(hv.w, wv.x, acc[3][0]);
-      acc[3][1] = fmaf(hv.w, wv.y, acc[3][1]);
-    }
+    if (FL == 1 && rd == NG_HI)
+      ng_chain<NG_HI, Gp>(acc, h, w, H, COLS);
+    else if (FL == 1 && rd == NG_LO)
+      ng_chain<NG_LO, Gp>(acc, h, w, H, COLS);
+    else
+      ng_chain<NG_H, Gp>(acc, h, w, H, COLS);
   };
-  // The scan flavor's input product of layer l: the chain of
-  // bf16(h_{l-1}[k] + its style term) w[k].
-  auto chain_x = [&](float (&acc)[4][2], const float* h, const W* w, int l) {
-    h += 4 * grp;
-    w += plc;
-    const float *p0 = pjs[0] + l * H, *p1 = pjs[1] + l * H,
-                *p2 = pjs[2] + l * H, *p3 = pjs[3] + l * H;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float2 wv = ldw2(w + k * COLS);
-      const float4 hr = *reinterpret_cast<const float4*>(h + k * Gp);
-      const float4 hv = make_float4(
-          bf16r(__fadd_rn(hr.x, __ldg(p0 + k))),
-          bf16r(__fadd_rn(hr.y, __ldg(p1 + k))),
-          bf16r(__fadd_rn(hr.z, __ldg(p2 + k))),
-          bf16r(__fadd_rn(hr.w, __ldg(p3 + k))));
-      acc[0][0] = fmaf(hv.x, wv.x, acc[0][0]);
-      acc[0][1] = fmaf(hv.x, wv.y, acc[0][1]);
-      acc[1][0] = fmaf(hv.y, wv.x, acc[1][0]);
-      acc[1][1] = fmaf(hv.y, wv.y, acc[1][1]);
-      acc[2][0] = fmaf(hv.z, wv.x, acc[2][0]);
-      acc[2][1] = fmaf(hv.z, wv.y, acc[2][1]);
-      acc[3][0] = fmaf(hv.w, wv.x, acc[3][0]);
-      acc[3][1] = fmaf(hv.w, wv.y, acc[3][1]);
-    }
-  };
+  // How h_l U_l reads h_l: a pair in the scan flavor below the last layer.
+  auto rd_rec = [&](int l) { return FL == 1 && l < L - 1 ? NG_HI : NG_H; };
   // The rec warps: h_l U_l of the previous pitch into z buffer zb.
   auto rec = [&](int l, int cur, float* zb) {
     if (!prod) return;
     float r[4][2] = {};
-    chain(r, hbuf(l, cur), wr + 2 * l * H * COLS);
+    chain(r, hbuf(l, cur), wr + 2 * l * H * COLS, rd_rec(l));
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       *reinterpret_cast<float2*>(zb + (4 * grp + i) * COLS + plc) =
@@ -813,7 +874,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       ua = u[0];
       ub = u[1];
     }
-    const float* hp = hbuf(L - 1, m & 1);
+    const float* hp = hbuf(L - 1, m & 1);  // rounded where it was made
     const float* wv = hw + hwarp * H;
     float sum[Gp];
 #pragma unroll
@@ -823,10 +884,10 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
 #pragma unroll
       for (int s = 0; s < Gp; s += 4) {
         const float4 h = *reinterpret_cast<const float4*>(hp + k * Gp + s);
-        sum[s] = fmaf(rin<FL>(h.x), w, sum[s]);
-        sum[s + 1] = fmaf(rin<FL>(h.y), w, sum[s + 1]);
-        sum[s + 2] = fmaf(rin<FL>(h.z), w, sum[s + 2]);
-        sum[s + 3] = fmaf(rin<FL>(h.w), w, sum[s + 3]);
+        sum[s] = fmaf(h.x, w, sum[s]);
+        sum[s + 1] = fmaf(h.y, w, sum[s + 1]);
+        sum[s + 2] = fmaf(h.z, w, sum[s + 2]);
+        sum[s + 3] = fmaf(h.w, w, sum[s + 3]);
       }
     }
 #pragma unroll
@@ -870,8 +931,8 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
       // Layer 0: z0 = ((acc_F + chosen W0c) + a0) + h0 U0; the h0 U0
       // chain runs while the head warps draw pitch n - 1.
       if (timed0) t0 = clock64();
-      float r[4][2] = {};
-      if (prod) chain(r, hbuf(0, cur), wr);
+      float r[4][PC] = {};
+      if (prod) chain(r, hbuf(0, cur), wr, rd_rec(0));
       if (timed0) {
         t1 = clock64();
         ck[0] += t1 - t0;
@@ -887,7 +948,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
           for (int k = 0; k < 3; ++k)
             c3[k] = chosen_in<FL>(cs[k], p0c[i][k], cround);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
+          for (int e = 0; e < PC; ++e) {
             const int c = plc + e;
             float zc = __fmul_rn(c3[0], w0cs[c]);
             zc = fmaf(c3[1], w0cs[COLS + c], zc);
@@ -912,7 +973,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
         t0 = clock64();
         ck[1] += t0 - t1;
       }
-      push(hv, hbuf(0, nw));
+      push(hstore(hv, 0), hbuf(0, nw));
     } else if (role == 1) {
       // h_1 U_1 of layer 1, from h_1 of pitch n - 1.
       if (L > 1) rec(1, cur, zr);
@@ -934,15 +995,12 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
         const float* al = lw.a[l];
         float hv = 0.f;
         if (prod) {
-          float a[4][2] = {};
-          if (FL == 1)
-            chain_x(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS, l);
-          else
-            chain(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS);
+          float a[4][PC] = {};
+          chain(a, hbuf(l - 1, nw), wr + (2 * l - 1) * H * COLS, NG_LO);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
+            for (int e = 0; e < PC; ++e) {
               const int o = (4 * grp + i) * COLS + plc + e;
               const float ar =
                   LC == 2 ? a1r[i][e]
@@ -960,7 +1018,7 @@ __global__ void __launch_bounds__(NG_THREADS, 1) notegen_cluster_kernel(
           t0 = clock64();
           ck[3] += t0 - t1;
         }
-        push(hv, hbuf(l, nw));
+        push(hstore(hv, l), hbuf(l, nw));
       } else if (role == 1) {
         // h_{l+1} U_{l+1} of pitch n - 1, for the next phase.
         if (l + 1 < L) rec(l + 1, cur, zr + (l & 1) * Gp * COLS);
@@ -1104,11 +1162,9 @@ int ng_cluster(const NgArgs& a, const void* const* layers, const NgPlan& want,
   if (FL == 1 && a.proj == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool four = ng_pad4(p.Gc) == 4;
-  if constexpr (FL == 0) {
-    if (a.L == NG_FIXED_DEPTH)
-      return four ? ng_launch<4, NG_FIXED_DEPTH, 0>(a, lw, p, prof, st)
-                  : ng_launch<8, NG_FIXED_DEPTH, 0>(a, lw, p, prof, st);
-  }
+  if (a.L == NG_FIXED_DEPTH)
+    return four ? ng_launch<4, NG_FIXED_DEPTH, FL>(a, lw, p, prof, st)
+                : ng_launch<8, NG_FIXED_DEPTH, FL>(a, lw, p, prof, st);
   return four ? ng_launch<4, 0, FL>(a, lw, p, prof, st)
               : ng_launch<8, 0, FL>(a, lw, p, prof, st);
 }
@@ -1119,11 +1175,9 @@ int ng_active_clusters(int G, int L, int N, int F, int H, int* active) {
   if (!ng_plan(G, L, N, F, H, ng_esize(FL), &p) || p.C == 0)
     return (int)cudaErrorInvalidValue;
   const bool four = ng_pad4(p.Gc) == 4;
-  if constexpr (FL == 0) {
-    if (L == NG_FIXED_DEPTH)
-      return four ? ng_active<4, NG_FIXED_DEPTH, 0>(p, H, active)
-                  : ng_active<8, NG_FIXED_DEPTH, 0>(p, H, active);
-  }
+  if (L == NG_FIXED_DEPTH)
+    return four ? ng_active<4, NG_FIXED_DEPTH, FL>(p, H, active)
+                : ng_active<8, NG_FIXED_DEPTH, FL>(p, H, active);
   return four ? ng_active<4, 0, FL>(p, H, active)
               : ng_active<8, 0, FL>(p, H, active);
 }

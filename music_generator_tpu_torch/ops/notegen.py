@@ -59,6 +59,18 @@ instance of each (weights stored in bfloat16, every sum in float32):
     accumulation, a_l and the heads' sigmoid in float32.  Against the
     Pallas kernel in interpret mode on the CPU the draws agree and
     volumes differ by at most 6.2e-4 (an h rounded the other way).
+
+Where the kernels round h: the streamed kernel at each read; the cluster
+kernel once, where a cell thread makes h and writes it to every block of
+its cluster.  The fused flavor writes bf16(h), which every reader (h U,
+the next layer's input, the heads) takes as it is.  The scan flavor
+writes bf16(h) for its last layer (h U and the heads) and, for every
+other layer l, bf16(h) and bf16(h + style term of layer l + 1) as one
+pair of bfloat16 in the 4 bytes of one float32 h (the plan and its
+shared memory unchanged), so h U reads one half and the input of layer
+l + 1 the other.  Each product then takes the same operands in the same
+order as if it rounded at the read: both kernels, and every plan, draw
+bit for bit alike.
 """
 
 from __future__ import annotations
@@ -613,7 +625,7 @@ def _launch(ops: _Operands, hard: bool,
     and the draw (a head warp, beside [0]-[1]); [6] the prologue, [7] the
     whole launch; [8]-[11] C, Gc, clusters and N; [12] the prologue up to
     the acc_F chunks, [13] the chunks.  `lib`: another build of
-    csrc/notegen.cu bound with _SIGNATURES (tools/notegen_depth_probe.py),
+    csrc/notegen.cu bound with _SIGNATURES (tools/notegen_ab.py),
     else the wrapper's own.  Returns the [G, N, 3] output."""
     G, N, F = ops.feats.shape
     plan = notegen_plan(G, len(ops.u), F, ops.u[0].shape[0], N, ops.esize)

@@ -64,6 +64,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def notegen_inputs(model, G: int, T: float, seed: int):
+    """Random pitch-loop inputs at the model's widths, on the card:
+    time-axis features in (-1, 1) like an LSTM's h, uniforms in [0, 1),
+    temperature T, a style embedding (chip_smoke.py phases 2 and 4,
+    tools/notegen_ab.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    F = model.cfg.time_axis_units
+    N = model.cfg.num_notes
+    feats = torch.rand(G, N, F, generator=gen) * 2 - 1
+    us = torch.rand(G, N, 2, generator=gen)
+    emb = torch.randn(G, model.cfg.style_units, generator=gen)
+    temp = torch.full((G,), T)
+    return [t.cuda() for t in (feats, us, temp, emb)]
+
+
 def steady_epoch(history: dict, seq_len: int) -> tuple:
     """(seconds, timesteps/s) of a fit's steady epoch: the median epoch of
     `Trainer.fit`'s history without epoch 0, which builds the kernels, at
