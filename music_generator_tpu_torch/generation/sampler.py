@@ -56,6 +56,7 @@ from music_generator_tpu_torch.midi.io import write_midifile
 from music_generator_tpu_torch.models.deepj import DeepJ
 from music_generator_tpu_torch.ops.notegen import note_sample, note_weights
 from music_generator_tpu_torch.parallel import mesh
+from music_generator_tpu_torch.utils import spans
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,11 +165,15 @@ class Sampler:
     def _step(self, style_emb: torch.Tensor, state: StepState, t: int,
               us: torch.Tensor) -> Tuple[StepState, torch.Tensor]:
         G = style_emb.shape[0]
-        feats, time_state = self.model.time_axis_step(
-            state.prev_note, self._beat_row(t, G), style_emb,
-            state.time_state)
-        next_note = self._note_scan(feats, style_emb, state.temperature, us)
-        temperature, silent_time = self._temperature_update(state, next_note)
+        with spans.span("gen.time_step"):
+            feats, time_state = self.model.time_axis_step(
+                state.prev_note, self._beat_row(t, G), style_emb,
+                state.time_state)
+        with spans.span("gen.note_sample"):
+            next_note = self._note_scan(feats, style_emb, state.temperature,
+                                        us)
+            temperature, silent_time = self._temperature_update(state,
+                                                                next_note)
         return StepState(time_state, next_note, temperature, state.base_temp,
                          silent_time, state.stream_keys), next_note
 
@@ -261,21 +266,35 @@ class Sampler:
         2*replay as uint8 [G, C, N] and the volume [G, C, N] (float32, or
         the velocity byte under gen_compact_transfer)."""
         cfg = self.cfg
-        us_all = self._chunk_uniforms(state.stream_keys, t0, num_steps)
-        notes = []
-        with bf16_f32_sums(self._bf16_card):
-            for i in range(num_steps):
-                state, note = self._step(style_emb, state, t0 + i,
-                                         us_all[i])
-                notes.append(note)
-        notes = torch.stack(notes, dim=1)                 # [G, C, N, 3]
-        playreplay = (notes[..., 0] + 2.0 * notes[..., 1]).to(torch.uint8)
-        vol = notes[..., 2]
-        if cfg.gen_compact_transfer:
-            vol = torch.floor(vol * float(cfg.max_velocity)).to(torch.uint8)
-        # Every rank's streams, rank-major: the whole batch on every rank.
-        return state, (mesh.all_gather_rows(playreplay),
-                       mesh.all_gather_rows(vol))
+        with spans.span("gen.chunk"):
+            with spans.span("gen.uniforms"):
+                us_all = self._chunk_uniforms(state.stream_keys, t0,
+                                              num_steps)
+            notes = []
+            with bf16_f32_sums(self._bf16_card):
+                for i in range(num_steps):
+                    state, note = self._step(style_emb, state, t0 + i,
+                                             us_all[i])
+                    notes.append(note)
+            notes = torch.stack(notes, dim=1)             # [G, C, N, 3]
+            playreplay = (notes[..., 0] + 2.0 * notes[..., 1]).to(
+                torch.uint8)
+            vol = notes[..., 2]
+            if cfg.gen_compact_transfer:
+                vol = torch.floor(vol * float(cfg.max_velocity)).to(
+                    torch.uint8)
+            # Every rank's streams, rank-major: the whole batch on every
+            # rank.
+            return state, (mesh.all_gather_rows(playreplay),
+                           mesh.all_gather_rows(vol))
+
+    def _pull(self, out: Tuple[torch.Tensor, torch.Tensor]) -> np.ndarray:
+        """A chunk's packed notes copied to the host (the wait for the
+        chunk) and unpacked: [G, C, N, 3]."""
+        with spans.span("gen.host_copy", wait=True):
+            pulled = [x.cpu().numpy() for x in out]
+        with spans.span("gen.assemble"):
+            return self._assemble(*pulled)
 
     def _assemble(self, pulled_pr: np.ndarray,
                   pulled_vol: np.ndarray) -> np.ndarray:
@@ -450,11 +469,10 @@ class Sampler:
             n = chunk if pad_partial_chunk else min(chunk, num_steps - t)
             state, out = self._chunk(style_emb, state, n, t)
             if pending is not None:
-                pieces.append(self._assemble(*(x.cpu().numpy()
-                                               for x in pending)))
+                pieces.append(self._pull(pending))
             pending = out
             t += n
-        pieces.append(self._assemble(*(x.cpu().numpy() for x in pending)))
+        pieces.append(self._pull(pending))
         notes = np.concatenate(pieces, axis=1)[:G_real, :gen_steps]
         return GenerationResult(notes, styles_np[:G_real])
 
@@ -482,8 +500,7 @@ class ActiveGeneration:
         for _ in range(num_chunks):
             self._state, out = s._chunk(self._style_emb, self._state,
                                         self.chunk_steps, self.t)
-            pieces.append(s._assemble(*(x.cpu().numpy() for x in out))[
-                :self.G_real])
+            pieces.append(s._pull(out)[:self.G_real])
             self.t += self.chunk_steps
         return np.concatenate(pieces, axis=1)
 

@@ -49,6 +49,7 @@ from music_generator_tpu_torch.ops.linear_scan import (GLRUParams, glru_scan,
 from music_generator_tpu_torch.ops.lstm import (check_recurrent_activation,
                                                 lstm_scan, lstm_step)
 from music_generator_tpu_torch.ops.lstm2 import lstm2_stack
+from music_generator_tpu_torch.utils import spans
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -362,8 +363,9 @@ class DeepJ(nn.Module):
         read on the host) when the stacks' dropout is on, else zeros."""
         if self._stack_dropout(generator, train) <= 0.0:
             return [0] * n
-        return torch.randint(0, 2**31 - 1, (n,), generator=generator,
-                             device=generator.device).tolist()
+        with spans.span("deepj.stack_seeds", wait=True):
+            return torch.randint(0, 2**31 - 1, (n,), generator=generator,
+                                 device=generator.device).tolist()
 
     def _fused_stack(self, layers, x_flat: torch.Tensor,
                      proj1_flat: torch.Tensor,
@@ -477,25 +479,40 @@ class DeepJ(nn.Module):
         if self._use_biax_v3():
             return self._forward_biax_v3(notes, chosen, beat, style,
                                          generator, train)
-        cfg, dt = self.cfg, self._dt()
-        notes = dropout(notes, cfg.input_dropout, generator, train)
-        beat = dropout(beat, cfg.input_dropout, generator, train)
-        chosen = dropout(chosen, cfg.input_dropout, generator, train)
-        style_emb = dense_apply(self.style_embed, style, dt)    # [B, T, S]
-        conv_out = self.octave_conv(notes, generator, train, dt)
-        feats = self.note_features(notes, beat, conv_out)       # [B, T, N, F]
+        chosen, style_emb, feats = self._inputs(
+            notes, chosen, beat, style, generator, train)
         # Both stack seeds in one draw before the axes are queued: a draw
         # between them would make the host wait for the time axis.
         fused = self._use_fused(self.time_axis) or self._use_fused(
             self.note_axis)
         seed_t, seed_n = (self._stack_seeds(generator, train, 2) if fused
                           else (0, 0))
-        t_out_tm = self.time_axis_tm(feats.permute(1, 0, 2, 3),
-                                     style_emb.transpose(0, 1), generator,
-                                     train, seed_t)             # [T, B, N, H]
-        out_nm = self.note_axis_nm(t_out_tm.permute(2, 1, 0, 3), chosen,
-                                   style_emb, generator, train, seed_n)
+        with spans.span("deepj.time_axis"):
+            t_out_tm = self.time_axis_tm(feats.permute(1, 0, 2, 3),
+                                         style_emb.transpose(0, 1),
+                                         generator, train,
+                                         seed_t)                # [T, B, N, H]
+        with spans.span("deepj.note_axis"):
+            out_nm = self.note_axis_nm(t_out_tm.permute(2, 1, 0, 3), chosen,
+                                       style_emb, generator, train, seed_n)
         return out_nm.permute(1, 2, 0, 3)
+
+    def _inputs(self, notes: torch.Tensor, chosen: torch.Tensor,
+                beat: torch.Tensor, style: torch.Tensor,
+                generator: Optional[torch.Generator], train: bool) -> Tuple:
+        """What both routes run before the axes, in the compute dtype: the
+        input dropouts of notes, beat and chosen, the style embedding, the
+        octave conv and the note features; returns (chosen, style_emb
+        [B, T, S], feats [B, T, N, F])."""
+        cfg, dt = self.cfg, self._dt()
+        with spans.span("deepj.inputs"):
+            notes = dropout(notes, cfg.input_dropout, generator, train)
+            beat = dropout(beat, cfg.input_dropout, generator, train)
+            chosen = dropout(chosen, cfg.input_dropout, generator, train)
+            style_emb = dense_apply(self.style_embed, style, dt)
+            conv_out = self.octave_conv(notes, generator, train, dt)
+            feats = self.note_features(notes, beat, conv_out)
+        return chosen, style_emb, feats
 
     def _forward_biax_v3(self, notes: torch.Tensor, chosen: torch.Tensor,
                          beat: torch.Tensor, style: torch.Tensor,
@@ -507,43 +524,40 @@ class DeepJ(nn.Module):
         cfg = self.cfg
         dt = self._dt()
         act = cfg.lstm_recurrent_activation
-        notes = dropout(notes, cfg.input_dropout, generator, train)
-        beat = dropout(beat, cfg.input_dropout, generator, train)
-        chosen = dropout(chosen, cfg.input_dropout, generator, train)
-
-        style_emb = dense_apply(self.style_embed, style, dt)    # [B, T, S]
-        conv_out = self.octave_conv(notes, generator, train, dt)
-        feats = self.note_features(notes, beat, conv_out)       # [B, T, N, F]
+        chosen, style_emb, feats = self._inputs(
+            notes, chosen, beat, style, generator, train)
 
         p = self._stack_dropout(generator, train)
         seed_t, seed_n = self._stack_seeds(generator, train, 2)
 
         emb_tb = style_emb.transpose(0, 1)                      # [T, B, S]
-        tl0, tl1 = self.time_axis
-        s0_t = torch.tanh(dense_apply(tl0.style_proj, emb_tb, dt))
-        s1_t = torch.tanh(dense_apply(tl1.style_proj, emb_tb, dt))
-        ht = biax_time_stack(
-            feats.permute(1, 2, 0, 3), s0_t, s1_t,              # [T, N, B, F]
-            tl0.lstm.kernel, tl0.lstm.bias, tl1.lstm.bias,
-            tl0.lstm.recurrent, tl1.lstm.kernel, tl1.lstm.recurrent,
-            dropout_p=p, seed=seed_t, compute_dtype=dt,
-            recurrent_activation=act)
+        with spans.span("deepj.time_axis"):
+            tl0, tl1 = self.time_axis
+            s0_t = torch.tanh(dense_apply(tl0.style_proj, emb_tb, dt))
+            s1_t = torch.tanh(dense_apply(tl1.style_proj, emb_tb, dt))
+            ht = biax_time_stack(
+                feats.permute(1, 2, 0, 3), s0_t, s1_t,          # [T, N, B, F]
+                tl0.lstm.kernel, tl0.lstm.bias, tl1.lstm.bias,
+                tl0.lstm.recurrent, tl1.lstm.kernel, tl1.lstm.recurrent,
+                dropout_p=p, seed=seed_t, compute_dtype=dt,
+                recurrent_activation=act)
 
-        nl0, nl1 = self.note_axis
-        chosen_ntb = chosen.permute(2, 1, 0, 3)                 # [N, T, B, 3]
-        shift_chosen = torch.cat(
-            [torch.zeros_like(chosen_ntb[:1]), chosen_ntb[:-1]], dim=0)
-        s0_n = torch.tanh(dense_apply(nl0.style_proj, emb_tb, dt))
-        s1_n = torch.tanh(dense_apply(nl1.style_proj, emb_tb, dt))
-        whead = torch.cat([self.note_dense.kernel, self.volume_dense.kernel],
-                          dim=-1)
-        bhead = torch.cat([self.note_dense.bias, self.volume_dense.bias])
-        out = biax_note_stack(
-            ht, shift_chosen, s0_n, s1_n,
-            nl0.lstm.kernel, nl0.lstm.bias, nl1.lstm.bias,
-            nl0.lstm.recurrent, nl1.lstm.kernel, nl1.lstm.recurrent,
-            whead, bhead, dropout_p=p, seed=seed_n, compute_dtype=dt,
-            recurrent_activation=act)
+        with spans.span("deepj.note_axis"):
+            nl0, nl1 = self.note_axis
+            chosen_ntb = chosen.permute(2, 1, 0, 3)             # [N, T, B, 3]
+            shift_chosen = torch.cat(
+                [torch.zeros_like(chosen_ntb[:1]), chosen_ntb[:-1]], dim=0)
+            s0_n = torch.tanh(dense_apply(nl0.style_proj, emb_tb, dt))
+            s1_n = torch.tanh(dense_apply(nl1.style_proj, emb_tb, dt))
+            whead = torch.cat([self.note_dense.kernel,
+                               self.volume_dense.kernel], dim=-1)
+            bhead = torch.cat([self.note_dense.bias, self.volume_dense.bias])
+            out = biax_note_stack(
+                ht, shift_chosen, s0_n, s1_n,
+                nl0.lstm.kernel, nl0.lstm.bias, nl1.lstm.bias,
+                nl0.lstm.recurrent, nl1.lstm.kernel, nl1.lstm.recurrent,
+                whead, bhead, dropout_p=p, seed=seed_n, compute_dtype=dt,
+                recurrent_activation=act)
         return out.permute(2, 1, 0, 3)                          # [B, T, N, 3]
 
     def loss(self, batch, generator: Optional[torch.Generator] = None,

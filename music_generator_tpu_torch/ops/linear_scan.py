@@ -23,6 +23,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from music_generator_tpu_torch.utils import spans
+
 
 class GLRUParams(nn.Module):
     """kernel [in, 2H] (the gate block, then the candidate block) and bias
@@ -84,9 +86,13 @@ def glru_scan(p: GLRUParams, xs: torch.Tensor,
               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """xs [T, B, in] -> hs [T, B, H] from a zero state, in the compute
     dtype: one [T*B, in] @ [in, 2H] product for every step's gates, then
-    the log-depth scan."""
+    the log-depth scan (the spans `linear_scan.tree` and, over its
+    backward, `linear_scan.tree.bwd`)."""
     a, b = glru_gates(p, xs, compute_dtype)
-    return associative_scan(a, b)[1]
+    with spans.span("linear_scan.tree"):
+        hs = associative_scan(a, b)[1]
+    spans.backward_span("linear_scan.tree.bwd", (hs,), (a, b))
+    return hs
 
 
 def glru_scan_sequential(p: GLRUParams, xs: torch.Tensor,

@@ -30,6 +30,7 @@ import torch
 from music_generator_tpu_torch.models.deepj import DeepJ, per_sample_loss
 from music_generator_tpu_torch.ops.nadam import Nadam
 from music_generator_tpu_torch.parallel import mesh
+from music_generator_tpu_torch.utils import spans
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -83,23 +84,33 @@ def step_generator(seed: int, step: int, device: torch.device,
 def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
     """One update on `batch` = (notes, targets, beats, styles) on the
     model's device (this rank's rows of the global batch); returns the
-    step's metrics, averaged over the ranks, as device scalars."""
-    model = state.model
-    gen = step_generator(state.seed, state.step, model.device,
-                         mesh.rank())
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = model.loss(batch, generator=gen, train=True)
-    loss.backward()
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if mesh.world() > 1:
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        names = sorted(metrics)
-        values = torch.stack([metrics[k] for k in names]).to(
-            grads[0].dtype)
-        mesh.all_reduce_mean_(grads + [values])
-        metrics = {k: values[i] for i, k in enumerate(names)}
-    state.optimizer.step()
-    state.step += 1
+    step's metrics, averaged over the ranks, as device scalars.  Its
+    phases are the spans `train.step` > `train.zero_grad`,
+    `train.forward`, `train.backward`, `train.all_reduce` (world > 1),
+    `train.optimizer` (utils/spans.py)."""
+    with spans.span("train.step"):
+        model = state.model
+        gen = step_generator(state.seed, state.step, model.device,
+                             mesh.rank())
+        with spans.span("train.zero_grad"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with spans.span("train.forward"):
+            loss, metrics = model.loss(batch, generator=gen, train=True)
+        with spans.span("train.backward"):
+            loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh.world() > 1:
+            with spans.span("train.all_reduce"):
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None]
+                names = sorted(metrics)
+                values = torch.stack([metrics[k] for k in names]).to(
+                    grads[0].dtype)
+                mesh.all_reduce_mean_(grads + [values])
+                metrics = {k: values[i] for i, k in enumerate(names)}
+        with spans.span("train.optimizer"):
+            state.optimizer.step()
+        state.step += 1
     return metrics
 
 

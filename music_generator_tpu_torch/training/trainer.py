@@ -32,7 +32,7 @@ import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Optional
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ from music_generator_tpu_torch.training.checkpoint import (CheckpointStore,
                                                            model_path)
 from music_generator_tpu_torch.training.metrics import (MetricLogger,
                                                         Throughput)
-from music_generator_tpu_torch.utils import param_summary
+from music_generator_tpu_torch.utils import param_summary, spans
 
 
 @dataclasses.dataclass
@@ -64,9 +64,9 @@ class TrainConfig:
     checkpoint: bool = True
     tensorboard: bool = True
     # Write a torch.profiler trace (CPU and CUDA activities, Chrome trace
-    # format) of steps [profile_start, profile_stop) of epoch 0 under
-    # <log_dir>/profile, one file a rank under data parallelism.  Profiling
-    # runs the `stream` mode.
+    # format, with the program's spans) of steps [profile_start,
+    # profile_stop) of epoch 0 under <log_dir>/profile, one file a rank
+    # under data parallelism.  Profiling runs the `stream` mode.
     profile: bool = False
     profile_start: int = 5
     profile_stop: int = 10
@@ -462,19 +462,27 @@ class Trainer:
         # loss does not depend on the mode.
         return torch.stack(losses).float().cpu().numpy()
 
-    def _start_profile(self) -> torch.profiler.profile:
+    def _start_profile(self) -> Tuple[torch.profiler.profile,
+                                      spans.Recording]:
+        """The profiler, and a recording of the program's spans over the
+        same steps: the trace carries them, and they stay out of the
+        process-wide recording (utils/spans.py)."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.model.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
+        rec = spans.recording().start()
         prof.start()
-        return prof
+        return prof, rec
 
-    def _stop_profile(self, prof: torch.profiler.profile, start: int,
-                      stop: int) -> None:
+    def _stop_profile(self, profiling: Tuple[torch.profiler.profile,
+                                             spans.Recording],
+                      start: int, stop: int) -> None:
+        prof, rec = profiling
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
         prof.stop()
+        rec.stop()
         out_dir = os.path.join(self.cfg.log_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
         # Under data parallelism every rank traces its own card.

@@ -200,21 +200,43 @@ def test_port_mode_tracks_jax(corpus, tmp_path, mode):
                                    rtol=0, atol=1e-4, err_msg=name)
 
 
-def test_train_main_profile_writes_a_trace(tmp_path, monkeypatch, capsys):
+def _profiled_train_main(tmp_path, monkeypatch) -> dict:
+    """train --profile for one epoch of 10 steps on a synthetic corpus."""
     cfg = port_test_config()
     monkeypatch.setattr(cli, "default_config", lambda: cfg)
     monkeypatch.chdir(tmp_path)
     write_synth_corpus(".", styles=[0, 1], files_per_style=2, bars=4,
                        config=cfg)
-    hist = cli.train_main(["--device", "cpu", "--profile", "--epochs", "1"])
+    return cli.train_main(["--device", "cpu", "--profile", "--epochs", "1"])
+
+
+_PROFILE_TRACE = os.path.join("out", "logs", "profile",
+                              "train_steps_5_10.pt.trace.json")
+
+
+def test_train_main_profile_writes_a_trace(tmp_path, monkeypatch, capsys):
+    hist = _profiled_train_main(tmp_path, monkeypatch)
     assert hist["epoch_scan_mode"] == "stream"
     assert hist["steps_per_epoch"] == [10]
-    trace = os.path.join("out", "logs", "profile",
-                         "train_steps_5_10.pt.trace.json")
+    trace = _PROFILE_TRACE
     assert f"profiler trace written to {trace}" in capsys.readouterr().out
     with open(tmp_path / trace) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_train_main_profile_trace_holds_the_spans(tmp_path, monkeypatch):
+    """The profiled steps 5-9 carry the program's spans: one `train.step`
+    a step, each with its phases, and nothing left recording after."""
+    from music_generator_tpu_torch.utils import spans
+    kept = len(spans.profiled().spans)
+    _profiled_train_main(tmp_path, monkeypatch)
+    with open(tmp_path / _PROFILE_TRACE) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    for name in ("train.step", "train.forward", "train.backward",
+                 "train.optimizer", "deepj.stack_seeds"):
+        assert names.count(name) == 5, name
+    assert not spans.is_on() and len(spans.profiled().spans) == kept
 
 
 def test_run_big_corpus_on_the_cpu(tmp_path, monkeypatch):
