@@ -38,7 +38,9 @@ Phases (any failure exits non-zero, before the result line):
      with nonzero initial states, dropout 0 and 0.5, every result, at
      both axes' shapes and small odd widths, with the same scan routes;
      and the lstm2 mask dump (kernel 10) against its plain version, bit
-     for bit;
+     for bit; and Nadam's multi-tensor update (kernel 11) against the plain
+     per-leaf update over 20 steps on DeepJ's leaves at both time axes'
+     widths, bit for bit, two launches a step;
   2b. kernel 1's bfloat16 instances, both flavors ("scan", the JAX
      Sampler's default arithmetic, and "fused", pallas_note_sample's at
      compute_dtype=bfloat16), against their bfloat16 plain versions
@@ -64,7 +66,9 @@ Phases (any failure exits non-zero, before the result line):
      default_config(), 2 epochs on a synthetic corpus of all 23 styles),
      and check that every step launched each training kernel once (each
      biaxial forward's and backward's two scans on the cluster route) and
-     no plain version ran, that the losses are
+     no plain version ran, that every step updated every leaf on Nadam's
+     kernels (two launches) and none on its plain update, that the losses
+     are
      finite, and that generate_main picks up the checkpoint and writes 3
      files;
   3d. one dropout-0 training step on a seeded batch: kernels against the
@@ -77,7 +81,8 @@ Phases (any failure exits non-zero, before the result line):
      fused_biax_v3=False (the fused two-layer stack per axis),
      fused_axis_kernel=False as well (one recurrence per layer) and a
      3 + 3 layer stack, checking the exact launch counts of each step, no
-     plain version and no biaxial launch, every bfloat16 recurrence
+     plain version and no biaxial launch, every leaf of every step on
+     Nadam's kernels, every bfloat16 recurrence
      forward's and backward's scan and both scans of every bfloat16
      fused-stack forward and backward on the cluster route, finite
      losses, evaluate()
@@ -155,7 +160,8 @@ Phases (any failure exits non-zero, before the result line):
      kernels held to 3d's bars on fresh weights, both gate flavors, and
      read on the rebuilt weights), Trainer.fit for 1 epoch of the 3c
      corpus with kernels 6 and 7 once a step and no other kernel or plain
-     version, the checkpoint reloaded; Sampler.generate at G = 3 and 64
+     version, every leaf of every step on Nadam's kernels, the checkpoint
+     reloaded; Sampler.generate at G = 3 and 64
      with kernel 1 once a timestep, streams 0-2 event-identical to
      artifacts/linear_time_r19 (bytes reported); a linear-kind /generate
      equal to its solo run; tools/run_parallel_scan_study.py's three
@@ -203,10 +209,14 @@ Phases (any failure exits non-zero, before the result line):
      every bfloat16 call), and the mask dump (its device time a launch
      from the profiler, bit for bit stack_masks again, against the larger
      of its bytes and its row loop's instructions, counted from the SASS,
-     at the card's issue rate; the loop must hold no division).
+     at the card's issue rate; the loop must hold no division), and
+     Nadam's update a step on both time axes' leaves (device time with the
+     L2 cache rewritten before every step, as a step's backward leaves it)
+     against the plain per-leaf update's and one pass over the leaves'
+     bytes at HBM rate.
 The line before the last holds the per-kernel JSON (kernel 1 with the
-note depths it ran; kernels 1, 6 and 7 with phase 3n's launches under
-"linear_time"; kernels 2-5 with phase 3r's launches under
+note depths it ran; kernels 1, 6, 7 and 11 with phase 3n's launches under
+"linear_time", kernel 11 with its times on the linear kind's leaves; kernels 2-5 with phase 3r's launches under
 "augment_study"; kernel 1's bfloat16 instances as notegen_bf16_scan and
 notegen_bf16_fused with phase 3p's launches), the one before it phase
 3m's readings; the last
@@ -287,6 +297,13 @@ MASK_KERNEL = ("lstm2_masks", "tools/tpu_validate_lstm2.py:30",
                "music_generator_tpu_torch/csrc/lstm2_masks.cu")
 MASK_SHAPES = [(32, 512, 256), (128, 768, 256), (48, 2048, 128),
                (5, 37, 19)]
+# Kernel 11: Nadam's update, which XLA fuses under jit in the JAX package.
+NADAM_KERNEL = ("nadam", "music_generator_tpu/ops/nadam.py:41",
+                "music_generator_tpu_torch/csrc/nadam.cu")
+NADAM_STEPS = 20            # steps phase 2 holds the kernels to the plain loop
+NADAM_BYTES_PER_ELEMENT = 28    # p, g, mu, nu read; p, mu, nu written
+L2_FLUSH_BYTES = 256 * 2**20    # rewritten before each timed step: 5x the L2
+L2_FLUSH_KERNEL = "bitwise_not"  # the rewrite's kernel, which Nadam never runs
 # The per-axis routes of phases 3e, 3f and 4: config overrides, and the
 # launches of each kernel in one training step.
 ROUTES = {
@@ -1004,7 +1021,9 @@ def _training_wrappers():
 
 
 def reset_counts():
-    from music_generator_tpu_torch.ops import biax, lstm2, recurrence
+    from music_generator_tpu_torch.ops import biax, lstm2, nadam, recurrence
+    nadam.nadam_update.launches = nadam.nadam_update.tensors = 0
+    nadam.nadam_update_reference.calls = 0
     for _, fn, plain in _training_wrappers():
         fn.fwd_launches = fn.bwd_launches = 0
         plain.calls = 0
@@ -1031,6 +1050,29 @@ def fwd_scan_counts(kind: str):
     from music_generator_tpu_torch.ops import biax
     stack = getattr(biax, f"biax_{kind}_stack")
     return stack.fwd_cluster_scans, stack.fwd_streamed_scans
+
+
+def nadam_counts():
+    """(launches, leaves updated) of Nadam's kernels, plain update calls."""
+    from music_generator_tpu_torch.ops import nadam
+    return (nadam.nadam_update.launches, nadam.nadam_update.tensors,
+            nadam.nadam_update_reference.calls)
+
+
+def check_nadam_fit(what: str, steps: int, model) -> int:
+    """Fail unless the fit just counted (counts set to 0 before it) made
+    two Nadam launches a step, each step updating every leaf of `model`
+    that holds a gradient (the last step's) on the kernels and none on the
+    plain update.  Returns the launches."""
+    launches, tensors, plain = nadam_counts()
+    leaves = sum(p.grad is not None for p in model.parameters())
+    log(f"{what}: Nadam launches {launches}, leaves updated {tensors} "
+        f"({leaves} leaves with a gradient), plain update calls {plain}")
+    if (launches, tensors, plain) != (2 * steps, leaves * steps, 0) or (
+            leaves == 0):
+        fail(f"{what}: Nadam counted {(launches, tensors, plain)} in "
+             f"{steps} steps, not {(2 * steps, leaves * steps, 0)}")
+    return launches
 
 
 def read_counts():
@@ -1066,6 +1108,7 @@ def train_main_path(cfg):
             scans[f"{kind} forward"] = fwd_scan_counts(kind)
             scans[f"{kind} backward"] = scan_counts(kind)
         train_s = time.perf_counter() - t
+        nadam = nadam_counts()
         paths = generate_main(["--bars", "2"])
         model, loaded = build_or_load(cfg, "cuda")
     finally:
@@ -1080,6 +1123,15 @@ def train_main_path(cfg):
             for k, v in launches.items()) or plain != 0):
         fail("the training main path did not run every step through each "
              "biaxial kernel, and only through them")
+    # train_main's model is gone; the reloaded one has its leaves, and
+    # every DeepJ leaf takes a gradient at every step.
+    leaves = len(list(model.parameters()))
+    log(f"train main path: Nadam (launches, leaves updated, plain update "
+        f"calls) {nadam} for {leaves} leaves")
+    if nadam != (2 * steps, leaves * steps, 0):
+        fail(f"the training main path's Nadam counted {nadam}, not "
+             f"{(2 * steps, leaves * steps, 0)}")
+    launches["nadam"] = nadam[0]
     for kind, ran in scans.items():
         if cfg.compute_dtype == "bfloat16" and ran != (2 * steps, 0):
             fail(f"the bfloat16 {kind} ran scans {ran}, not "
@@ -1147,6 +1199,7 @@ def train_routes(cfg):
             if rc.compute_dtype == "bfloat16" and ran != want:
                 fail(f"route {route}: the bfloat16 lstm2 {d} ran scans "
                      f"{ran}, not {want} on the cluster route")
+        check_nadam_fit(f"route {route}", steps, trainer.model)
         if not np.isfinite(hist["loss"]).all():
             fail(f"route {route}: non-finite training loss")
         reset_counts()
@@ -1822,6 +1875,66 @@ def check_mask_kernel():
     log(f"lstm2_masks: {cases} cases equal to stack_masks bit for bit "
         f"(shapes {MASK_SHAPES}, float32 and bfloat16, p 0.1 and 0.5, "
         f"seeds 7 and 1234)")
+    return err
+
+
+def nadam_leaves(cfg, kind: str, seed: int):
+    """(leaves, their Nadam, a copy of the leaves, its Nadam): DeepJ's
+    leaves at cfg's widths with time axis `kind`, drawn from `seed`, on
+    the card."""
+    from music_generator_tpu_torch.models.deepj import DeepJ
+    from music_generator_tpu_torch.ops.nadam import Nadam
+    shapes = [p.shape for p in
+              DeepJ(cfg.replace(time_axis_kind=kind), "cpu").parameters()]
+    gen = torch.Generator().manual_seed(seed)
+    a = [torch.randn(s, generator=gen).cuda() for s in shapes]
+    b = [p.clone() for p in a]
+    return a, Nadam(a), b, Nadam(b)
+
+
+def nadam_grads(a, b, gen) -> None:
+    """The same fresh gradients, drawn from `gen`, on leaves `a` and `b`."""
+    for p, q in zip(a, b):
+        p.grad = torch.randn(p.shape, generator=gen).cuda()
+        q.grad = p.grad.clone()
+
+
+def check_nadam(cfg) -> float:
+    """Kernel 11 (`Nadam.step` on the card) against the plain per-leaf
+    update (`plain_step`) over NADAM_STEPS steps of fresh gradients on
+    DeepJ's leaves at cfg's widths, time axes "lstm" (the deepj cell's 28
+    leaves) and "linear" (26): p, mu, nu, count and m_schedule of every
+    leaf bit for bit after every step, two launches a step and every leaf
+    on the kernels.  Returns the largest |difference|."""
+    from music_generator_tpu_torch.ops.nadam import plain_step
+    err = 0.0
+    for kind in ("lstm", "linear"):
+        a, opt, b, ref = nadam_leaves(cfg, kind, seed=0)
+        gen = torch.Generator().manual_seed(1)
+        reset_counts()
+        for step in range(NADAM_STEPS):
+            nadam_grads(a, b, gen)
+            opt.step()
+            plain_step(ref)
+            torch.cuda.synchronize()
+            for i, (p, q) in enumerate(zip(a, b)):
+                pairs = [("p", p, q)] + [(k, opt.state[p][k], ref.state[q][k])
+                                         for k in ("mu", "nu", "count",
+                                                   "m_schedule")]
+                for what, x, y in pairs:
+                    err = max(err, float((x - y).abs().max()))
+                    if not torch.equal(x, y):
+                        fail(f"nadam {kind}: step {step} leaf {i} {what} "
+                             f"differs from the plain update")
+        counts = nadam_counts()
+        want = (2 * NADAM_STEPS, len(a) * NADAM_STEPS, len(a) * NADAM_STEPS)
+        if counts != want:
+            fail(f"nadam {kind}: (launches, leaves on the kernels, plain "
+                 f"calls of the yardstick) {counts}, not {want}")
+        log(f"nadam {kind}: {len(a)} leaves, "
+            f"{sum(p.numel() for p in a)} elements, {NADAM_STEPS} steps bit "
+            f"for bit the plain update; (launches, leaves on the kernels, "
+            f"plain calls of the yardstick) {counts}")
     return err
 
 
@@ -3432,6 +3545,68 @@ def time_masks(card):
     return out
 
 
+def profiled_kernels(fn, reps: int, flush=None) -> dict:
+    """{kernel name: (device us, launches)} over a profiled run of `reps`
+    calls of `fn` after a warm-up call; `flush`, when given, runs before
+    every call and its kernel (L2_FLUSH_KERNEL) is left out."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not (flush is not None and L2_FLUSH_KERNEL in e.key)}
+
+
+def time_nadam(cfg, card, reps: int = 200) -> dict:
+    """ms a step of kernel 11 (its two kernels' device time a launch, from
+    the profiler, summed) and of the plain per-leaf update (the device
+    time of all its launches a step), with the L2 cache rewritten before
+    every step, as a training step's backward leaves p, mu and nu; the
+    bound: one pass over the leaves' bytes (NADAM_BYTES_PER_ELEMENT) at
+    HBM rate; on DeepJ's leaves at cfg's widths, time axes "lstm" and
+    "linear".  Returns {kind: (ms, plain ms, bound ms)}."""
+    from music_generator_tpu_torch.ops.nadam import plain_step
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda").bitwise_not_
+    plain_reps = reps // 10
+    out = {}
+    for kind in ("lstm", "linear"):
+        a, opt, b, ref = nadam_leaves(cfg, kind, seed=2)
+        nadam_grads(a, b, torch.Generator().manual_seed(3))
+        kern = profiled_kernels(opt.step, reps, flush)
+        if sorted(k for k in kern if "nadam" in k) != sorted(kern) or (
+                len(kern) != 2):
+            fail(f"nadam {kind}: the kernels' step ran {sorted(kern)}, not "
+                 f"the update and scalar kernels alone")
+        ms = sum(us / n for us, n in kern.values()) / 1e3
+        warm = sum(us / n for us, n in
+                   profiled_kernels(opt.step, reps).values()) / 1e3
+        plain_k = profiled_kernels(lambda: plain_step(ref), plain_reps, flush)
+        plain = sum(us for us, _ in plain_k.values()) / plain_reps / 1e3
+        plain_launches = sum(n for _, n in plain_k.values()) / plain_reps
+        call = cuda_ms(opt.step, 50)
+        plain_call = cuda_ms(lambda: plain_step(ref), 5)
+        elements = sum(p.numel() for p in a)
+        bound = elements * NADAM_BYTES_PER_ELEMENT / HBM_BYTES_PER_S * 1e3
+        out[kind] = (ms, plain, bound)
+        log(f"nadam {kind} ({len(a)} leaves, {elements} elements): kernels "
+            f"{ms:.6f} ms/step on the device with L2 rewritten (profiler; "
+            + "; ".join(f"{k} {us / n / 1e3:.6f} ms" for k, (us, n)
+                        in sorted(kern.items()))
+            + f"), {warm:.6f} ms with L2 warm, the call {call:.4f} ms by "
+            f"CUDA events; plain update {plain:.6f} ms/step on the device "
+            f"in {plain_launches:.1f} launches, the call {plain_call:.4f} "
+            f"ms; bound {bound:.6f} ms by bytes; {bound / ms:.3f} of the "
+            f"bound ({card})")
+    return out
+
+
 # Phase 3n: the linear time axis (time_axis_kind="linear") at
 # default_config() widths on the r4 weights rebuilt by
 # tools/common.py::linear_params(r4, seed=0).  Its training kernels a step
@@ -3496,7 +3671,8 @@ def linear_time(cfg, card) -> dict:
     0, at G = 3 and 64: kernel 1 once a timestep, and the note events of
     streams 0-2 those of artifacts/linear_time_r19 (bytes reported); a
     linear-kind /generate equal to its solo run; (d) the study tool's
-    three routes at B = 16.  Returns the launches of kernels 1, 6, 7."""
+    three routes at B = 16.  Returns the launches of kernels 1, 6, 7 and
+    11."""
     from music_generator_tpu_torch.data.dataset import compute_genre, load_all
     from music_generator_tpu_torch.data.synth import random_batch
     from music_generator_tpu_torch.generation.sampler import (Sampler,
@@ -3542,6 +3718,7 @@ def linear_time(cfg, card) -> dict:
     if train_launches != want or plain != 0:
         fail(f"linear: launches {train_launches}, expected {want} and no "
              f"plain call")
+    nadam_launches = check_nadam_fit("linear", steps, trainer.model)
     if not np.isfinite(hist["loss"]).all():
         fail("linear: non-finite training loss")
     model, loaded = build_or_load(fc, "cuda")
@@ -3616,7 +3793,8 @@ def linear_time(cfg, card) -> dict:
     log(f"phase 3n: {time.perf_counter() - started:.1f} s")
     return {"notegen": gen_launches,
             "lstm2_fwd": train_launches["lstm2_fwd"],
-            "lstm2_bwd": train_launches["lstm2_bwd"]}
+            "lstm2_bwd": train_launches["lstm2_bwd"],
+            "nadam": nadam_launches}
 
 
 def _flip_first_note(path: str, out: str) -> tuple:
@@ -3995,7 +4173,7 @@ def main() -> None:
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
     names = ["notegen", "biax_time", "biax_note", "lstm_recurrence", "lstm2",
-             "lstm2_masks"]
+             "lstm2_masks", "nadam"]
     libs = _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t:.1f} s")
     for lib in libs:
@@ -4050,6 +4228,7 @@ def main() -> None:
     check_lstm2_fwd_staged(cfg)
     check_lstm2_bwd_staged(cfg)
     mask_err = check_mask_kernel()
+    nadam_err = check_nadam(cfg)
 
     # -- 3. main path --------------------------------------------------------
     os.makedirs(WORK, exist_ok=True)
@@ -4278,6 +4457,20 @@ def main() -> None:
         "replaces": replaces, "launches": slice_launches[name],
         "max_abs_err": mask_err, "ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+    })
+    # Kernel 11 on the deepj cell's leaves; phase 3n's launches and the
+    # times on the linear kind's leaves under "linear_time".
+    nadam_times = time_nadam(cfg, card)
+    name, replaces, source = NADAM_KERNEL
+    ms, plain, bound = nadam_times["lstm"]
+    lin_ms, lin_plain, lin_bound = nadam_times["linear"]
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": train_launches[name],
+        "max_abs_err": nadam_err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "linear_time": {"launches": linear_launches[name], "ms": lin_ms,
+                        "plain_ms": lin_plain, "bound_ms": lin_bound},
     })
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     log(json.dumps({"multi_rank": mp_readings}))
