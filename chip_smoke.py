@@ -40,7 +40,11 @@ Phases (any failure exits non-zero, before the result line):
      and the lstm2 mask dump (kernel 10) against its plain version, bit
      for bit; and Nadam's multi-tensor update (kernel 11) against the plain
      per-leaf update over 20 steps on DeepJ's leaves at both time axes'
-     widths, bit for bit, two launches a step;
+     widths, bit for bit, two launches a step; and the linear time axis's
+     fused recurrence (kernel 12, `glru_scan` on the card) against its
+     plain version through autograd at the linear cell's shapes (S 128,
+     R 3,072, H 256, each layer's input width), float32 and bfloat16: hs
+     bit for bit, the gradients within 1e-5, one launch a direction;
   2b. kernel 1's bfloat16 instances, both flavors ("scan", the JAX
      Sampler's default arithmetic, and "fused", pallas_note_sample's at
      compute_dtype=bfloat16), against their bfloat16 plain versions
@@ -159,8 +163,9 @@ Phases (any failure exits non-zero, before the result line):
      3d's dropout-0 step (float32 kernels against the plain path, bfloat16
      kernels held to 3d's bars on fresh weights, both gate flavors, and
      read on the rebuilt weights), Trainer.fit for 1 epoch of the 3c
-     corpus with kernels 6 and 7 once a step and no other kernel or plain
-     version, every leaf of every step on Nadam's kernels, the checkpoint
+     corpus with kernels 6 and 7 once a step, kernel 12 once a direction
+     a time layer, and no other kernel or plain version, every leaf of
+     every step on Nadam's kernels, the checkpoint
      reloaded; Sampler.generate at G = 3 and 64
      with kernel 1 once a timestep, streams 0-2 event-identical to
      artifacts/linear_time_r19 (bytes reported); a linear-kind /generate
@@ -213,10 +218,14 @@ Phases (any failure exits non-zero, before the result line):
      Nadam's update a step on both time axes' leaves (device time with the
      L2 cache rewritten before every step, as a step's backward leaves it)
      against the plain per-leaf update's and one pass over the leaves'
-     bytes at HBM rate.
+     bytes at HBM rate; and kernel 12 a direction at the linear cell's
+     shapes in bfloat16 (device time with the L2 rewritten before every
+     call) against one pass over its tensors' bytes, its plain version and
+     the gates and tree it replaced.
 The line before the last holds the per-kernel JSON (kernel 1 with the
 note depths it ran; kernels 1, 6, 7 and 11 with phase 3n's launches under
-"linear_time", kernel 11 with its times on the linear kind's leaves; kernels 2-5 with phase 3r's launches under
+"linear_time", kernel 12 as glru_scan_fwd and glru_scan_bwd with phase
+3n's launches and the tree's ms, kernel 11 with its times on the linear kind's leaves; kernels 2-5 with phase 3r's launches under
 "augment_study"; kernel 1's bfloat16 instances as notegen_bf16_scan and
 notegen_bf16_fused with phase 3p's launches), the one before it phase
 3m's readings; the last
@@ -1010,14 +1019,17 @@ def check_lstm2_bwd_staged(cfg):
 
 def _training_wrappers():
     """(name prefix, wrapper, plain version) of every training kernel."""
-    from music_generator_tpu_torch.ops import biax, lstm2, recurrence
+    from music_generator_tpu_torch.ops import (biax, linear_scan, lstm2,
+                                               recurrence)
     return [("biax_time", biax.biax_time_stack,
              biax.biax_time_stack_reference),
             ("biax_note", biax.biax_note_stack,
              biax.biax_note_stack_reference),
             ("lstm2", lstm2.lstm2_stack, lstm2.lstm2_stack_reference),
             ("lstm_rec", recurrence.lstm_recurrence,
-             recurrence.lstm_recurrence_reference)]
+             recurrence.lstm_recurrence_reference),
+            ("glru_scan", linear_scan.glru_scan,
+             linear_scan.glru_scan_fused_reference)]
 
 
 def reset_counts():
@@ -3607,12 +3619,146 @@ def time_nadam(cfg, card, reps: int = 200) -> dict:
     return out
 
 
+GLRU_KERNEL = ("glru_scan",
+               "none: `jax.lax.associative_scan`, elementwise under XLA",
+               "music_generator_tpu_torch/csrc/glru_scan.cu")
+
+
+GLRU_BATCH = 64     # the linear cell's batch (portbench/traffic/train_b64)
+
+
+def glru_shapes(cfg):
+    """(S, R, [each time-axis layer's input width], H) of the linear time
+    axis at the linear cell's batch: S timesteps over R = B N rows."""
+    from music_generator_tpu_torch.models.deepj import build_model
+    lc = cfg.replace(time_axis_kind="linear")
+    model = build_model(lc, "cpu", seed=0)
+    widths = [layer.lstm.kernel.shape[0] for layer in model.time_axis]
+    return lc.seq_len, GLRU_BATCH * lc.num_notes, widths, lc.time_axis_units
+
+
+def check_glru(cfg) -> float:
+    """Kernel 12 (`glru_scan` on CUDA tensors, csrc/glru_scan.cu) against
+    its plain version (`glru_scan_fused_reference`) through autograd, at
+    the linear cell's shapes (S 128, R = B N, H 256, each layer's input
+    width), float32 and bfloat16: hs equal bit for bit, the gradients of
+    xs, W and b within 1e-5 relative (b's float32 sum runs in blocks of
+    rows), one launch a direction.  Returns the largest gradient gap."""
+    from music_generator_tpu_torch.ops.linear_scan import (
+        GLRUParams, glru_scan, glru_scan_fused_reference)
+    S, R, widths, H = glru_shapes(cfg)
+    worst = 0.0
+    for layer, d_in in enumerate(widths):
+        p = GLRUParams(d_in, H).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(layer)
+        with torch.no_grad():
+            p.kernel.uniform_(-1.0, 1.0, generator=gen).mul_(d_in ** -0.5)
+            p.bias.uniform_(-0.5, 0.5, generator=gen)
+        xs = torch.randn(S, R, d_in, device="cuda", generator=gen)
+        cot = torch.randn(S, R, H, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            runs = {}
+            for name, fn in (("kernel", glru_scan),
+                             ("plain", glru_scan_fused_reference)):
+                p.zero_grad()
+                x = xs.clone().requires_grad_(True)
+                launches = (glru_scan.fwd_launches, glru_scan.bwd_launches)
+                hs = fn(p, x, dt)
+                (hs.float() * cot).sum().backward()
+                torch.cuda.synchronize()
+                runs[name] = (hs.detach(), x.grad, p.kernel.grad.clone(),
+                              p.bias.grad.clone(), (
+                                  glru_scan.fwd_launches - launches[0],
+                                  glru_scan.bwd_launches - launches[1]))
+            k, r = runs["kernel"], runs["plain"]
+            gaps = [float((a.float() - b.float()).norm() / b.float().norm())
+                    for a, b in zip(k[1:4], r[1:4])]
+            same = torch.equal(k[0], r[0])
+            worst = max(worst, *gaps)
+            log(f"glru_scan layer {layer} (in {d_in}) {dt}: S {S}, R {R}, H "
+                f"{H}: hs equal {same} (max|d| "
+                f"{float((k[0].float() - r[0].float()).abs().max()):.3g}), "
+                f"gradient gaps xs / W / b "
+                + " / ".join(f"{g:.3g}" for g in gaps)
+                + f"; launches {k[4]} (plain {r[4]})")
+            if (not same or max(gaps) > 1e-5 or k[4] != (1, 1)
+                    or r[4] != (0, 0)):
+                fail(f"glru_scan layer {layer} {dt}: the kernels and their "
+                     f"plain version disagree")
+    return worst
+
+
+def time_glru(cfg, card, reps: int = 20) -> dict:
+    """ms a launch of kernel 12 by direction at the linear cell's shapes
+    in bfloat16 (S 128, R = B N, H 256), device time by the profiler with
+    the L2 rewritten before every call (the backward's time includes the
+    sum of its blocks' bias partials); beside it the bound (the bytes of
+    each tensor read or written once at HBM rate), the plain version's
+    device time, and the tree it replaced (the parent's gates and
+    associative_scan from the same P, and their autograd backward).
+    Returns {"fwd"/"bwd": (ms, plain ms, bound ms, tree ms)}."""
+    from music_generator_tpu_torch.ops import linear_scan as ls
+    S, R, _, H = glru_shapes(cfg)
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    P = (torch.randn(S, R, 2 * H, device="cuda", generator=gen)
+         * 1.5).to(dt)
+    bias = torch.randn(2 * H, device="cuda", generator=gen) * 0.3
+    dhs = torch.randn(S, R, H, device="cuda", generator=gen).to(dt)
+    hs = ls.glru_fwd(P, bias)
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda").bitwise_not_
+
+    def ms_of(fn, n):
+        k = profiled_kernels(fn, n, flush)
+        return sum(us for us, _ in k.values()) / n / 1e3, k
+
+    def tree_fwd(Pt):
+        pre = Pt + bias.to(dt)
+        g = torch.sigmoid(pre[..., :H])
+        z = torch.tanh(pre[..., H:])
+        return ls.associative_scan(1.0 - g, g * z)[1]
+
+    Pg = P.clone().requires_grad_(True)
+    tree_hs = tree_fwd(Pg)
+    es = P.element_size()
+    bounds = {"fwd": (3 * S * R * H * es + 2 * H * 4) / HBM_BYTES_PER_S,
+              "bwd": (6 * S * R * H * es + 4 * H * 4) / HBM_BYTES_PER_S}
+    cases = {
+        "fwd": (lambda: ls.glru_fwd(P, bias),
+                lambda: ls.glru_fwd_reference(P, bias),
+                lambda: tree_fwd(P)),
+        "bwd": (lambda: ls.glru_bwd(P, bias, hs, dhs),
+                lambda: ls.glru_bwd_reference(P, bias, hs, dhs),
+                lambda: torch.autograd.grad(tree_hs, Pg, dhs,
+                                            retain_graph=True)),
+    }
+    out = {}
+    for way, (kern, plain, tree) in cases.items():
+        ms, k = ms_of(kern, reps)
+        plain_ms, _ = ms_of(plain, 2)
+        tree_ms, tk = ms_of(tree, 3)
+        bound = bounds[way] * 1e3
+        out[way] = (ms, plain_ms, bound, tree_ms)
+        log(f"glru_scan {way} (S {S}, R {R}, H {H}, bfloat16, L2 rewritten): "
+            f"{ms:.5f} ms a launch on the device ("
+            + "; ".join(f"{n[:48]} {us / reps / 1e3:.5f} ms"
+                        for n, (us, _) in sorted(k.items()))
+            + f"); bound {bound:.5f} ms by bytes, {bound / ms:.3f} of it; "
+            f"plain version {plain_ms:.3f} ms; the tree {tree_ms:.4f} ms in "
+            f"{sum(c for _, c in tk.values()) / 3:.0f} launches "
+            f"({tree_ms / ms:.1f}x) ({card})")
+    return out
+
+
 # Phase 3n: the linear time axis (time_axis_kind="linear") at
 # default_config() widths on the r4 weights rebuilt by
 # tools/common.py::linear_params(r4, seed=0).  Its training kernels a step
-# (the note axis's fused two-layer stack) and the JAX-CPU samples of
-# artifacts/linear_time_r19.
-LINEAR_STEP = {"lstm2_fwd": 1, "lstm2_bwd": 1}
+# (the note axis's fused two-layer stack, and csrc/glru_scan.cu once a
+# direction for each of the time axis's two layers) and the JAX-CPU samples
+# of artifacts/linear_time_r19.
+LINEAR_STEP = {"lstm2_fwd": 1, "lstm2_bwd": 1, "glru_scan_fwd": 2,
+               "glru_scan_bwd": 2}
 LINEAR_SAMPLES = os.path.join(ROOT, "artifacts", "linear_time_r19",
                               "samples")
 
@@ -3794,6 +3940,8 @@ def linear_time(cfg, card) -> dict:
     return {"notegen": gen_launches,
             "lstm2_fwd": train_launches["lstm2_fwd"],
             "lstm2_bwd": train_launches["lstm2_bwd"],
+            "glru_scan_fwd": train_launches["glru_scan_fwd"],
+            "glru_scan_bwd": train_launches["glru_scan_bwd"],
             "nadam": nadam_launches}
 
 
@@ -4173,7 +4321,7 @@ def main() -> None:
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
     names = ["notegen", "biax_time", "biax_note", "lstm_recurrence", "lstm2",
-             "lstm2_masks", "nadam"]
+             "lstm2_masks", "nadam", "glru_scan"]
     libs = _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t:.1f} s")
     for lib in libs:
@@ -4229,6 +4377,7 @@ def main() -> None:
     check_lstm2_bwd_staged(cfg)
     mask_err = check_mask_kernel()
     nadam_err = check_nadam(cfg)
+    glru_err = check_glru(cfg)
 
     # -- 3. main path --------------------------------------------------------
     os.makedirs(WORK, exist_ok=True)
@@ -4297,7 +4446,10 @@ def main() -> None:
     slice_launches = slice_counts()
     log(f"validators and primed generation: kernel launches "
         f"{slice_launches}")
-    idle = [k for k, v in slice_launches.items() if v == 0]
+    # The validators and primed generation run the LSTM time axis; kernel
+    # 12 is the linear kind's (phases 2 and 3n).
+    idle = [k for k, v in slice_launches.items()
+            if v == 0 and not k.startswith("glru_scan")]
     if idle:
         fail(f"kernels not launched on the validators' and primed "
              f"generation's path: {idle}")
@@ -4472,6 +4624,19 @@ def main() -> None:
         "linear_time": {"launches": linear_launches[name], "ms": lin_ms,
                         "plain_ms": lin_plain, "bound_ms": lin_bound},
     })
+    # Kernel 12 at the linear cell's shapes; phase 3n's launches.
+    glru_times = time_glru(cfg, card)
+    name, replaces, source = GLRU_KERNEL
+    for way in ("fwd", "bwd"):
+        ms, plain, bound, tree = glru_times[way]
+        kernels.append({
+            "name": f"{name}_{way}", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": linear_launches[f"{name}_{way}"],
+            "max_abs_err": glru_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "tree_ms": tree,
+        })
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     log(json.dumps({"multi_rank": mp_readings}))
     log(json.dumps({"kernels": kernels}))

@@ -13,8 +13,9 @@ batch size and route:
   * `lstm_per_layer`: `fused_biax_v3=False, fused_axis_kernel=False`, one
     recurrence per layer (kernels 8 and 9);
   * `linear`: `time_axis_kind="linear"`, the time axis one `glru_scan` per
-    layer (plain PyTorch operations, as XLA runs JAX's associative scan)
-    and the note axis one fused two-layer stack (kernels 6 and 7).
+    layer (on the card one launch of `csrc/glru_scan.cu` a direction; on
+    the CPU the associative scan's tree) and the note axis one fused
+    two-layer stack (kernels 6 and 7).
 
 Each route runs WARMUP steps, then three runs of `steps` steps timed on
 the host clock around a synchronised run; the median run gives host ms a
@@ -56,11 +57,13 @@ TOP = 8           # kernels listed by device ms a step
 
 
 def _wrappers():
-    from music_generator_tpu_torch.ops import biax, lstm2, recurrence
+    from music_generator_tpu_torch.ops import (biax, linear_scan, lstm2,
+                                               recurrence)
     return {"biax_time": biax.biax_time_stack,
             "biax_note": biax.biax_note_stack,
             "lstm2": lstm2.lstm2_stack,
-            "lstm_rec": recurrence.lstm_recurrence}
+            "lstm_rec": recurrence.lstm_recurrence,
+            "glru_scan": linear_scan.glru_scan}
 
 
 def launch_counts() -> Dict[str, int]:

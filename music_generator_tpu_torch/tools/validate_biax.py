@@ -97,6 +97,15 @@ def _plain_lstm2(x0, s1m, w0, b0, b1, u0, w1, u1, **kw):
                                        z, z, **kw)
 
 
+def _plain_glru(p, xs, compute_dtype=torch.float32):
+    """glru_scan's plain version where it launches kernels (CUDA tensors);
+    elsewhere glru_scan itself, which is plain there."""
+    from music_generator_tpu_torch.ops import linear_scan
+    if xs.is_cuda:
+        return linear_scan.glru_scan_fused_reference(p, xs, compute_dtype)
+    return linear_scan.glru_scan(p, xs, compute_dtype)
+
+
 @contextlib.contextmanager
 def plain_stacks():
     """Run DeepJ.forward through the plain versions of every training
@@ -104,16 +113,17 @@ def plain_stacks():
     from music_generator_tpu_torch.models import deepj
     from music_generator_tpu_torch.ops import biax, recurrence
     saved = (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
-             recurrence.lstm_recurrence)
+             recurrence.lstm_recurrence, deepj.glru_scan)
     deepj.biax_time_stack = biax.biax_time_stack_reference
     deepj.biax_note_stack = biax.biax_note_stack_reference
     deepj.lstm2_stack = _plain_lstm2
     recurrence.lstm_recurrence = recurrence.lstm_recurrence_reference
+    deepj.glru_scan = _plain_glru
     try:
         yield
     finally:
         (deepj.biax_time_stack, deepj.biax_note_stack, deepj.lstm2_stack,
-         recurrence.lstm_recurrence) = saved
+         recurrence.lstm_recurrence, deepj.glru_scan) = saved
 
 
 def one_step(cfg, state, batch, plain: bool):
